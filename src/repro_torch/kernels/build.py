@@ -1,0 +1,135 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles, on first use, into its own shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+
+The library name carries a hash of the sources and flags, so an edited
+source is never served from a stale build.  Several sources build in
+parallel (one ``nvcc`` process each).  A failed build raises; nothing falls
+back to another implementation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("log_einsum_exp_fwd", "grouped_fwd")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}  # loaded libraries, one per source
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the toolkit's
+    default location; raises when none exists."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise KernelBuildError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+        "kernels cannot be built"
+    )
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES, force: bool = False) -> Dict[str, str]:
+    """Compile the named sources (all by default) that have no current
+    library, in parallel.  Returns {name: nvcc's ptxas report}; an empty
+    report means the library was already built."""
+    names = list(names)
+    for n in names:
+        if n not in SOURCES:
+            raise KeyError(f"unknown kernel source {n!r}; one of {SOURCES}")
+    todo = [n for n in names if force or not _library_path(n).exists()]
+    if not todo:
+        return {n: "" for n in names}
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    reports, failed = {}, []
+    try:
+        for n in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{n}.cu")]
+            procs[n] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        for n, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(
+                    f"--- {n}.cu (nvcc exit {proc.returncode}) ---\n{log}")
+                continue
+            os.replace(tmp, _library_path(n))
+            reports[n] = log
+    finally:
+        for tmp, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if failed:
+        raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
+    return {n: reports.get(n, "") for n in names}
+
+
+def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """The loaded library of one source, building it first if needed.
+    ``signatures`` maps each C entry point to its ``argtypes``; every entry
+    returns an int (a CUDA error code)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _library_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        lib.lee_error_string.argtypes = [ctypes.c_int]
+        lib.lee_error_string.restype = ctypes.c_char_p
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code other than 0."""
+    if err != 0:
+        msg = lib.lee_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
