@@ -11,9 +11,10 @@ state as ``nn.Parameter``s: ``phi`` (leaf EF parameters), ``einsum`` and
     pair's mixing -> root log-densities.
 
 On a CUDA device the two log-einsum-exp ops launch hand-written kernels
-(``repro_torch.kernels``); on the CPU they run their plain PyTorch versions.
-The card runs only what has a kernel: the forward pass (no autograd through
-the kernels; serve under ``torch.inference_mode()``) of plans without
+(``repro_torch.kernels``), forward and, under autograd, backward; on the
+CPU they run their plain PyTorch versions.  So the bottom-up pass serves
+under ``torch.inference_mode()`` and trains by autodiff EM
+(``repro_torch.core.em``) on the card.  The card runs only plans without
 gather segments.
 
 Also implemented: exact marginalization (evidence masks), ancestral and

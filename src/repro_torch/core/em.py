@@ -1,0 +1,225 @@
+"""Expectation-Maximization via automatic differentiation (paper §3.5).
+
+For a log-output circuit,
+
+    dlogP/dw_{S,N} * w_{S,N}  =  (1/P) dP/dS N  =  n_{S,N}(x)      (Eq. 6)
+    dlogP/dlogL               =  (1/P) dP/dL L  =  p_L(x)
+
+so the whole E-step is one ``torch.autograd.grad`` of the batch
+log-likelihood, with the sum over the data done by autodiff itself.  On the
+card that backward pass runs the hand-written backward kernels
+(``repro_torch.kernels``).  The M-step is a renormalisation (sums) and a
+weighted moment average (EF leaves, Eq. 7).
+
+Two training modes:
+  * ``em_update``            -- full/minibatch statistics, exact M-step.
+  * ``stochastic_em_update`` -- Sato (1999) online EM:
+    p <- (1 - l) p + l p_mini (Eqs. 8/9).
+
+Parameters are the ``EiNet`` module's own; the updates here return new
+parameter dicts in the reference's layout (``phi``, ``einsum``, ``mixing``,
+``class_prior``) and change nothing.  ``load_params`` writes one into the
+module.  The reference's psum over data axes is not carried here
+(distribution is later work).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.core.einet import EiNet
+from repro_torch.core.layers import (
+    normalize_einsum_weights,
+    normalize_mixing_weights,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class EMConfig:
+    laplace_alpha: float = 1e-4  # Laplace smoothing on sum-weight statistics
+    stat_floor: float = 1e-12
+    step_size: float = 0.5  # lambda for stochastic EM (paper uses 0.5)
+
+
+def params_of(model: EiNet) -> Dict[str, Any]:
+    """The module's parameters in the reference's dict layout (detached
+    views, not copies)."""
+    return {
+        "phi": model.phi.detach(),
+        "einsum": [w.detach() for w in model.einsum],
+        "mixing": [v.detach() for v in model.mixing],
+        "class_prior": model.class_prior.detach(),
+    }
+
+
+@torch.no_grad()
+def load_params(model: EiNet, params: Dict[str, Any]) -> None:
+    """Copy a parameter dict into the module's parameters, in place."""
+    model.phi.copy_(params["phi"])
+    for p, new in zip(model.einsum, params["einsum"]):
+        p.copy_(new)
+    for p, new in zip(model.mixing, params["mixing"]):
+        p.copy_(new)
+    model.class_prior.copy_(params["class_prior"])
+
+
+def leaf_scatter(model: EiNet, s_phi_pairs: torch.Tensor,
+                 s_den_pairs: torch.Tensor):
+    """Fan per-pair leaf statistics out to parameter layout: (P, K, |T|) ->
+    (D, K, R, |T|) and (P, K) -> (D, K, R).
+
+    Every (variable, replica) pair belongs to exactly one leaf, so this is a
+    scatter to unique rows (``index_copy_``, no accumulation)."""
+    d, k, r = model.num_vars, model.K, model.leaf_spec.num_replica
+    tdim = model.ef.num_stats
+    flat = model.leaf_pair_var * r + model.leaf_pair_rep  # unique per pair
+    s_phi = s_phi_pairs.new_zeros((d * r, k, tdim)).index_copy_(
+        0, flat, s_phi_pairs).reshape(d, r, k, tdim).transpose(1, 2)
+    s_den = s_den_pairs.new_zeros((d * r, k)).index_copy_(
+        0, flat, s_den_pairs).reshape(d, r, k).transpose(1, 2)
+    return s_phi, s_den
+
+
+def em_statistics(model: EiNet, x: torch.Tensor) -> Dict[str, Any]:
+    """E-step: expected statistics for every parameter block, via one
+    ``torch.autograd.grad`` of the batch-summed log-likelihood with respect
+    to the einsum weights, the mixing weights, the leaf rows and the
+    log-prior.
+
+    Returns a dict with:
+      n_einsum: list of (L, k_out, K, K)    -- sum-node statistics n_{S,N}
+      n_mixing: list of (M, C, k_out)       -- (0, 0, k_out) zeros without mixing
+      s_phi:    (D, K, R, |T|)              -- sum_x p_L(x) T(x)
+      s_den:    (D, K, R)                   -- sum_x p_L(x)
+      n_class:  (num_classes,)
+      ll:       scalar summed log-likelihood (for monitoring)
+      count:    scalar number of rows
+    """
+    with torch.no_grad():
+        # the leaf rows are an input of the differentiated pass, not a
+        # function of phi: their gather's backward would accumulate with
+        # atomics on CUDA
+        leaf_rows = model._leaf_rows(model.leaf_log_prob(x, None))
+    einsum_w = list(model.einsum)
+    mixing_v = list(model.mixing)
+    with torch.enable_grad():
+        lr = leaf_rows.requires_grad_(True)
+        logprior = torch.log(model.class_prior.detach()).requires_grad_(True)
+        root = model.forward_from_e(None, leaf_rows=lr)
+        val = torch.logsumexp(root + logprior[None, :], dim=-1).sum()
+        grads = torch.autograd.grad(
+            val, einsum_w + mixing_v + [lr, logprior], allow_unused=True)
+    n = len(einsum_w)
+    g_einsum, g_mixing = grads[:n], grads[n: 2 * n]
+    g_leaf, g_prior = grads[2 * n], grads[2 * n + 1]
+    with torch.no_grad():
+        # sum-node statistics: n = W * dlogP/dW (summed over the batch by AD)
+        n_einsum = [w.detach() * g for w, g in zip(einsum_w, g_einsum)]
+        n_mixing = [v.detach() * (torch.zeros_like(v) if g is None else g)
+                    for v, g in zip(mixing_v, g_mixing)]
+        # leaf statistics: the leaf-row posteriors fanned out to (d, k, r)
+        t = model.ef.sufficient_statistics(x)  # (B, D, |T|)
+        g_pairs = g_leaf[:, model.leaf_pair_leaf, :]  # (B, P, K)
+        t_pairs = t[:, model.leaf_pair_var, :]  # (B, P, |T|)
+        s_phi_pairs = torch.einsum("bpk,bpt->pkt", g_pairs, t_pairs)
+        s_den_pairs = g_pairs.sum(0)
+        s_phi, s_den = leaf_scatter(model, s_phi_pairs, s_den_pairs)
+    return {
+        "n_einsum": n_einsum,
+        "n_mixing": n_mixing,
+        "s_phi": s_phi,
+        "s_den": s_den,
+        # dlogP/dlog(prior_c) = sum_x posterior(c | x): expected class counts
+        "n_class": g_prior,
+        "ll": val.detach(),
+        "count": torch.tensor(float(x.shape[0]), device=x.device),
+    }
+
+
+@torch.no_grad()
+def m_step(model: EiNet, stats: Dict[str, Any], cfg: EMConfig) -> Dict[str, Any]:
+    """Exact M-step from accumulated statistics."""
+    alpha = cfg.laplace_alpha
+    einsum_w = [normalize_einsum_weights(n + alpha, floor=cfg.stat_floor)
+                for n in stats["n_einsum"]]
+    mixing_v = []
+    for i, (n, spec) in enumerate(zip(stats["n_mixing"], model.pair_specs)):
+        if spec.mix_global is None:
+            mixing_v.append(n)
+        else:
+            mask = model._table(i, "mix_mask")
+            mixing_v.append(normalize_mixing_weights(
+                n + alpha * mask[:, :, None], mask, floor=cfg.stat_floor))
+    den = torch.clamp(stats["s_den"], min=cfg.stat_floor)
+    phi = model.ef.project_phi(stats["s_phi"] / den[..., None])
+    prior = stats["n_class"] + alpha
+    return {
+        "phi": phi,
+        "einsum": einsum_w,
+        "mixing": mixing_v,
+        "class_prior": prior / torch.sum(prior),
+    }
+
+
+def em_update(model: EiNet, x: torch.Tensor, cfg: EMConfig = EMConfig()):
+    """One full EM update on a batch (monotone on that batch).  Returns
+    (new params dict, mean LL as a 0-d tensor); the module is unchanged."""
+    stats = em_statistics(model, x)
+    return m_step(model, stats, cfg), stats["ll"] / stats["count"]
+
+
+@torch.no_grad()
+def blend_params(model: EiNet, params: Dict[str, Any], mini: Dict[str, Any],
+                 step_size: float) -> Dict[str, Any]:
+    """Sato online-EM interpolation (Eqs. 8/9):  p <- (1-l) p + l p_mini,
+    with phi projected back onto its domain afterwards."""
+    lam = step_size
+
+    def blend(old, new):
+        return (1.0 - lam) * old + lam * new
+
+    return {
+        "phi": model.ef.project_phi(blend(params["phi"], mini["phi"])),
+        "einsum": [blend(o, n) for o, n in zip(params["einsum"], mini["einsum"])],
+        "mixing": [blend(o, n) for o, n in zip(params["mixing"], mini["mixing"])],
+        "class_prior": blend(params["class_prior"], mini["class_prior"]),
+    }
+
+
+def stochastic_em_update(model: EiNet, x: torch.Tensor,
+                         cfg: EMConfig = EMConfig()):
+    """Sato-style online EM (Eqs. 8/9): blend the minibatch M-step into the
+    module's parameters with step lambda.  Returns (new params dict, mean
+    LL); the module is unchanged."""
+    mini, ll = em_update(model, x, cfg)
+    return blend_params(model, params_of(model), mini, cfg.step_size), ll
+
+
+def accumulate_statistics(acc: Dict[str, Any],
+                          new: Dict[str, Any]) -> Dict[str, Any]:
+    """Running sum of E-step statistics across minibatches (full-batch EM on
+    datasets that do not fit in one batch)."""
+    out = {}
+    for key, a in acc.items():
+        b = new[key]
+        out[key] = ([p + q for p, q in zip(a, b)] if isinstance(a, list)
+                    else a + b)
+    return out
+
+
+def zeros_like_statistics(model: EiNet) -> Dict[str, Any]:
+    dev = model.device
+    d, k, r = model.phi.shape[:3]
+    tdim = model.ef.num_stats
+    return {
+        "n_einsum": [torch.zeros_like(w) for w in model.einsum],
+        "n_mixing": [torch.zeros_like(v) for v in model.mixing],
+        "s_phi": torch.zeros((d, k, r, tdim), device=dev),
+        "s_den": torch.zeros((d, k, r), device=dev),
+        "n_class": torch.zeros_like(model.class_prior),
+        "ll": torch.zeros((), device=dev),
+        "count": torch.zeros((), device=dev),
+    }

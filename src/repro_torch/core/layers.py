@@ -10,7 +10,8 @@ einsum contracts numbers in (0, 1], then add the maxes back after the ``log``.
 versions of the port's two forward kernels (``repro_torch.kernels``): the
 kernel wrappers run them for CPU tensors, and the tests and ``chip_smoke.py``
 hold the kernels against them.  ``log_mix_exp`` has no kernel (the
-reference runs it as an XLA op), so this is its only implementation.
+reference runs it as an XLA op with a custom VJP), so this is its only
+implementation, forward and backward.
 """
 
 from __future__ import annotations
@@ -22,6 +23,34 @@ import torch
 # Large-negative stand-in for log(0): keeps gradients finite where -inf
 # would produce NaNs through max/exp.
 NEG_INF = -1e30
+
+
+def stabilized_frame(ln_left: torch.Tensor, ln_right: torch.Tensor):
+    """The log-einsum-exp trick's frame (Eq. 4): the row maxes clamped at
+    NEG_INF and the exp'd inputs, each in (0, 1].  Shared by the forward and
+    the backward, so the backward works in the frame the forward logged."""
+    a = torch.clamp(torch.amax(ln_left, dim=-1, keepdim=True), min=NEG_INF)
+    ap = torch.clamp(torch.amax(ln_right, dim=-1, keepdim=True), min=NEG_INF)
+    return a, ap, torch.exp(ln_left - a), torch.exp(ln_right - ap)
+
+
+def cell_sums(w: torch.Tensor, el: torch.Tensor,
+              er: torch.Tensor) -> torch.Tensor:
+    """s[b,l,k] = sum_i el[b,l,i] (sum_j W[l,k,i,j] er[b,l,j]): (B, L, K_out).
+
+    Written as elementwise multiply-adds in a fixed (j, then i) order rather
+    than one einsum: the CPU's batched matrix products round a row
+    differently depending on how many rows share the call, and a row's
+    result must depend on that row alone (the serving engine pads batches).
+    The transient is (B, L, K_out, K)."""
+    k = w.shape[-1]
+    t = w[None, ..., 0] * er[:, :, None, None, 0]
+    for j in range(1, k):
+        t = t + w[None, ..., j] * er[:, :, None, None, j]
+    s = t[..., 0] * el[:, :, None, 0]
+    for i in range(1, k):
+        s = s + t[..., i] * el[:, :, None, i]
+    return s
 
 
 def log_einsum_exp(w: torch.Tensor, ln_left: torch.Tensor,
@@ -37,16 +66,11 @@ def log_einsum_exp(w: torch.Tensor, ln_left: torch.Tensor,
       (B, L, K_out) log-densities  log S[b,l,k] = log sum_ij W[l,k,i,j]
                                                   exp(ln_left[b,l,i])
                                                   exp(ln_right[b,l,j]).
+
+    Fully-marginalized rows, whose max is -inf, take the NEG_INF clamp.
     """
-    a = torch.amax(ln_left, dim=-1, keepdim=True)  # (B, L, 1)
-    ap = torch.amax(ln_right, dim=-1, keepdim=True)
-    # Guard fully-marginalized / degenerate rows where the max itself is -inf.
-    a = torch.clamp(a, min=NEG_INF)
-    ap = torch.clamp(ap, min=NEG_INF)
-    el = torch.exp(ln_left - a)  # in (0, 1]
-    er = torch.exp(ln_right - ap)
-    s = torch.einsum("lkij,bli,blj->blk", w, el, er)
-    return a + ap + torch.log(s)
+    a, ap, el, er = stabilized_frame(ln_left, ln_right)
+    return a + ap + torch.log(cell_sums(w, el, er))
 
 
 def grouped_log_einsum_exp(ws: Sequence[torch.Tensor],
@@ -60,6 +84,51 @@ def grouped_log_einsum_exp(ws: Sequence[torch.Tensor],
         half = w.shape[0]
         cur = log_einsum_exp(w, cur[:, :half], cur[:, half: 2 * half])
     return cur
+
+
+# Floor for the stabilized sum when dividing a backward cotangent: a NORMAL
+# float32 (the reference's _S_FLOOR), so fully saturated rows, whose sum is
+# exactly 0, give finite gradients.
+S_FLOOR = 1e-30
+
+
+def _mix_frame(v, ln, mask):
+    """The mixing layer's frame: clamped max over the children, the exp'd
+    (masked) inputs and the stabilized sum, added in child order."""
+    lnm = torch.where(mask[None, :, :, None] > 0, ln,
+                      torch.full_like(ln, NEG_INF))
+    a = torch.clamp(torch.amax(lnm, dim=2, keepdim=True), min=NEG_INF)
+    e = torch.exp(lnm - a)  # (B, M, C, K)
+    terms = v[None] * e
+    s = terms[:, :, 0]
+    for c in range(1, terms.shape[2]):
+        s = s + terms[:, :, c]
+    return a, e, s
+
+
+class _LogMixExp(torch.autograd.Function):
+    """The reference's custom VJP (``repro/core/layers.py`` ``_lme_bwd``):
+    the backward recomputes the frame from (v, ln, mask) and emits
+
+        dv[m,c,k]    = sum_b g[b,m,k] exp(ln[b,m,c,k] - a) / s
+        dln[b,m,c,k] = g[b,m,k] v[m,c,k] exp(ln[b,m,c,k] - a) / s
+
+    with padded children zeroed: on fully marginalized NEG_INF rows
+    exp(ln - a) = 1 even where mask == 0."""
+
+    @staticmethod
+    def forward(ctx, v, ln, mask):
+        ctx.save_for_backward(v, ln, mask)
+        a, _, s = _mix_frame(v, ln, mask)
+        return a[:, :, 0, :] + torch.log(s)
+
+    @staticmethod
+    def backward(ctx, g):
+        v, ln, mask = ctx.saved_tensors
+        _, e, s = _mix_frame(v, ln, mask)
+        ginv = g / torch.clamp(s, min=S_FLOOR)  # (B, M, K)
+        ge = ginv[:, :, None, :] * e * mask[None, :, :, None]
+        return ge.sum(0), ge * v[None], None
 
 
 def log_mix_exp(v: torch.Tensor, ln: torch.Tensor,
@@ -76,16 +145,13 @@ def log_mix_exp(v: torch.Tensor, ln: torch.Tensor,
       (B, M, K) log-densities  log sum_c v[m,c,k] exp(ln[b,m,c,k]).
 
     The sum over C runs as elementwise adds in child order, so a row's
-    result does not depend on how many rows share the call.
+    result does not depend on how many rows share the call.  Under autograd
+    it is a ``torch.autograd.Function`` with the reference's residual-
+    recompute backward; it has no kernel, on the card or off it.
     """
-    lnm = torch.where(mask[None, :, :, None] > 0, ln,
-                      torch.full_like(ln, NEG_INF))
-    a = torch.clamp(torch.amax(lnm, dim=2, keepdim=True), min=NEG_INF)
-    e = torch.exp(lnm - a)  # (B, M, C, K)
-    terms = v[None] * e
-    s = terms[:, :, 0]
-    for c in range(1, terms.shape[2]):
-        s = s + terms[:, :, c]
+    if torch.is_grad_enabled() and (v.requires_grad or ln.requires_grad):
+        return _LogMixExp.apply(v, ln, mask)
+    a, _, s = _mix_frame(v, ln, mask)
     return a[:, :, 0, :] + torch.log(s)
 
 

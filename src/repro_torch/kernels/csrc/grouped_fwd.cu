@@ -10,14 +10,18 @@
 //
 // Layout: one block per (output cell c, tile of rows).  The block loads the
 // tile's 2^G input rows of its subtree into shared memory, then walks the G
-// depths there: stage that depth's 2^(G-1-g) weight cells, stabilise every
-// row in place (clamped max, exp), and write each (row, m, k) output with
+// depths there: stabilise every row in place (clamped max, exp), then stage
+// that depth's 2^(G-1-g) weight cells and write each (row, m, k) output with
 // lee_cell_sum, the per-cell arithmetic of the per-layer kernel.  Only the
 // final depth's (tile, K_out) outputs go back to device memory.  Buffers
-// ping-pong between two activation areas; the wrapper picks the row tile so
-// that weights + activations fit in 227 KB, and refuses a subtree whose one
-// row does not fit.  Rows past the end of the batch are neither read nor
-// written, and a row's result depends on nothing but that row.
+// ping-pong between two activation areas.  The wrapper picks the largest
+// row tile whose activations fit in 227 KB beside at least one weight row
+// (K^2 floats), and gives the rest to the weights: a depth whose cells do
+// not fit is staged a few whole cells at a time, or one cell's K_out tile at
+// a time (lee_chunks) -- einet_rat_large's K = 64 cells are 1 MB each.  It
+// refuses a subtree only when one row and one weight row do not fit.  Rows
+// past the end of the batch are neither read nor written, and a row's result
+// depends on nothing but that row, whatever the staging.
 //
 // What bounds it on the H100, at einet_rat's fused run [0,4) (B = 2048,
 // L_out = 10, x (2048, 160, 10), K = 10, K_out 10/10/10/1): it must read x
@@ -51,7 +55,7 @@ __global__ void __launch_bounds__(kThreads) grouped_fwd_kernel(
   const int b0 = blockIdx.y * tile_b;
   const int nb = min(tile_b, B - b0);
   const int KK = K * K;
-  float* wbuf = smem;             // one depth's weight cells
+  float* wbuf = smem;             // a chunk of one depth's weight cells
   float* bufa = wbuf + w_floats;  // inputs, then odd depths' outputs
   float* bufb = bufa + a_floats;  // even depths' outputs
   float* amax = bufb + b_floats;  // tile_b * 2^G clamped row maxes
@@ -72,28 +76,40 @@ __global__ void __launch_bounds__(kThreads) grouped_fwd_kernel(
     const int H = M >> 1;
     const int ko = gw.k_out[d];
     const float* wd = gw.w[d];
+    const LeeChunks ch = lee_chunks(H, ko, KK, w_floats);
     // the previous depth's outputs are complete, and nothing reads wbuf or
     // amax any more
     __syncthreads();
-    for (int t = threadIdx.x; t < H * ko * KK; t += blockDim.x) {
-      const int m = t / (ko * KK);
-      const int rem = t - m * ko * KK;
-      wbuf[t] = wd[((long long)c + (long long)m * L_out) * ko * KK + rem];
-    }
     for (int t = threadIdx.x; t < nb * M; t += blockDim.x) {
       amax[t] = lee_stabilize(cur + t * K, K);
     }
-    __syncthreads();
-    for (int o = threadIdx.x; o < nb * H * ko; o += blockDim.x) {
-      const int r = o / (H * ko);
-      const int rem = o - r * H * ko;
-      const int m = rem / ko;
-      const int k = rem - m * ko;
-      const int lrow = r * M + m;
-      const int rrow = lrow + H;
-      const float s = lee_cell_sum(wbuf + (m * ko + k) * KK, cur + lrow * K,
-                                   cur + rrow * K, K);
-      nxt[o] = (amax[lrow] + amax[rrow]) + logf(s);
+    for (int m0 = 0; m0 < H; m0 += ch.cells) {
+      const int mn = min(ch.cells, H - m0);
+      for (int k0 = 0; k0 < ko; k0 += ch.kt) {
+        const int kn = min(ch.kt, ko - k0);
+        // stage cells [m0, m0+mn), outputs [k0, k0+kn) of this depth, once
+        // the previous chunk's outputs are written
+        __syncthreads();
+        for (int t = threadIdx.x; t < mn * kn * KK; t += blockDim.x) {
+          const int m = t / (kn * KK);
+          const int rem = t - m * kn * KK;
+          wbuf[t] = wd[((long long)c + (long long)(m0 + m) * L_out) * ko * KK +
+                       (long long)k0 * KK + rem];
+        }
+        __syncthreads();
+        for (int o = threadIdx.x; o < nb * mn * kn; o += blockDim.x) {
+          const int r = o / (mn * kn);
+          const int rem = o - r * mn * kn;
+          const int m = rem / kn;
+          const int k = rem - m * kn;
+          const int lrow = r * M + m0 + m;
+          const int rrow = lrow + H;
+          const float s = lee_cell_sum(wbuf + (m * kn + k) * KK,
+                                       cur + lrow * K, cur + rrow * K, K);
+          nxt[(r * H + m0 + m) * ko + k0 + k] =
+              (amax[lrow] + amax[rrow]) + logf(s);
+        }
+      }
     }
     float* tmp = cur;
     cur = nxt;
@@ -113,9 +129,9 @@ __global__ void __launch_bounds__(kThreads) grouped_fwd_kernel(
 
 // ws[d] (L_out 2^(G-1-d), k_outs[d], K, K) contiguous, interior k_outs == K;
 // x (B, L_out 2^G, K) with unit strides over rows and K and batch stride
-// x_sb; out (B, L_out, k_outs[G-1]) contiguous.  w_floats, a_floats and
-// b_floats size the shared-memory areas for a row tile of tile_b (the
-// wrapper computes them).  Launches on `stream`; returns cudaGetLastError(),
+// x_sb; out (B, L_out, k_outs[G-1]) contiguous.  w_floats (at least K^2),
+// a_floats and b_floats size the shared-memory areas for a row tile of
+// tile_b (the wrapper computes them).  Launches on `stream`; returns cudaGetLastError(),
 // or cudaErrorInvalidValue for G outside [1, 8].
 extern "C" int grouped_fwd(const float* const* ws, const int* k_outs, int G,
                            const float* x, float* out, int B, int L_out, int K,

@@ -8,9 +8,9 @@ nothing else:
   * any other device raises.
 
 No path falls back: a CUDA tensor never reaches the plain version, and a
-failed build or launch raises.  The CUDA kernels are forward-only, so on
-the card an op raises when autograd would have to differentiate through it
-(grad enabled and an input that requires grad).
+failed build or launch raises.  A ``KernelOp`` computes one function with
+no autograd of its own; ``ops`` pairs each forward op with its backward op
+in a ``torch.autograd.Function``.
 
 Each op counts its kernel launches and its plain-version calls in plain
 integers, so a run can show which path it went through.
@@ -45,7 +45,9 @@ class KernelOp:
         self.launches = 0
         self.plain_calls = 0
 
-    def __call__(self, *args):
+    def launch(self, *args):
+        """Run the kernel (CUDA tensors) or the plain version (CPU tensors)
+        on ``args`` and count it."""
         tensors = list(_tensors(args))
         if not tensors:
             raise TypeError(f"{self.name}: no tensor arguments")
@@ -56,12 +58,6 @@ class KernelOp:
                 f"{sorted({str(t.device) for t in tensors})}"
             )
         if device.type == "cuda":
-            if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-                raise RuntimeError(
-                    f"{self.name}: the CUDA kernel is forward-only (its "
-                    "backward kernel is not ported yet); call it under "
-                    "torch.inference_mode() or torch.no_grad()"
-                )
             out = self.kernel(*args)
             self.launches += 1
             return out
@@ -69,3 +65,5 @@ class KernelOp:
             self.plain_calls += 1
             return self.plain(*args)
         raise ValueError(f"{self.name}: unsupported device {device}")
+
+    __call__ = launch

@@ -8,9 +8,11 @@ from repro_torch.core.einet import EiNet
 from repro_torch.core.exponential_family import make_exponential_family
 
 
-def build_einet(cfg: EinetConfig, device=None, seed: int = 0) -> EiNet:
+def build_einet(cfg: EinetConfig, device=None, seed: int = 0,
+                grouped: bool = True) -> EiNet:
     """The config's EiNet with parameters initialised from ``seed``, on
-    ``device`` (CUDA unless ``device="cpu"``)."""
+    ``device`` (CUDA unless ``device="cpu"``); ``grouped=False`` plans every
+    pair as its own layer segment."""
     if cfg.structure == "pd":
         graph = poon_domingos(
             cfg.height, cfg.width, cfg.delta, cfg.num_channels, cfg.pd_axes
@@ -29,4 +31,5 @@ def build_einet(cfg: EinetConfig, device=None, seed: int = 0) -> EiNet:
             f"{cfg.name}: unsupported leaf family {cfg.exponential_family!r}"
         )
     return EiNet(graph, num_sums=cfg.num_sums, num_classes=cfg.num_classes,
-                 exponential_family=ef, device=device, seed=seed)
+                 exponential_family=ef, grouped=grouped, device=device,
+                 seed=seed)

@@ -1,7 +1,7 @@
-"""The port's kernel modules on the CPU: each kernel's plain PyTorch version
-against the JAX reference (its XLA path and its Pallas kernels in interpret
-mode), the CPU side of dispatch, and the launch-geometry rules the CUDA
-wrappers apply.  The CUDA kernels themselves run only on the card, where
+"""The port's kernel modules on the CPU: each kernel's plain PyTorch version,
+forward and backward, against the JAX reference (its XLA path and its
+Pallas kernels in interpret mode), the CPU side of dispatch and autograd,
+and the launch-geometry rules the CUDA wrappers apply.  The CUDA kernels themselves run only on the card, where
 ``chip_smoke.py`` holds them against these plain versions.
 
 Tolerance: rtol=1e-5, atol=1e-5 on finite outputs.  The order of summation
@@ -11,6 +11,7 @@ so bit equality is not expected; outputs at -inf, and at NEG_INF
 saturation, must match exactly.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -162,6 +163,12 @@ def test_other_devices_and_mixed_devices_raise():
 
 # ------------------------------------------------------- launch geometry
 def test_k_out_tile_fits_shared_memory():
+    assert log_einsum_exp.k_out_tile(10, 10, backward=True) == 10
+    kt = log_einsum_exp.k_out_tile(40, 40, backward=True)
+    assert 1 <= kt < 40
+    assert (log_einsum_exp.bwd_smem_bytes(40, kt)
+            <= log_einsum_exp.SMEM_LIMIT_BYTES
+            < log_einsum_exp.bwd_smem_bytes(40, kt + 1))
     assert log_einsum_exp.k_out_tile(10, 10) == 10
     assert log_einsum_exp.k_out_tile(10, 1) == 1
     kt = log_einsum_exp.k_out_tile(40, 40)  # one K=40 cell is 256 KB
@@ -173,15 +180,50 @@ def test_k_out_tile_fits_shared_memory():
 
 
 def test_grouped_tile_and_shared_memory_rules():
-    # einet_rat's fused run [0, 4): 32-row tiles, 8,000 weight floats
+    # einet_rat's fused run [0, 4): 32-row tiles, a whole depth's 8,000
+    # weight floats at a time
     tb = grouped.pick_tile_b(4, 10, [10, 10, 10, 1])
     w_f, a_f, b_f, total = grouped.smem_layout(4, 10, [10, 10, 10, 1], tb)
     assert tb == 32 and w_f == 8 * 10 * 100
     assert a_f == 32 * 16 * 10 and b_f == 32 * 8 * 10
     assert total <= log_einsum_exp.SMEM_LIMIT_BYTES
-    # a K=64 cell (einet_rat_large) does not fit even for one row: refused
+    # a K=64 subtree (einet_rat_large's fused [0, 2)): 1 MB cells are staged
+    # a K_out tile at a time beside 32-row tiles
+    tb = grouped.pick_tile_b(2, 64, [64, 64])
+    w_f, _, _, total = grouped.smem_layout(2, 64, [64, 64], tb)
+    assert tb == 32 and total <= log_einsum_exp.SMEM_LIMIT_BYTES
+    assert w_f < 64 * 64 * 64 and w_f >= 64 * 64
+    cells, kt = grouped.depth_chunks(2, 64, 64, w_f)
+    assert cells == 1 and 1 <= kt < 64
+    # refused only when one row and one weight row do not fit
     with pytest.raises(ValueError, match="single row"):
-        grouped.pick_tile_b(2, 64, [64, 64])
+        grouped.pick_tile_b(2, 240, [240, 240])
+
+
+def test_grouped_backward_shared_memory_rules():
+    # einet_rat's [0, 4) at a 32-row tile: one depth's weights, the
+    # 16+8+4+2 stabilised rows and maxes, cotangent areas of 8 and 16 rows
+    tb = grouped.pick_tile_b(4, 10, [10, 10, 10, 1], grouped.bwd_smem_layout)
+    w_f, c0, c1, total = grouped.bwd_smem_layout(4, 10, [10, 10, 10, 1], tb)
+    assert tb == 32 and w_f == 8000
+    assert c0 == 32 * 8 * 10 and c1 == 32 * 16 * 10
+    assert total == 4 * (8000 + 32 * 30 * 11 + c0 + c1) == 104_960
+    # K = 64 fits with K_out tiles, as in the forward
+    tb = grouped.pick_tile_b(2, 64, [64, 64], grouped.bwd_smem_layout)
+    w_f, _, _, total = grouped.bwd_smem_layout(2, 64, [64, 64], tb)
+    assert total <= log_einsum_exp.SMEM_LIMIT_BYTES
+    assert grouped.depth_chunks(2, 64, 64, w_f)[0] == 1
+    with pytest.raises(ValueError, match="single row"):
+        grouped.pick_tile_b(2, 240, [240, 240], grouped.bwd_smem_layout)
+
+
+@pytest.mark.parametrize("cells,k_out,k,w_floats,want", [
+    (8, 10, 10, 8000, (8, 10)),      # the whole depth
+    (8, 10, 10, 2500, (2, 10)),      # whole cells, two at a time
+    (2, 64, 64, 45056, (1, 11)),     # one cell's K_out tile
+])
+def test_depth_chunks(cells, k_out, k, w_floats, want):
+    assert grouped.depth_chunks(cells, k_out, k, w_floats) == want
 
 
 def test_group_geometry_rejects_non_canonical_runs():
@@ -203,8 +245,7 @@ def test_build_sources_exist_and_library_names_track_sources():
         text = src.read_text()
         assert "sm_90a" in text and "Replaces the TPU kernel" in text
         assert build._library_path(name).name.startswith(name + "-")
-    assert build._library_path(build.SOURCES[0]) != build._library_path(
-        build.SOURCES[1])
+    assert len({build._library_path(n) for n in build.SOURCES}) == 4
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
 
@@ -214,3 +255,135 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(build.os.path, "isfile", lambda _: False)
     with pytest.raises(build.KernelBuildError, match="nvcc not found"):
         build.build(force=True)
+
+
+# ------------------------------------------------------------------ backward
+def _check_grad(got, want):
+    """rtol/atol on every entry; where the reference's gradient is exactly 0
+    (inputs at -inf or saturated below the clamp), the port's is too."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    np.testing.assert_array_equal(got[want == 0], 0.0)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("k", KS)
+def test_log_einsum_exp_bwd_plain_matches_reference(k):
+    rng = np.random.RandomState(100 + k)
+    b, l_cells, k_out = 9, 3, (1 if k == 3 else k + 2)
+    w, x = _w(rng, l_cells, k_out, k), _x(rng, b, 2 * l_cells, k)
+    g = rng.randn(b, l_cells, k_out).astype(np.float32)
+    l, r = x[:, :l_cells], x[:, l_cells:]
+    got = log_einsum_exp.log_einsum_exp_bwd_plain(
+        torch.from_numpy(w), torch.from_numpy(l), torch.from_numpy(r),
+        torch.from_numpy(g))
+    # the reference's custom VJP: K2 in Pallas interpret mode
+    _, vjp = jax.vjp(ref_ops.log_einsum_exp, jnp.asarray(w), jnp.asarray(l),
+                     jnp.asarray(r))
+    for a, want in zip(got, vjp(jnp.asarray(g))):
+        _check_grad(a, want)
+    # XLA autodiff of the reference's plain op, off saturation
+    x = (rng.randn(b, 2 * l_cells, k) * 3).astype(np.float32)
+    l, r = x[:, :l_cells], x[:, l_cells:]
+    got = log_einsum_exp.log_einsum_exp_bwd_plain(
+        torch.from_numpy(w), torch.from_numpy(l), torch.from_numpy(r),
+        torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda *a: ref_layers.log_einsum_exp(*a, impl="xla"),
+                     jnp.asarray(w), jnp.asarray(l), jnp.asarray(r))
+    for a, want in zip(got, vjp(jnp.asarray(g))):
+        _check_grad(a, want)
+
+
+@pytest.mark.parametrize("shape", GROUP_SHAPES, ids=str)
+def test_grouped_bwd_plain_matches_reference(shape):
+    g_, l_out, k, kf = shape
+    rng = np.random.RandomState(200 + sum(shape))
+    ws = [_w(rng, l_out * 2 ** (g_ - 1 - d), k if d < g_ - 1 else kf, k)
+          for d in range(g_)]
+    x = _x(rng, 7, l_out * 2 ** g_, k)
+    go = rng.randn(7, l_out, kf).astype(np.float32)
+    gws, gx = grouped.grouped_log_einsum_exp_bwd_plain(
+        [torch.from_numpy(w) for w in ws], torch.from_numpy(x),
+        torch.from_numpy(go))
+    # K4 in Pallas interpret mode: one output cell a program, 8-row tiles
+    _, vjp = jax.vjp(lambda w, xx: ref_ops.grouped_log_einsum_exp(1, 8, w, xx),
+                     tuple(jnp.asarray(w) for w in ws), jnp.asarray(x))
+    want_ws, want_x = vjp(jnp.asarray(go))
+    for a, want in zip(gws, want_ws):
+        _check_grad(a, want)
+    _check_grad(gx, want_x)
+
+
+def test_autograd_ops_run_the_plain_backward_on_the_cpu():
+    rng = np.random.RandomState(4)
+    w = torch.from_numpy(_w(rng, 2, 3, 4)).requires_grad_(True)
+    x = torch.from_numpy((rng.randn(5, 4, 4) * 2).astype(np.float32))
+    x.requires_grad_(True)
+    ops.reset_counts()
+    out = ops.log_einsum_exp(w, x[:, :2], x[:, 2:])
+    g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32))
+    gw, gx = torch.autograd.grad(out, [w, x], g)
+    want = log_einsum_exp.log_einsum_exp_bwd_plain(
+        w.detach(), x.detach()[:, :2], x.detach()[:, 2:], g)
+    assert torch.equal(gw, want[0])
+    assert torch.equal(gx, torch.cat([want[1], want[2]], 1))
+    ws = [torch.from_numpy(_w(rng, 2, 4, 4)).requires_grad_(True),
+          torch.from_numpy(_w(rng, 1, 2, 4)).requires_grad_(True)]
+    out = ops.grouped_log_einsum_exp(ws, x)  # the weights go in a list
+    g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32))
+    grads = torch.autograd.grad(out, ws + [x], g)
+    want_ws, want_x = grouped.grouped_log_einsum_exp_bwd_plain(
+        [w.detach() for w in ws], x.detach(), g)
+    for a, b in zip(grads, want_ws + [want_x]):
+        assert torch.equal(a, b)
+    counts = {op.name: (op.launches, op.plain_calls) for op in ops.KERNEL_OPS}
+    assert counts == {"log_einsum_exp": (0, 1), "log_einsum_exp_bwd": (0, 1),
+                      "grouped_log_einsum_exp": (0, 1),
+                      "grouped_log_einsum_exp_bwd": (0, 1)}
+
+
+@pytest.mark.parametrize("b,m,c,k", [(5, 2, 3, 4), (4, 1, 10, 1)])
+def test_log_mix_exp_backward_matches_reference(b, m, c, k):
+    rng = np.random.RandomState(300 + b + c)
+    v = rng.rand(m, c, k).astype(np.float32) + 0.1
+    mask = np.ones((m, c), np.float32)
+    mask[0, -1] = 0.0  # one padded child
+    v = v * mask[:, :, None]
+    v /= v.sum(axis=1, keepdims=True)
+    ln = (rng.randn(b, m, c, k) * 3).astype(np.float32)
+    ln[0] = NEG_INF  # fully marginalized: exp(ln - a) = 1 at the padding too
+    ln[1, 0, 0] = -np.inf
+    g = rng.randn(b, m, k).astype(np.float32)
+    vt = torch.from_numpy(v).requires_grad_(True)
+    lt = torch.from_numpy(ln).requires_grad_(True)
+    out = layers.log_mix_exp(vt, lt, torch.from_numpy(mask))
+    gv, gln = torch.autograd.grad(out, [vt, lt], torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda a, bb: ref_layers.log_mix_exp(a, bb, jnp.asarray(mask)),
+                     jnp.asarray(v), jnp.asarray(ln))
+    want_v, want_ln = vjp(jnp.asarray(g))
+    _check_grad(gv, want_v)
+    _check_grad(gln, want_ln)
+    assert torch.all(gln[:, 0, -1] == 0)  # the padded child
+
+
+def test_plain_forward_is_row_independent():
+    """A row's plain forward does not depend on the rows that share the
+    call: each row of a 37-row batch equals, bit for bit, the same row run
+    in batches of 1 to 8."""
+    rng = np.random.RandomState(5)
+    w = torch.from_numpy(_w(rng, 16, 10, 10))
+    x = torch.from_numpy((rng.randn(37, 32, 10) * 3).astype(np.float32))
+    full = log_einsum_exp.log_einsum_exp_plain(w, x[:, :16], x[:, 16:])
+    for size in range(1, 9):
+        for b0 in range(0, 37, size):
+            part = x[b0: b0 + size]
+            got = log_einsum_exp.log_einsum_exp_plain(w, part[:, :16],
+                                                      part[:, 16:])
+            assert torch.equal(got, full[b0: b0 + size]), (size, b0)
+    g = torch.from_numpy(rng.randn(37, 16, 10).astype(np.float32))
+    _, gl, gr = log_einsum_exp.log_einsum_exp_bwd_plain(
+        w, x[:, :16], x[:, 16:], g)
+    _, gl1, gr1 = log_einsum_exp.log_einsum_exp_bwd_plain(
+        w, x[5:6, :16], x[5:6, 16:], g[5:6])
+    assert torch.equal(gl1[0], gl[5]) and torch.equal(gr1[0], gr[5])
