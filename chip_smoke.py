@@ -4,8 +4,9 @@
   python3 chip_smoke.py
 
 1. Prints the card's name and power limit, turns TF32 off (and prints the
-   settings), and builds every CUDA kernel from src/repro_torch/kernels/csrc
-   with nvcc (sm_90a), one nvcc process a source, all at once.
+   settings), and builds the six CUDA kernels from
+   src/repro_torch/kernels/csrc with nvcc (sm_90a), one nvcc process a
+   source, all at once.
 2. Forward kernel phase: holds K1 (log_einsum_exp_fwd.cu) and K3
    (grouped_fwd.cu) against their plain PyTorch versions on the card (rtol
    1e-5, atol 1e-5; -inf and NEG_INF rows exactly) at einet_rat's shapes
@@ -19,25 +20,43 @@
    another order, rtol 1e-4 and atol 1e-4 max|gw|), checks that two calls
    give bitwise-equal gradients, and times each kernel, its plain version
    and torch.autograd.grad through the plain forward.
-4. Serve phase: builds einet_rat at full width on the card (seed 0), serves
+4. Gather kernel phase: holds K5 (gather_fwd.cu) and K6 (gather_bwd.cu),
+   the gather run of a Poon-Domingos interior with its mixing, against
+   their plain versions at einet_pd's run gather[0,2) (B = 512, its leaf
+   rows), at K = 32, at the reference's PD_SMOKE_SHAPES (a 5-depth run at
+   odd K = 3), on ragged batches, -inf and NEG_INF rows and a masked mixing
+   child, with the tolerances above and two calls bitwise equal; times each
+   kernel, its plain version and a yardstick (K5: the per-depth torch.einsum
+   chain plus log_mix_exp; K6: torch.autograd.grad through the plain
+   forward) and prints the row tiles and K6's partial-gradient bytes.
+5. Serve phase: builds einet_rat at full width on the card (seed 0), serves
    the 256-request mixed stream through ServeEngine(max_batch=64) with the
    kernel launch counters reset just before, checks every result against
    direct one-request calls (LL within 1e-5, sampling/decode identical) and
    a few LLs against the CPU plain path, then times joint_ll on one
    2048-row batch, whole and stage by stage.
-5. E-step phase: one em_statistics and one em_update on the first 2048 rows
+6. E-step phase: one em_statistics and one em_update on the first 2048 rows
    of the reference's synthetic data, on the card (fused plan, K3 + K4) and
    on the CPU plain path, and on the card per layer (K1 + K2): statistics
    within rtol 1e-4, atol 1e-6 B, parameters within rtol 1e-4, atol 1e-6.
-6. Training phase: full EM for 3 steps on one batch (the LL may not drop by
+7. Training phase: full EM for 3 steps on one batch (the LL may not drop by
    more than 1e-5 |LL| a step), then 20 stochastic EM steps at B = 2048 in
    each plan, with the launch counters reset just before each run and the
    launches per step asserted (fused: K3 1, K4 1; per layer: K1 4, K2 4).
-7. einet_rat_large: K3 and K4 against their plain versions at its K = 64
+8. einet_pd (the paper's SVHN config at full width, seed 0, B = 512, the
+   reference's mixture-image data): the serve phase as in 5 (K5 and K1
+   launched, engine against direct, a few LLs against the CPU), joint_ll
+   through the plan (K5 1, K1 1) against the per-layer forward (K1 3),
+   timed whole and by stage; the E-step as in 6 on the card planned (K5 +
+   K6 + K1 + K2), twice and bitwise equal, against the CPU plain path and
+   against the card per layer; training as in 7 (planned: K5 1, K6 1, K1 1,
+   K2 1 a step; per layer: K1 3, K2 3).
+9. einet_rat_large: K3 and K4 against their plain versions at its K = 64
    fused run [0, 2) (B = 64), then joint_ll at B = 256 through its plan
    (3 K3 + 1 K1 launches) against its per-layer forward (7 K1 launches).
-8. Prints the launch counts, a JSON "kernels" line, the nvidia-smi line,
-   and last {"ok": true, "device": {...}}.
+10. Prints the launch counts of every main path (each kernel must have run
+   on them), a JSON "kernels" line, the nvidia-smi line, and last
+   {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  It also exits non-zero when no CUDA device is present.  It imports
@@ -46,6 +65,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -164,18 +184,23 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core import em
+    from repro_torch.core import em, poon_domingos
     from repro_torch.core.einet import EiNet
-    from repro_torch.core.layers import NEG_INF
+    from repro_torch.core.layers import NEG_INF, log_mix_exp
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.grouped import (
+        gather_grouped_log_einsum_exp_bwd_cuda,
+        gather_grouped_log_einsum_exp_bwd_plain,
+        gather_grouped_log_einsum_exp_cuda, gather_grouped_log_einsum_exp_plain,
         grouped_log_einsum_exp_bwd_cuda, grouped_log_einsum_exp_bwd_plain,
-        grouped_log_einsum_exp_cuda, grouped_log_einsum_exp_plain)
+        grouped_log_einsum_exp_cuda, grouped_log_einsum_exp_plain,
+        pick_gather_tile_b)
     from repro_torch.kernels.log_einsum_exp import (
         log_einsum_exp_bwd_cuda, log_einsum_exp_bwd_plain,
         log_einsum_exp_cuda, log_einsum_exp_plain)
     from repro_torch.launch.cells import build_einet
-    from repro_torch.launch.train import batch_at, synthetic_rat_data
+    from repro_torch.launch.train import (
+        batch_at, synthetic_pd_data, synthetic_rat_data)
     from repro_torch.serve import (
         ServeEngine, direct_call, mixed_requests, parity)
     from repro_torch.train import TrainConfig, make_em_step
@@ -408,6 +433,155 @@ def main() -> int:
           f"{worst(k4_w_errs, 'abs'):.3e} (relative "
           f"{worst(k4_w_errs, 'rel'):.3e}) [{card}]")
 
+    # ------------------------------------------------- gather kernel phase
+    pd_cfg = get_config("einet_pd")
+    b_pd = pd_cfg.batch_size
+    pd = build_einet(pd_cfg, device=dev, seed=0)
+    if [(sg.start, sg.stop, sg.kind) for sg in pd.exec_plan] != [
+            (0, 2, "gather"), (2, 3, "layer")]:
+        raise AssertionError(f"einet_pd plan is {pd.exec_plan}")
+    pd_tab = pd.exec_plan[0].tables
+    pd_data = torch.from_numpy(synthetic_pd_data(pd.num_vars))
+    pd_data_dev = pd_data.to(dev)
+    pd_xb = pd_data_dev[:b_pd]
+    with torch.no_grad():
+        pd_leaf = pd._leaf_rows(pd.leaf_log_prob(pd_xb, None))
+        pd_ws = [pd.einsum[t].detach() for t in range(2)]
+        pd_vs = [pd.mixing[1].detach()]
+
+    def check_k5(tables, ws_, vs_, x, what, exact=()):
+        got = gather_grouped_log_einsum_exp_cuda(tables, ws_, vs_, x)
+        again = gather_grouped_log_einsum_exp_cuda(tables, ws_, vs_, x)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two calls differ")
+        return assert_close(
+            got, gather_grouped_log_einsum_exp_plain(tables, ws_, vs_, x),
+            what, exact)
+
+    def check_k6(tables, ws_, vs_, x, g, what):
+        def flat(r):
+            return list(r[0]) + list(r[1]) + [r[2]]
+        got = flat(gather_grouped_log_einsum_exp_bwd_cuda(tables, ws_, vs_,
+                                                          x, g))
+        again = flat(gather_grouped_log_einsum_exp_bwd_cuda(tables, ws_, vs_,
+                                                            x, g))
+        want = flat(gather_grouped_log_einsum_exp_bwd_plain(tables, ws_, vs_,
+                                                            x, g))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{what}: two calls differ")
+        errs = [assert_grad_close(a, b, f"{what} gw{i}", weight=True)
+                for i, (a, b) in enumerate(zip(got[:-1], want[:-1]))]
+        return errs, assert_grad_close(got[-1], want[-1], f"{what} gx")
+
+    def smoke_tables(h, w, delta, k):
+        m = EiNet(poon_domingos(h, w, delta), num_sums=k, device="meta")
+        return next(sg.tables for sg in m.exec_plan if sg.kind == "gather")
+
+    def masked(tables):
+        """The run with the last child of its first mixing slot masked."""
+        return dataclasses.replace(tables, mix_mask=tuple(
+            None if m is None else tuple(
+                tuple(0 if (i, j) == (0, len(row) - 1) else v
+                      for j, v in enumerate(row)) for i, row in enumerate(m))
+            for m in tables.mix_mask))
+
+    def rand_wv(tables, k):
+        ws_ = [rand_w(len(l), k, k) for l in tables.left]
+        vs_ = []
+        for child, mask in zip(tables.mix_child, tables.mix_mask):
+            if child is not None:
+                v = (torch.from_numpy(rng.rand(len(child), len(child[0]), k)
+                                      .astype(np.float32)) + 0.1) * \
+                    torch.tensor(mask, dtype=torch.float32)[:, :, None]
+                vs_.append((v / v.sum(1, keepdim=True)).to(dev))
+        return ws_, vs_
+
+    with torch.no_grad():
+        # einet_pd's run at B = 512 on its leaf rows, then other widths,
+        # the reference's PD_SMOKE_SHAPES (a 5-depth run at odd K = 3),
+        # ragged batches, -inf and NEG_INF rows and a masked mixing child
+        k5_err = check_k5(pd_tab, pd_ws, pd_vs, pd_leaf,
+                          "K5 einet_pd gather[0,2)")
+        pd_g = rand_g(b_pd, pd_tab.num_new_rows, pd.K)
+        k6_w_errs, e = check_k6(pd_tab, pd_ws, pd_vs, pd_leaf, pd_g,
+                                "K6 einet_pd gather[0,2)")
+        k6_x_errs = [e]
+        cases = [("einet_pd_mnist width", pd_tab, 32, 256),
+                 ("masked child", masked(pd_tab), 40, 37),
+                 ("masked child", masked(pd_tab), 5, 517)] + [
+            (f"PD_SMOKE {sh}", smoke_tables(*sh), sh[-1], b)
+            for sh in ((4, 8, 2, 4), (2, 8, 2, 6), (4, 4, 1, 3))
+            for b in (37, 517)]
+        for name, tables, k, b in cases:
+            ws_, vs_ = rand_wv(tables, k)
+            x = rand_x(b, tables.num_in_rows, k)
+            what = f"{name} K={k} B={b}"
+            k5_err = max(k5_err, check_k5(tables, ws_, vs_, x, f"K5 {what}",
+                                          exact=((0,),)))
+            errs, e = check_k6(tables, ws_, vs_, x,
+                               rand_g(b, tables.num_new_rows, k), f"K6 {what}")
+            k6_w_errs += errs
+            k6_x_errs.append(e)
+        # times at einet_pd's run; the yardstick is each depth's contraction
+        # as torch.einsum on its stabilised frame plus its mixing as
+        # log_mix_exp (one call each, summed): no single call computes K5
+        yard, buf = 0.0, pd_leaf
+        for t, w in enumerate(pd_ws):
+            lr = (buf[:, list(pd_tab.left[t])], buf[:, list(pd_tab.right[t])])
+            f = frame(*lr)
+            yard += time_ms(lambda w=w, f=f: torch.einsum(
+                "lkij,bli,blj->blk", w, f[0], f[1]))
+            sv = log_einsum_exp_plain(w, *lr)
+            if pd_tab.mix_child[t] is not None:
+                child = torch.tensor(pd_tab.mix_child[t], device=dev)
+                mask = torch.tensor(pd_tab.mix_mask[t], dtype=torch.float32,
+                                    device=dev)
+                ln = sv[:, child]
+                yard += time_ms(lambda ln=ln, mask=mask: log_mix_exp(
+                    pd_vs[0], ln, mask))
+                sv = torch.cat([sv, log_mix_exp(pd_vs[0], ln, mask)], 1)
+            buf = torch.cat([buf, sv], 1)
+        n_w = sum(w.numel() for w in pd_ws) + sum(v.numel() for v in pd_vs)
+        n_new = b_pd * pd_tab.num_new_rows * pd.K
+        k5_row = {
+            "shape": f"B={b_pd} x={tuple(pd_leaf.shape)} "
+                     f"cells={[len(l) for l in pd_tab.left]} K={pd.K}",
+            "ms": time_ms(lambda: gather_grouped_log_einsum_exp_cuda(
+                pd_tab, pd_ws, pd_vs, pd_leaf)),
+            "plain_ms": time_ms(lambda: gather_grouped_log_einsum_exp_plain(
+                pd_tab, pd_ws, pd_vs, pd_leaf)),
+            "einsum_chain_ms": yard,
+            "bytes": 4 * (pd_leaf.numel() + n_w + n_new),
+            "flops": sum(2 * b_pd * len(l) * pd.K ** 3 for l in pd_tab.left),
+        }
+        k6_row = {
+            "shape": k5_row["shape"],
+            "ms": time_ms(lambda: gather_grouped_log_einsum_exp_bwd_cuda(
+                pd_tab, pd_ws, pd_vs, pd_leaf, pd_g)),
+            "plain_ms": time_ms(lambda: gather_grouped_log_einsum_exp_bwd_plain(
+                pd_tab, pd_ws, pd_vs, pd_leaf, pd_g)),
+            "library_ms": time_ms(autograd_yardstick(
+                lambda x, *wv: gather_grouped_log_einsum_exp_plain(
+                    pd_tab, list(wv[:2]), list(wv[2:]), x),
+                (pd_leaf, *pd_ws, *pd_vs), pd_g)),
+            "bytes": 4 * (2 * pd_leaf.numel() + n_new + 2 * n_w),
+            "flops": sum(b_pd * len(l) * (6 * pd.K ** 3 + 4 * pd.K ** 2)
+                         for l in pd_tab.left),
+        }
+        torch.cuda.synchronize()
+    tiles = (pick_gather_tile_b(pd_tab, pd.K, b_pd),
+             pick_gather_tile_b(pd_tab, pd.K, b_pd, backward=True))
+    n_tiles = -(-b_pd // tiles[1])
+    print(f"gather kernels: K5 and K6 agree with their plain versions and "
+          f"are bitwise deterministic over two calls; K5 max |diff| "
+          f"{k5_err:.3e} (rtol=atol={RTOL}); K6 input gradients max |diff| "
+          f"{worst(k6_x_errs, 'abs'):.3e}, weight and mixing gradients max "
+          f"|diff| {worst(k6_w_errs, 'abs'):.3e} (relative to max|gw| "
+          f"{worst(k6_w_errs, 'rel'):.3e}); einet_pd B={b_pd}: row tiles "
+          f"{tiles[0]} (K5, {-(-b_pd // tiles[0])} blocks) and {tiles[1]} "
+          f"(K6, {n_tiles} blocks), K6 partial gradients {n_tiles} x "
+          f"{4 * n_w} B = {n_tiles * 4 * n_w / 2 ** 20:.1f} MiB [{card}]")
+
     # -------------------------------------------------------- serve phase
     reqs = mixed_requests(model.num_vars, 256, seed=0)
     engine = ServeEngine(model, max_batch=64)
@@ -526,7 +700,9 @@ def main() -> int:
     estep_counts = counts_of(ops)
     if estep_counts != {"log_einsum_exp": 4, "log_einsum_exp_bwd": 4,
                         "grouped_log_einsum_exp": 1,
-                        "grouped_log_einsum_exp_bwd": 1}:
+                        "grouped_log_einsum_exp_bwd": 1,
+                        "gather_grouped_log_einsum_exp": 0,
+                        "gather_grouped_log_einsum_exp_bwd": 0}:
         raise AssertionError(f"E-step launches {estep_counts}")
     t0 = time.perf_counter()
     stats_cpu = em.em_statistics(cpu_model, data[:b_full])
@@ -619,6 +795,195 @@ def main() -> int:
         f"{k} {v:.4f} ms" for k, v in step_stages.items()) + f" [{card}]")
     del model_pl, full_model, cpu_model, stats
 
+    # ---------------------------------------------- einet_pd serve phase
+    pd_reqs = mixed_requests(pd.num_vars, 256, seed=0)
+    pd_engine = ServeEngine(pd, max_batch=64)
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pd_served = pd_engine.run(pd_reqs)
+    torch.cuda.synchronize()
+    pd_serve_s = time.perf_counter() - t0
+    pd_serve_counts = counts_of(ops)
+    plain_counts = {op.name: op.plain_calls for op in ops.KERNEL_OPS}
+    if (pd_serve_counts["gather_grouped_log_einsum_exp"] == 0
+            or pd_serve_counts["log_einsum_exp"] == 0
+            or any(v for k, v in pd_serve_counts.items()
+                   if k.endswith("_bwd") or k.startswith("grouped"))
+            or any(plain_counts.values())):
+        raise AssertionError(f"einet_pd serve path launches "
+                             f"{pd_serve_counts}, plain-version calls "
+                             f"{plain_counts}")
+    pd_steady = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pd_engine.run(pd_reqs)
+        torch.cuda.synchronize()
+        pd_steady.append(time.perf_counter() - t0)
+    call = direct_call(pd)
+    pd_par = parity(pd_reqs, pd_served, {r.req_id: call(r) for r in pd_reqs})
+    print(f"einet_pd serve parity: LL max|engine - direct| "
+          f"{pd_par['ll_max_abs_diff']:.3e}, sampling/decode mismatches "
+          f"{pd_par['sample_mismatches']} [{card}]")
+    if pd_par["ll_max_abs_diff"] > 1e-5 or pd_par["sample_mismatches"]:
+        raise AssertionError(f"einet_pd engine/direct parity violated: "
+                             f"{pd_par}")
+    for r in pd_reqs:
+        v = np.asarray(pd_served[r.req_id].value)
+        want = () if r.kind in ("joint_ll", "marginal_ll", "conditional_ll") \
+            else (pd.num_vars,)
+        if v.shape != want or not np.isfinite(v).all():
+            raise AssertionError(f"einet_pd request {r.req_id} ({r.kind}): "
+                                 f"{v.shape}")
+        if r.kind in ("conditional_sample", "mpe") and not np.array_equal(
+                v[r.evidence_mask], r.x[r.evidence_mask]):
+            raise AssertionError(f"einet_pd request {r.req_id}: evidence "
+                                 "changed")
+    pd_cpu = EiNet(pd.graph, num_sums=pd.K, num_classes=pd.num_classes,
+                   exponential_family=pd.ef, device="cpu", seed=0)
+    pd_pl = build_einet(pd_cfg, device=dev, seed=0, grouped=False)
+    with torch.inference_mode():
+        ll_card = pd.log_likelihood(pd_xb[:8]).cpu()
+        ll_cpu = pd_cpu.log_likelihood(pd_data[:8])
+        if not torch.allclose(ll_card, ll_cpu, rtol=1e-5, atol=1e-4):
+            raise AssertionError(f"einet_pd card LL {ll_card} vs CPU {ll_cpu}")
+        ops.reset_counts()
+        pd_ll_plan = pd.log_likelihood(pd_xb)
+        torch.cuda.synchronize()
+        pd_plan_counts = counts_of(ops)
+        ops.reset_counts()
+        pd_ll_layer = pd_pl.log_likelihood(pd_xb)
+        torch.cuda.synchronize()
+        pd_layer_counts = counts_of(ops)
+        if (pd_plan_counts["gather_grouped_log_einsum_exp"],
+                pd_plan_counts["log_einsum_exp"],
+                pd_layer_counts["log_einsum_exp"]) != (1, 1, 3):
+            raise AssertionError(f"einet_pd joint_ll launches: planned "
+                                 f"{pd_plan_counts}, per layer "
+                                 f"{pd_layer_counts}")
+        if not bool(torch.isfinite(pd_ll_plan).all()) or not torch.allclose(
+                pd_ll_plan, pd_ll_layer, rtol=1e-5, atol=1e-4):
+            raise AssertionError(
+                f"einet_pd joint_ll planned vs per layer: max |diff| "
+                f"{(pd_ll_plan - pd_ll_layer).abs().max().item():.3e}")
+        pd_ll_ms = time_ms(lambda: pd.log_likelihood(pd_xb), iters=10)
+        pd_e = pd.leaf_log_prob(pd_xb, None)
+        pd_root = pd.forward_from_e(None, leaf_rows=pd_leaf)
+        pd_stages = {
+            "leaf EF log_prob": time_ms(
+                lambda: pd.leaf_log_prob(pd_xb, None), iters=10),
+            "leaf rows": time_ms(lambda: pd._leaf_rows(pd_e), iters=10),
+            "plan walk (K5 + K1 + root mixing)": time_ms(
+                lambda: pd.forward_from_e(None, leaf_rows=pd_leaf), iters=10),
+            "per-layer walk (3 K1 + 2 mixing)": time_ms(
+                lambda: pd_pl.forward_from_e(None, leaf_rows=pd_leaf),
+                iters=10),
+            "class logsumexp": time_ms(lambda: torch.logsumexp(
+                pd_root + torch.log(pd.class_prior)[None], -1), iters=10),
+        }
+        del pd_e
+    pd_qps = len(pd_reqs) / min(pd_steady)
+    print(f"einet_pd joint_ll B={b_pd}: planned (K5 1, K1 1 launches) "
+          f"against per layer (K1 3) max |diff| "
+          f"{(pd_ll_plan - pd_ll_layer).abs().max().item():.3e}, card "
+          f"against the CPU plain path on 8 rows max |diff| "
+          f"{(ll_card - ll_cpu).abs().max().item():.3e} [{card}]")
+
+    # --------------------------------------------- einet_pd E-step phase
+    ops.reset_counts()
+    pd_stats = em.em_statistics(pd, pd_xb)
+    torch.cuda.synchronize()
+    pd_estep_counts = counts_of(ops)
+    pd_stats2 = em.em_statistics(pd, pd_xb)
+    ops.reset_counts()
+    pd_stats_pl = em.em_statistics(pd_pl, pd_xb)
+    torch.cuda.synchronize()
+    pd_estep_pl_counts = counts_of(ops)
+    planned_want = {"log_einsum_exp": 1, "log_einsum_exp_bwd": 1,
+                    "gather_grouped_log_einsum_exp": 1,
+                    "gather_grouped_log_einsum_exp_bwd": 1}
+    layer_want_pd = {"log_einsum_exp": 3, "log_einsum_exp_bwd": 3}
+    for got, want in ((pd_estep_counts, planned_want),
+                      (pd_estep_pl_counts, layer_want_pd)):
+        if any(got[k] != want.get(k, 0) for k in got):
+            raise AssertionError(f"einet_pd E-step launches {got}, expected "
+                                 f"{want}")
+    if not all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            flat_stats(pd_stats), flat_stats(pd_stats2))):
+        raise AssertionError("einet_pd: two planned E-steps differ")
+    t0 = time.perf_counter()
+    pd_stats_cpu = em.em_statistics(pd_cpu, pd_data[:b_pd])
+    pd_cpu_estep_s = time.perf_counter() - t0
+    pd_stat_atol = 1e-6 * b_pd
+    pd_d_cpu = compare_stats(pd_stats, pd_stats_cpu,
+                             "einet_pd E-step card vs CPU", 1e-4, pd_stat_atol)
+    pd_d_pl = compare_stats(pd_stats_pl, pd_stats,
+                            "einet_pd E-step per-layer vs planned", 1e-4,
+                            pd_stat_atol)
+    pd_new = em.m_step(pd, pd_stats, em_cfg)
+    pd_p_cpu = compare_stats(pd_new, em.m_step(pd_cpu, pd_stats_cpu, em_cfg),
+                             "einet_pd em_update card vs CPU", 1e-4, 1e-6,
+                             phi_tol)
+    pd_p_pl = compare_stats(em.m_step(pd_pl, pd_stats_pl, em_cfg), pd_new,
+                            "einet_pd em_update per-layer vs planned", 1e-4,
+                            1e-6, phi_tol)
+    print(f"E-step einet_pd B={b_pd} (synthetic images, seed-0 weights): "
+          f"card planned (K5 + K6 + K1 + K2, bitwise equal over two calls) "
+          f"vs CPU plain: statistics max |diff| {pd_d_cpu[0]:.3e} (at most "
+          f"{pd_d_cpu[1]:.3e} of a block's max; rtol 1e-4, atol "
+          f"{pd_stat_atol:.1e}), em_update parameters max |diff| "
+          f"{pd_p_cpu[0]:.3e} ({pd_p_cpu[1]:.3e}); card per layer (K1 + K2) "
+          f"vs planned: statistics {pd_d_pl[0]:.3e} ({pd_d_pl[1]:.3e}), "
+          f"parameters {pd_p_pl[0]:.3e} ({pd_p_pl[1]:.3e}); CPU E-step "
+          f"{pd_cpu_estep_s:.2f} s [{card}]")
+    del pd_stats2, pd_stats_pl, pd_stats_cpu, pd_cpu
+
+    # -------------------------------------------- einet_pd training phase
+    pd_full_model = build_einet(pd_cfg, device=dev, seed=0)
+    pd_full = train_run(pd_full_model, "full", 3, lambda i: pd_xb,
+                        planned_want)
+    with torch.inference_mode():
+        pd_full["lls"].append(pd_full_model.log_likelihood(pd_xb).mean().item())
+    for a, b in zip(pd_full["lls"], pd_full["lls"][1:]):
+        if b < a - 1e-5 * abs(a):
+            raise AssertionError(f"einet_pd full EM lowered the batch LL: "
+                                 f"{pd_full['lls']}")
+    print(f"full EM einet_pd B={b_pd}, 3 steps on one batch: mean LL "
+          + " -> ".join(f"{v:.4f}" for v in pd_full["lls"])
+          + f" (non-decreasing) [{card}]")
+    pd_train = {}
+    for label, m, want in (("planned", pd, planned_want),
+                           ("per-layer", pd_pl, layer_want_pd)):
+        pd_train[label] = train_run(
+            m, "stochastic", 20, lambda i: batch_at(pd_data_dev, i, b_pd),
+            want)
+        r = pd_train[label]
+        print(f"stochastic EM einet_pd {label} plan "
+              f"{m.grouping_summary()['segments']} B={b_pd}, 20 steps: median "
+              f"{r['median_ms']:.3f} ms/step, mean LL first {r['lls'][0]:.4f}, "
+              f"last {r['lls'][-1]:.4f}, launches a step " + ", ".join(
+                  f"{k} {v // 20}" for k, v in r["counts"].items() if v)
+              + f" [{card}]")
+    with torch.no_grad():
+        stats = em.em_statistics(pd, pd_xb)
+        pd_step_stages = {
+            "leaf EF log_prob + leaf rows": time_ms(
+                lambda: pd._leaf_rows(pd.leaf_log_prob(pd_xb, None)),
+                iters=5, warmup=1),
+            "em_statistics (leaf layer, forward, backward, leaf statistics)":
+                time_ms(lambda: em.em_statistics(pd, pd_xb), iters=5,
+                        warmup=1),
+            "m_step + blend": time_ms(lambda: em.blend_params(
+                pd, em.params_of(pd), em.m_step(pd, stats, em_cfg),
+                em_cfg.step_size), iters=5, warmup=1),
+        }
+    print(f"stochastic EM step stages (einet_pd planned, B={b_pd}): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in pd_step_stages.items())
+          + f" [{card}]")
+    del pd_pl, pd_full_model, stats
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------- einet_rat_large phase
     big_cfg = get_config("einet_rat_large")
     t0 = time.perf_counter()
@@ -682,14 +1047,23 @@ def main() -> int:
           f"{big_build_s:.1f} s [{card}]")
 
     # ------------------------------------------------------------- report
-    # the main paths: serving, and training in both plans (full EM included)
-    paths = {"serve": serve_counts, "full EM": full["counts"],
-             "stochastic EM fused": train["fused"]["counts"],
-             "stochastic EM per-layer": train["per-layer"]["counts"]}
+    # the main paths: serving, and training in both plans (full EM
+    # included), of einet_rat and of einet_pd
+    paths = {"einet_rat serve": serve_counts,
+             "einet_rat full EM": full["counts"],
+             "einet_rat stochastic EM fused": train["fused"]["counts"],
+             "einet_rat stochastic EM per-layer": train["per-layer"]["counts"],
+             "einet_pd serve": pd_serve_counts,
+             "einet_pd full EM": pd_full["counts"],
+             "einet_pd stochastic EM planned": pd_train["planned"]["counts"],
+             "einet_pd stochastic EM per-layer":
+                 pd_train["per-layer"]["counts"]}
     for name, c in paths.items():
         print(f"launches on the {name} path: " + ", ".join(
             f"{k} {v}" for k, v in c.items()) + f" [{card}]")
     counts = {k: sum(c[k] for c in paths.values()) for k in serve_counts}
+    if not all(counts.values()):
+        raise AssertionError(f"a kernel never ran on the main paths: {counts}")
     kernel_json = []
 
     def report(name, source, replaces, op, rows, err, yardstick, lib_ms):
@@ -727,10 +1101,19 @@ def main() -> int:
            "src/repro/kernels/grouped.py:380", "grouped_log_einsum_exp_bwd",
            [k4_row], max(worst(k4_x_errs, "abs"), worst(k4_w_errs, "abs")),
            "autograd through the plain forward", k4_row["library_ms"])
+    report("gather_fwd", csrc + "gather_fwd.cu",
+           "src/repro/kernels/grouped.py:718", "gather_grouped_log_einsum_exp",
+           [k5_row], k5_err, "einsum chain + mixing yardstick", None)
+    report("gather_bwd", csrc + "gather_bwd.cu",
+           "src/repro/kernels/grouped.py:780",
+           "gather_grouped_log_einsum_exp_bwd", [k6_row],
+           max(worst(k6_x_errs, "abs"), worst(k6_w_errs, "abs")),
+           "autograd through the plain forward", k6_row["library_ms"])
     print("In the JSON line K1 and K2 are summed over einet_rat's 4 pairs (one "
           "per-layer pass), K3 and K4 are one fused [0,4) pass, all at "
-          f"B={b_full}; launches are summed over the main paths above; K2 and "
-          "K4's library_ms is torch.autograd.grad through the plain forward "
+          f"B={b_full}; K5 and K6 are einet_pd's gather[0,2) at B={b_pd}; "
+          "launches are summed over the main paths above; K2, K4 and K6's "
+          "library_ms is torch.autograd.grad through the plain forward "
           "(forward included)")
     print(f"serve: {len(reqs)} mixed requests, first pass {serve_s:.3f} s, "
           f"steady {min(steady):.3f} s ({qps:.1f} req/s), "
@@ -739,6 +1122,14 @@ def main() -> int:
           f"({b_full / ll_ms * 1e3:.0f} rows/s) [{card}]")
     print("joint_ll stages: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in stages.items()) + f" [{card}]")
+    print(f"einet_pd serve: {len(pd_reqs)} mixed requests, first pass "
+          f"{pd_serve_s:.3f} s, steady {min(pd_steady):.3f} s "
+          f"({pd_qps:.1f} req/s), {pd_engine.stats['steps'] // 3} engine "
+          f"steps a pass [{card}]")
+    print(f"joint_ll einet_pd B={b_pd}: {pd_ll_ms:.4f} ms a batch "
+          f"({b_pd / pd_ll_ms * 1e3:.0f} rows/s) [{card}]")
+    print("einet_pd joint_ll stages: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in pd_stages.items()) + f" [{card}]")
     print(json.dumps({"kernels": kernel_json}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

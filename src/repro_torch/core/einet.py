@@ -10,12 +10,11 @@ state as ``nn.Parameter``s: ``phi`` (leaf EF parameters), ``einsum`` and
     log-einsum-exp launch (fused runs) or one per-layer launch, then the
     pair's mixing -> root log-densities.
 
-On a CUDA device the two log-einsum-exp ops launch hand-written kernels
-(``repro_torch.kernels``), forward and, under autograd, backward; on the
-CPU they run their plain PyTorch versions.  So the bottom-up pass serves
-under ``torch.inference_mode()`` and trains by autodiff EM
-(``repro_torch.core.em``) on the card.  The card runs only plans without
-gather segments.
+On a CUDA device the log-einsum-exp ops (per pair, canonical run, gather
+run) launch hand-written kernels (``repro_torch.kernels``), forward and,
+under autograd, backward; on the CPU they run their plain PyTorch versions.
+So the bottom-up pass serves under ``torch.inference_mode()`` and trains by
+autodiff EM (``repro_torch.core.em``) on the card, for every plan.
 
 Also implemented: exact marginalization (evidence masks), ancestral and
 conditional sampling (the induced-tree top-down pass used for inpainting),
@@ -451,24 +450,18 @@ class EiNet(nn.Module):
         Returns (B, num_classes) root log-densities (and the per-pair cache
         when ``return_cache``).
 
-        With fused segments in the plan and no cache requested, the pass
-        walks the plan: each fused segment is one grouped log-einsum-exp
-        launch.  The sampling path (``return_cache``) needs every depth's
-        activations, so it runs per layer, one launch per pair.
+        With grouped segments in the plan and no cache requested, the pass
+        walks the plan: each fused or gather segment is one grouped
+        log-einsum-exp launch.  The sampling path (``return_cache``) needs
+        every depth's activations, so it runs per layer, one launch per
+        pair.
         """
         if leaf_rows is None:
             leaf_rows = self._leaf_rows(e)
         if self.grouped_active and not return_cache:
-            if not self.needs_buffer:
-                return self._forward_planned(leaf_rows)
-            if leaf_rows.device.type == "cuda":
-                raise NotImplementedError(
-                    "this plan has gather segments, whose kernel (the "
-                    "gather-grouped forward, repro/kernels/grouped.py "
-                    "gather_grouped_log_einsum_exp_pallas) is not ported to "
-                    "CUDA yet"
-                )
-            # on the CPU the per-layer loop below computes the same values
+            if self.needs_buffer:
+                return self._forward_planned_buffer(leaf_rows)
+            return self._forward_planned(leaf_rows)
         buffer = leaf_rows
         build_buffer = self.needs_buffer or return_cache
         cache: Dict[str, Any] = {"S": []}
@@ -533,6 +526,46 @@ class EiNet(nn.Module):
                 root_out = mix_out if last.mix_global is not None else s[:, 0, :]
             else:
                 prev_out = s if mix_out is None else torch.cat([s, mix_out], 1)
+        if root_out.dim() == 3:
+            root_out = root_out[:, 0, :]
+        return root_out
+
+    def _forward_planned_buffer(self, leaf_rows: torch.Tensor) -> torch.Tensor:
+        """The plan walk for gather-topology (Poon-Domingos) structures,
+        over the global row buffer: leaves first, then each pair's einsum
+        rows followed by its mixing rows, the allocation order of
+        ``_build``.  A "gather" segment is one gather-grouped launch (mixing
+        inside the kernel) whose new rows append in global order; a "layer"
+        segment is the per-pair op on the buffer's gathered children, then
+        its mixing.  The planner emits no "fused" segment here: it would
+        skip interior rows and leave holes in the buffer."""
+        buffer = leaf_rows
+        root_out = None
+        for seg in self.exec_plan:
+            if seg.kind == "gather":
+                span = range(seg.start, seg.stop)
+                ws = [self.einsum[t] for t in span]
+                vs = [self.mixing[t] for t in span
+                      if self.pair_specs[t].mix_global is not None]
+                new = ops.gather_grouped_log_einsum_exp(seg.tables, ws, vs,
+                                                        buffer)
+                buffer = torch.cat([buffer, new], dim=1)
+                continue
+            i = seg.start
+            spec = self.pair_specs[i]
+            s = ops.log_einsum_exp(self.einsum[i],
+                                   buffer[:, self._table(i, "left"), :],
+                                   buffer[:, self._table(i, "right"), :])
+            mix_out = None
+            if spec.mix_global is not None:
+                ln = s[:, self._table(i, "mix_child"), :]
+                mix_out = log_mix_exp(self.mixing[i], ln,
+                                      self._table(i, "mix_mask"))
+            if spec.is_final:
+                root_out = mix_out if spec.mix_global is not None else s[:, 0, :]
+            else:
+                new = s if mix_out is None else torch.cat([s, mix_out], 1)
+                buffer = torch.cat([buffer, new], dim=1)
         if root_out.dim() == 3:
             root_out = root_out[:, 0, :]
         return root_out

@@ -92,9 +92,11 @@ def grouped_log_einsum_exp(ws: Sequence[torch.Tensor],
 S_FLOOR = 1e-30
 
 
-def _mix_frame(v, ln, mask):
+def mix_frame(v, ln, mask):
     """The mixing layer's frame: clamped max over the children, the exp'd
-    (masked) inputs and the stabilized sum, added in child order."""
+    (masked) inputs and the stabilized sum, added in child order.  Shared
+    by the forward, its backward and the gather-grouped backward's plain
+    version, so each works in the frame the forward logged."""
     lnm = torch.where(mask[None, :, :, None] > 0, ln,
                       torch.full_like(ln, NEG_INF))
     a = torch.clamp(torch.amax(lnm, dim=2, keepdim=True), min=NEG_INF)
@@ -119,13 +121,13 @@ class _LogMixExp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, ln, mask):
         ctx.save_for_backward(v, ln, mask)
-        a, _, s = _mix_frame(v, ln, mask)
+        a, _, s = mix_frame(v, ln, mask)
         return a[:, :, 0, :] + torch.log(s)
 
     @staticmethod
     def backward(ctx, g):
         v, ln, mask = ctx.saved_tensors
-        _, e, s = _mix_frame(v, ln, mask)
+        _, e, s = mix_frame(v, ln, mask)
         ginv = g / torch.clamp(s, min=S_FLOOR)  # (B, M, K)
         ge = ginv[:, :, None, :] * e * mask[None, :, :, None]
         return ge.sum(0), ge * v[None], None
@@ -151,7 +153,7 @@ def log_mix_exp(v: torch.Tensor, ln: torch.Tensor,
     """
     if torch.is_grad_enabled() and (v.requires_grad or ln.requires_grad):
         return _LogMixExp.apply(v, ln, mask)
-    a, _, s = _mix_frame(v, ln, mask)
+    a, _, s = mix_frame(v, ln, mask)
     return a[:, :, 0, :] + torch.log(s)
 
 

@@ -12,8 +12,8 @@ executes.  The output is a :class:`CircuitPlan`, a sequence of
   * ``"gather"`` -- a run of consecutive NON-FINAL pairs of arbitrary
     topology (Poon-Domingos cross-depth gathers, interior mixing layers
     included), carrying per-depth permutation tables (:class:`GatherTables`).
-    The port has no kernel for it yet: ``EiNet`` raises on such a segment
-    on the card.
+    Runs as ONE gather-grouped kernel launch
+    (``repro_torch.kernels.grouped``), mixing inside the kernel.
   * ``"layer"``  -- a single pair on the per-layer path, with the reason it
     could not join a group recorded in ``CircuitPlan.fallback_reasons``.
 
@@ -75,6 +75,21 @@ class GatherTables:
     # in-kernel mixing replicates log_mix_exp bit-for-bit.  None = no mixing.
     mix_child: Tuple[Optional[Tuple[Tuple[int, ...], ...]], ...]
     mix_mask: Tuple[Optional[Tuple[Tuple[int, ...], ...]], ...]
+
+    @property
+    def num_depths(self) -> int:
+        return len(self.left)
+
+    @property
+    def num_mix_depths(self) -> int:
+        return sum(1 for m in self.mix_child if m is not None)
+
+    @property
+    def num_new_rows(self) -> int:
+        return sum(
+            len(l) + (len(m) if m is not None else 0)
+            for l, m in zip(self.left, self.mix_child)
+        )
 
 
 @dataclasses.dataclass(frozen=True)

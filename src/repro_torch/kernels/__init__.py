@@ -7,6 +7,9 @@ Hopper (sm_90a), each beside its plain PyTorch version.
   * ``ops.grouped_log_einsum_exp`` -- a run of consecutive canonical pairs
     in one launch (``grouped.py``, ``csrc/grouped_fwd.cu``, backward
     ``csrc/grouped_bwd.cu``).
+  * ``ops.gather_grouped_log_einsum_exp`` -- a gather run of pairs
+    (Poon-Domingos, mixing included) in one launch (``grouped.py``,
+    ``csrc/gather_fwd.cu``, backward ``csrc/gather_bwd.cu``).
 
 Kernels are built with ``nvcc`` on first use (``build.py``); importing this
 package builds nothing and needs no CUDA.

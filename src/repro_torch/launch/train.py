@@ -1,8 +1,12 @@
-"""Training CLI: EM steps on a registered RAT architecture, on the
-reference's synthetic data (white noise,
-``np.random.RandomState(0).randn(4096, num_vars)``), cycled in batches.
+"""Training CLI: EM steps on a registered architecture, on the reference's
+synthetic data (``repro.launch.train`` ``einet_train_data``), cycled in
+batches: white noise (``np.random.RandomState(0).randn(4096, num_vars)``)
+for RAT structures, the mixture-image proxy
+(``gaussian_mixture_images(4096, 16, ceil(D / 48), 3, seed=0)[:, :D]``)
+for Poon-Domingos ones.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch einet_rat --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch einet_pd --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch einet_rat \\
       --steps 3 --batch 64 --device cpu
 
@@ -25,17 +29,26 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.einet import resolve_device
 from repro_torch.core.em import EMConfig
+from repro_torch.data import gaussian_mixture_images
 from repro_torch.kernels import ops
 from repro_torch.launch.cells import build_einet
 from repro_torch.train import TrainConfig, make_em_step
 
-NUM_ROWS = 4096  # the reference's synthetic RAT training set
+NUM_ROWS = 4096  # the reference's synthetic training sets
 
 
 def synthetic_rat_data(num_vars: int) -> np.ndarray:
     """The reference's synthetic RAT training data (``repro.launch.train``
     ``einet_train_data``): (4096, num_vars) standard normal, seed 0."""
     return np.random.RandomState(0).randn(NUM_ROWS, num_vars).astype(np.float32)
+
+
+def synthetic_pd_data(num_vars: int) -> np.ndarray:
+    """The reference's synthetic Poon-Domingos training data: 4096 mixture
+    images 16 pixels high and ceil(D / 48) wide in 3 channels, seed 0, cut
+    to the model's D variables."""
+    return gaussian_mixture_images(NUM_ROWS, 16, -(-num_vars // 48), 3,
+                                   seed=0)[:, :num_vars]
 
 
 def batch_at(data: torch.Tensor, step: int, batch: int) -> torch.Tensor:
@@ -58,11 +71,10 @@ def train_einet(arch: str, steps: int, batch=None, microbatches: int = 1,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(arch)
-    if cfg.structure != "rat":
-        raise SystemExit(f"--arch {arch}: this driver trains RAT archs only")
     batch = batch or cfg.batch_size
     model = build_einet(cfg, device=device, seed=seed, grouped=grouped)
-    data = torch.from_numpy(synthetic_rat_data(model.num_vars)).to(device)
+    make_data = synthetic_pd_data if cfg.structure == "pd" else synthetic_rat_data
+    data = torch.from_numpy(make_data(model.num_vars)).to(device)
     step = make_em_step(model, TrainConfig(
         em=EMConfig(), mode=mode, num_microbatches=microbatches))
     lls, times, launches = [], [], []

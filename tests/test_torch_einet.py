@@ -27,6 +27,7 @@ from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.core import exponential_family as port_ef
 from repro_torch.core import poon_domingos, random_binary_trees
 from repro_torch.core.einet import EiNet
+from repro_torch.core.layers import NEG_INF
 from repro_torch.launch.cells import build_einet
 
 LL_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -129,14 +130,67 @@ def test_grouped_plan_equals_per_layer_loop():
 
 
 def test_pd_structure_on_cpu_matches_reference():
-    """A gather-planned (Poon-Domingos) structure runs the per-layer loop
-    on the CPU; on the card it raises until the gather kernel is ported."""
+    """A gather-planned (Poon-Domingos) structure walks its plan on the CPU
+    with the gather run's plain version, as it walks it on the card with
+    the gather kernel."""
     ref = RefEiNet(ref_pd(4, 6, 2), num_sums=4, exponential_family=RefNormal())
     port = EiNet(poon_domingos(4, 6, 2), num_sums=4, device="cpu")
     assert port.needs_buffer and any(s.kind == "gather" for s in port.exec_plan)
     params = _carry(ref, port)
     x, ev = _data(port.num_vars, 5, 4)
     _ll_kinds(ref, params, port, x, ev)
+
+
+# the reference's PD_SMOKE_SHAPES (tests/test_gather_grouped.py): (height,
+# width, delta, K), each planned as one gather run and the root pair
+PD_SMOKE_SHAPES = [(4, 8, 2, 4), (2, 8, 2, 6), (4, 4, 1, 3)]
+
+
+@pytest.mark.parametrize("shape", PD_SMOKE_SHAPES, ids=str)
+def test_pd_planned_forward_equals_per_layer_loop(shape):
+    """The gather plan (one gather launch, the root pair per layer) is the
+    per-layer loop's arithmetic, bit for bit, saturated leaf rows too."""
+    h, w, delta, k = shape
+    g = poon_domingos(h, w, delta)
+    m_g = EiNet(g, num_sums=k, device="cpu", seed=2)
+    m_p = EiNet(g, num_sums=k, grouped=False, device="cpu", seed=2)
+    kinds = [s.kind for s in m_g.exec_plan]
+    assert kinds == ["gather", "layer"] and not m_p.grouped_active
+    x = torch.from_numpy(_data(h * w, 6, 6)[0])
+    with torch.inference_mode():
+        assert torch.equal(m_g.log_likelihood(x), m_p.log_likelihood(x))
+        rows = m_g._leaf_rows(m_g.leaf_log_prob(x, None))
+        rows[:, 0] = NEG_INF  # one leaf region fully marginalized
+        a = m_g.forward_from_e(None, leaf_rows=rows)
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, m_p.forward_from_e(None, leaf_rows=rows))
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 2, 4), (4, 4, 1, 3)], ids=str)
+def test_pd_mpe_equals_reference(shape):
+    h, w, delta, k = shape
+    ref = RefEiNet(ref_pd(h, w, delta), num_sums=k,
+                   exponential_family=RefNormal())
+    port = EiNet(poon_domingos(h, w, delta), num_sums=k, device="cpu")
+    params = _carry(ref, port, seed=4)
+    x, ev = _data(h * w, 5, 7)
+    want = _ref_decode(ref, params, x, ev)
+    with torch.inference_mode():
+        got = port.conditional_sample(torch.from_numpy(x),
+                                      torch.from_numpy(ev), mode="argmax")
+    np.testing.assert_array_equal(got.numpy(), want)
+    _ll_kinds(ref, params, port, x, ev)
+
+
+@pytest.mark.parametrize("arch", ["einet_pd", "einet_pd_mnist",
+                                  "einet_celeba"])
+def test_pd_archs_walk_one_gather_run(arch):
+    """Every registered PD arch plans gather[0,2) layer[2,3): one gather
+    launch and one per-layer launch a forward."""
+    port = build_einet(get_config(arch), device="meta")
+    assert [(s.start, s.stop, s.kind) for s in port.exec_plan] == [
+        (0, 2, "gather"), (2, 3, "layer")]
+    assert port.plan.launches()[1] == 3  # gather, root pair, root mixing
 
 
 def test_full_marginalization_is_normalized():

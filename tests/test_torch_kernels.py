@@ -11,6 +11,8 @@ so bit equality is not expected; outputs at -inf, and at NEG_INF
 saturation, must match exactly.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,10 +20,14 @@ import pytest
 import torch
 
 from repro.core import layers as ref_layers
+from repro.core.plan import GatherTables as RefGatherTables
 from repro.kernels import ops as ref_ops
-from repro_torch.core import layers
+from repro_torch.configs import get_config
+from repro_torch.core import layers, poon_domingos
+from repro_torch.core.einet import EiNet
 from repro_torch.core.layers import NEG_INF
 from repro_torch.kernels import build, grouped, log_einsum_exp, ops
+from repro_torch.launch.cells import build_einet
 
 RTOL = ATOL = 1e-5
 KS = (3, 4, 5, 10, 13, 17)
@@ -245,7 +251,7 @@ def test_build_sources_exist_and_library_names_track_sources():
         text = src.read_text()
         assert "sm_90a" in text and "Replaces the TPU kernel" in text
         assert build._library_path(name).name.startswith(name + "-")
-    assert len({build._library_path(n) for n in build.SOURCES}) == 4
+    assert len({build._library_path(n) for n in build.SOURCES}) == 6
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
 
@@ -340,7 +346,9 @@ def test_autograd_ops_run_the_plain_backward_on_the_cpu():
     counts = {op.name: (op.launches, op.plain_calls) for op in ops.KERNEL_OPS}
     assert counts == {"log_einsum_exp": (0, 1), "log_einsum_exp_bwd": (0, 1),
                       "grouped_log_einsum_exp": (0, 1),
-                      "grouped_log_einsum_exp_bwd": (0, 1)}
+                      "grouped_log_einsum_exp_bwd": (0, 1),
+                      "gather_grouped_log_einsum_exp": (0, 0),
+                      "gather_grouped_log_einsum_exp_bwd": (0, 0)}
 
 
 @pytest.mark.parametrize("b,m,c,k", [(5, 2, 3, 4), (4, 1, 10, 1)])
@@ -387,3 +395,245 @@ def test_plain_forward_is_row_independent():
     _, gl1, gr1 = log_einsum_exp.log_einsum_exp_bwd_plain(
         w, x[5:6, :16], x[5:6, 16:], g[5:6])
     assert torch.equal(gl1[0], gl[5]) and torch.equal(gr1[0], gr[5])
+
+
+# ------------------------------------------------------------- gather runs
+# the reference's PD_SMOKE_SHAPES (tests/test_gather_grouped.py): (height,
+# width, delta, K); (4, 4, 1, 3) is a 5-depth run at odd K = 3
+PD_SMOKE_SHAPES = [(4, 8, 2, 4), (2, 8, 2, 6), (4, 4, 1, 3)]
+
+
+def _pd_tables(h, w, delta, k):
+    model = EiNet(poon_domingos(h, w, delta), num_sums=k, device="meta")
+    return next(s.tables for s in model.exec_plan if s.kind == "gather")
+
+
+def _masked(tables):
+    """The run with the last child of its first mixing slot masked out."""
+    mask = tuple(
+        None if m is None else tuple(
+            tuple(0 if (i, j) == (0, len(row) - 1) else v
+                  for j, v in enumerate(row)) for i, row in enumerate(m))
+        for m in tables.mix_mask)
+    return dataclasses.replace(tables, mix_mask=mask)
+
+
+# (name, tables, K): the smoke shapes and a run with a masked mixing child
+GATHER_CASES = [(str(s), _pd_tables(*s), s[-1]) for s in PD_SMOKE_SHAPES] + [
+    ("masked child", _masked(_pd_tables(2, 8, 2, 6)), 5)]
+
+
+def _gather_params(rng, tables, k):
+    ws = [_w(rng, len(l), k, k) for l in tables.left]
+    vs = []
+    for child, mask in zip(tables.mix_child, tables.mix_mask):
+        if child is None:
+            continue
+        msk = np.asarray(mask, np.float32)[:, :, None]
+        v = (rng.rand(len(child), len(child[0]), k).astype(np.float32)
+             + 0.1) * msk
+        vs.append(v / v.sum(axis=1, keepdims=True))
+    return ws, vs
+
+
+def _torch(arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _ref_tables(tables):
+    return RefGatherTables(**dataclasses.asdict(tables))
+
+
+@pytest.mark.parametrize("case", GATHER_CASES, ids=lambda c: c[0])
+def test_gather_plain_matches_reference(case):
+    _, tables, k = case
+    rng = np.random.RandomState(k)
+    ws, vs = _gather_params(rng, tables, k)
+    x = _x(rng, 9, tables.num_in_rows, k)
+    got = grouped.gather_grouped_log_einsum_exp_plain(
+        tables, _torch(ws), _torch(vs), torch.from_numpy(x))
+    assert got.shape == (9, tables.num_new_rows, k)
+    wj, vj, xj = ([jnp.asarray(a) for a in ws], [jnp.asarray(a) for a in vs],
+                  jnp.asarray(x))
+    xla = ref_layers.gather_grouped_log_einsum_exp(tables, wj, vj, xj,
+                                                   impl="xla")
+    _check(got, np.asarray(xla)[:, tables.num_in_rows:])
+    # Pallas, interpret, 4-row tiles: the reference's own kernel is off its
+    # XLA path by float32 ulps, so the atol scales with the values
+    pallas = np.asarray(ref_ops.gather_grouped_log_einsum_exp(
+        _ref_tables(tables), 4, tuple(wj), tuple(vj), xj))
+    fin = np.isfinite(pallas)
+    np.testing.assert_array_equal(np.isfinite(got.numpy()), fin)
+    np.testing.assert_array_equal(got.numpy()[~fin], pallas[~fin])
+    np.testing.assert_allclose(
+        got.numpy()[fin], pallas[fin], rtol=RTOL,
+        atol=ATOL * max(1.0, float(np.abs(pallas[fin]).max())))
+
+
+@pytest.mark.parametrize("case", GATHER_CASES, ids=lambda c: c[0])
+def test_gather_bwd_plain_matches_reference(case):
+    _, tables, k = case
+    rng = np.random.RandomState(50 + k)
+    ws, vs = _gather_params(rng, tables, k)
+    b = 7
+    x = (rng.randn(b, tables.num_in_rows, k) * 3).astype(np.float32)
+    x[1, 0] = NEG_INF  # a saturated leaf row: the circuit stays finite
+    g = rng.randn(b, tables.num_new_rows, k).astype(np.float32)
+    gws, gvs, gx = grouped.gather_grouped_log_einsum_exp_bwd_plain(
+        tables, _torch(ws), _torch(vs), torch.from_numpy(x),
+        torch.from_numpy(g))
+    r_in = tables.num_in_rows
+
+    def xla(w, v, xx):
+        return ref_layers.gather_grouped_log_einsum_exp(
+            tables, w, v, xx, impl="xla")[:, r_in:]
+
+    _, vjp = jax.vjp(xla, [jnp.asarray(a) for a in ws],
+                     [jnp.asarray(a) for a in vs], jnp.asarray(x))
+    want_ws, want_vs, want_x = vjp(jnp.asarray(g))
+    for a, want in zip(gws + gvs, list(want_ws) + list(want_vs)):
+        _check_grad(a, want)
+    _check_grad(gx, want_x)
+    if "masked" in case[0]:  # the masked child: exact zero in gV
+        assert torch.all(gvs[0][0, -1] == 0)
+        assert float(np.abs(np.asarray(want_vs[0])[0, -1]).max()) == 0.0
+
+
+def test_gather_bwd_plain_matches_the_pallas_vjp_on_saturated_rows():
+    """-inf and NEG_INF rows through the reference's custom VJP (K6 in
+    Pallas interpret mode): finite gradients, the reference's exact zeros
+    kept."""
+    tables = _pd_tables(4, 8, 2, 4)
+    rng = np.random.RandomState(7)
+    ws, vs = _gather_params(rng, tables, 4)
+    x = _x(rng, 6, tables.num_in_rows, 4)
+    g = rng.randn(6, tables.num_new_rows, 4).astype(np.float32)
+    gws, gvs, gx = grouped.gather_grouped_log_einsum_exp_bwd_plain(
+        tables, _torch(ws), _torch(vs), torch.from_numpy(x),
+        torch.from_numpy(g))
+    _, vjp = jax.vjp(
+        lambda w, v, xx: ref_ops.gather_grouped_log_einsum_exp(
+            _ref_tables(tables), 4, w, v, xx),
+        tuple(jnp.asarray(a) for a in ws), tuple(jnp.asarray(a) for a in vs),
+        jnp.asarray(x))
+    want_ws, want_vs, want_x = vjp(jnp.asarray(g))
+    for a, want in zip(gws + gvs + [gx],
+                       list(want_ws) + list(want_vs) + [want_x]):
+        want = np.asarray(want)
+        scale = max(1.0, float(np.abs(want).max()))
+        assert np.isfinite(a.numpy()).all()
+        np.testing.assert_array_equal(a.numpy()[want == 0], 0.0)
+        np.testing.assert_allclose(a.numpy(), want, rtol=RTOL,
+                                   atol=ATOL * scale)
+
+
+def test_gather_plain_is_the_per_layer_chain():
+    """The plain K5 computes each depth with the per-pair op and the mixing
+    layer on the buffer's gathered rows: bit for bit the per-layer loop."""
+    tables = _pd_tables(4, 8, 2, 4)
+    rng = np.random.RandomState(1)
+    ws, vs = (_torch(a) for a in _gather_params(rng, tables, 4))
+    x = torch.from_numpy(_x(rng, 5, tables.num_in_rows, 4))
+    buf, vi = x, 0
+    for t in range(tables.num_depths):
+        s = layers.log_einsum_exp(ws[t], buf[:, list(tables.left[t])],
+                                  buf[:, list(tables.right[t])])
+        if tables.mix_child[t] is not None:
+            m = layers.log_mix_exp(
+                vs[vi], s[:, torch.tensor(tables.mix_child[t])],
+                torch.tensor(tables.mix_mask[t], dtype=torch.float32))
+            s, vi = torch.cat([s, m], 1), vi + 1
+        buf = torch.cat([buf, s], 1)
+    got = grouped.gather_grouped_log_einsum_exp_plain(tables, ws, vs, x)
+    assert torch.equal(got, buf[:, tables.num_in_rows:])
+
+
+def test_gather_autograd_runs_the_plain_backward_on_the_cpu():
+    tables = _pd_tables(2, 8, 2, 6)
+    rng = np.random.RandomState(3)
+    ws, vs = _gather_params(rng, tables, 6)
+    ws = [w.requires_grad_(True) for w in _torch(ws)]
+    vs = [v.requires_grad_(True) for v in _torch(vs)]
+    x = torch.from_numpy((rng.randn(5, tables.num_in_rows, 6) * 2)
+                         .astype(np.float32)).requires_grad_(True)
+    ops.reset_counts()
+    out = ops.gather_grouped_log_einsum_exp(tables, ws, vs, x)
+    g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32))
+    grads = torch.autograd.grad(out, ws + vs + [x], g)
+    want_ws, want_vs, want_x = grouped.gather_grouped_log_einsum_exp_bwd_plain(
+        tables, [w.detach() for w in ws], [v.detach() for v in vs],
+        x.detach(), g)
+    for a, b in zip(grads, want_ws + want_vs + [want_x]):
+        assert torch.equal(a, b)
+    assert (ops.gather_grouped_log_einsum_exp.plain_calls,
+            ops.gather_grouped_log_einsum_exp_bwd.plain_calls) == (1, 1)
+    assert ops.gather_grouped_log_einsum_exp.launches == 0
+    with torch.no_grad():  # without autograd the forward op runs directly
+        again = ops.gather_grouped_log_einsum_exp(tables, ws, vs, x)
+    assert torch.equal(again, out.detach())
+
+
+def test_gather_tables_pack_and_cache():
+    tables = build_einet(get_config("einet_pd"), device="meta").exec_plan[0].tables
+    tab = grouped.pack_gather_tables(tables)
+    assert tab.dtype == np.int32
+    # header: 2 depths, 4 input rows, 13 rows in all, the first 7 children
+    assert tab[:4].tolist() == [2, 4, 13, 7]
+    d0, d1 = tab[4:12].tolist(), tab[12:20].tolist()
+    assert d0[:4] == [3, 0, 0, 4] and d0[6:] == [-1, -1]
+    assert d1[:4] == [4, 2, 2, 7] and d1[7] == 0
+    assert tab[d1[4]: d1[4] + 4].tolist() == list(tables.left[1])
+    assert tab[d1[5]: d1[5] + 4].tolist() == list(tables.right[1])
+    assert tab[d1[6]: d1[6] + 4].tolist() == [2, 3, 0, 1]  # (M, C) children
+    assert tab[d1[6] + 4: d1[6] + 8].tolist() == [1, 1, 1, 1]  # the mask
+    assert len(tab) == 20 + 3 + 3 + 4 + 4 + 4 + 4
+    a = grouped.gather_tables_tensor(tables, torch.device("cpu"))
+    assert a is grouped.gather_tables_tensor(tables, "cpu")
+    assert a.dtype == torch.int32 and a.tolist() == tab.tolist()
+    bad = dataclasses.replace(tables, left=((0, 3, 9),) + tables.left[1:])
+    with pytest.raises(ValueError, match="child row"):
+        grouped.pack_gather_tables(bad)
+
+
+def test_gather_geometry_rejects_bad_shapes():
+    tables = _pd_tables(2, 8, 2, 6)
+    ws = [torch.zeros(len(l), 6, 6, 6) for l in tables.left]
+    vs = [torch.zeros(2, 2, 6)]
+    x = torch.zeros(3, tables.num_in_rows, 6)
+    assert grouped.gather_geometry(tables, ws, vs, x) == (9, 6)
+    with pytest.raises(ValueError, match="rows"):
+        grouped.gather_geometry(tables, ws, vs, x[:, :3])
+    with pytest.raises(ValueError, match="interior"):
+        grouped.gather_geometry(tables, [torch.zeros(3, 5, 6, 6)] + ws[1:],
+                                vs, x)
+    with pytest.raises(ValueError, match="mixing depths"):
+        grouped.gather_geometry(tables, ws, [], x)
+    with pytest.raises(ValueError, match="mix depth"):
+        grouped.gather_geometry(tables, ws, [torch.zeros(2, 3, 6)], x)
+
+
+def test_gather_tile_and_shared_memory_rules():
+    tables = build_einet(get_config("einet_pd"), device="meta").exec_plan[0].tables
+    limit = log_einsum_exp.SMEM_LIMIT_BYTES
+    # einet_pd at B = 512: 4-row tiles (128 blocks) in both kernels; the
+    # backward's 128 partials of the 1.79 MB of weights are 229 MB
+    assert grouped.pick_gather_tile_b(tables, 40, 512) == 4
+    assert grouped.pick_gather_tile_b(tables, 40, 512, backward=True) == 4
+    for tb, bwd in ((4, False), (4, True)):
+        w_f, total = grouped.gather_smem_layout(tables, 40, tb, bwd)
+        assert total <= limit
+        # a K = 40 cell (256 KB) goes in two K_out tiles of 20 rows, each
+        # row padded to an odd stride against bank conflicts
+        assert grouped.gather_row_stride(40) == 1601
+        assert w_f == 20 * 1601
+    assert grouped.gather_smem_layout(tables, 40, 4)[1] == 4 * (
+        20 * 1601 + 4 * (13 * 40 + 7 * 41) + 42)
+    # small batches take the smallest tile; a tiny K stages a whole depth
+    assert grouped.pick_gather_tile_b(tables, 40, 37) == 1
+    w_f, _ = grouped.gather_smem_layout(tables, 4, 32)
+    assert w_f == 4 * 4 * 17
+    # at B = 2048 the backward grows its tile until the partials fit
+    tb = grouped.pick_gather_tile_b(tables, 40, 2048, backward=True)
+    assert tb == 16 and 128 * 4 * 7 * 40 ** 3 <= grouped.GATHER_PART_LIMIT_BYTES
+    with pytest.raises(ValueError, match="shared"):
+        grouped.pick_gather_tile_b(tables, 240, 512)

@@ -141,6 +141,13 @@ def test_serve_cli_on_cpu():
     assert "req/s" in out.stdout and "mismatches 0" in out.stdout
 
 
+def test_serve_cli_pd_on_cpu():
+    out = _cli("--arch", "einet_pd", "--requests", "12", "--max-batch", "4",
+               "--reps", "1", "--device", "cpu")
+    assert out.returncode == 0, out.stderr
+    assert "einet-pd-svhn" in out.stdout and "mismatches 0" in out.stdout
+
+
 def test_serve_cli_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

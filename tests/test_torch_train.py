@@ -21,12 +21,19 @@ import torch
 from repro.core import EiNet as RefEiNet
 from repro.core import Normal as RefNormal
 from repro.core import em as ref_em
+from repro.core import poon_domingos as ref_pd
 from repro.core import random_binary_trees as ref_rbt
+from repro.data.synthetic import gaussian_mixture_images as ref_images
 from repro_torch.convert import params_from_jax, params_to_numpy
-from repro_torch.core import em, random_binary_trees
+from repro_torch.core import em, poon_domingos, random_binary_trees
 from repro_torch.core.einet import EiNet
+from repro_torch.data import gaussian_mixture_images
 from repro_torch.kernels import ops
-from repro_torch.launch.train import batch_at, synthetic_rat_data
+from repro_torch.launch.train import (
+    batch_at,
+    synthetic_pd_data,
+    synthetic_rat_data,
+)
 from repro_torch.train import (
     TrainConfig,
     fit,
@@ -167,6 +174,86 @@ def test_synthetic_data_is_the_reference_stream():
     assert torch.equal(batch_at(t, 1, 3000)[1096:], t[:1904])
 
 
+# a Poon-Domingos structure: one gather run [0, 3) with interior mixing,
+# then the root pair per layer
+PD_SHAPE = (4, 8, 2)
+
+
+@pytest.fixture(scope="module")
+def pd_small():
+    ref = RefEiNet(ref_pd(*PD_SHAPE), num_sums=K,
+                   exponential_family=RefNormal())
+    params = jax.jit(ref.init)(jax.random.PRNGKey(5))
+    pnp = jax.tree_util.tree_map(np.asarray, params)
+    x = np.random.RandomState(3).randn(B, 32).astype(np.float32)
+    return ref, params, pnp, x
+
+
+def _load_pd(pnp, grouped=True):
+    port = EiNet(poon_domingos(*PD_SHAPE), num_sums=K, grouped=grouped,
+                 device="cpu")
+    port.load_state_dict(params_from_jax(pnp, port))
+    return port
+
+
+def test_pd_em_update_matches_reference(pd_small):
+    ref, params, pnp, x = pd_small
+    port = _load_pd(pnp)
+    assert [s.kind for s in port.exec_plan] == ["gather", "layer"]
+    new, ll = em.em_update(port, torch.from_numpy(x))
+    want, want_ll = ref_em.em_update(ref, params, jnp.asarray(x))
+    _close_trees(new, want, "params")
+    np.testing.assert_allclose(float(ll), float(want_ll), **TOL)
+
+
+def test_pd_stochastic_em_steps_match_reference(pd_small):
+    ref, params, pnp, _ = pd_small
+    port = _load_pd(pnp)
+    step = make_em_step(port, TrainConfig(mode="stochastic"))
+    rng = np.random.RandomState(8)
+    for i in range(3):
+        xb = rng.randn(B, 32).astype(np.float32)
+        ll = step(torch.from_numpy(xb))
+        params, want_ll = ref_em.stochastic_em_update(ref, params,
+                                                      jnp.asarray(xb))
+        np.testing.assert_allclose(ll, float(want_ll), err_msg=f"step {i}",
+                                   **TOL)
+        _close_trees(params_to_numpy(port), params, f"step {i}")
+
+
+def test_pd_e_step_takes_mixing_statistics_from_the_gather_backward(pd_small):
+    """The gather run's mixing weights get their gradients from the gather
+    backward's gV, the root pair's from the mixing layer's own backward;
+    the planned E-step agrees with the per-layer one and the reference."""
+    ref, params, pnp, x = pd_small
+    port = _load_pd(pnp)
+    ops.reset_counts()
+    got = em.em_statistics(port, torch.from_numpy(x))
+    assert (ops.gather_grouped_log_einsum_exp.plain_calls,
+            ops.gather_grouped_log_einsum_exp_bwd.plain_calls,
+            ops.log_einsum_exp_bwd.plain_calls) == (1, 1, 1)
+    mixed = [i for i, sp in enumerate(port.pair_specs)
+             if sp.mix_global is not None]
+    assert mixed[-1] == len(port.pair_specs) - 1 and len(mixed) >= 2
+    assert all(float(got["n_mixing"][i].abs().max()) > 0 for i in mixed)
+    want = ref_em.em_statistics(ref, params, jnp.asarray(x))
+    _close_trees(got["n_mixing"], want["n_mixing"], "n_mixing")
+    _close_trees(got["n_einsum"], want["n_einsum"], "n_einsum")
+    per_layer = em.em_statistics(_load_pd(pnp, grouped=False),
+                                 torch.from_numpy(x))
+    _close_trees(got, per_layer, "planned vs per-layer")
+
+
+def test_synthetic_pd_data_is_the_reference_stream():
+    np.testing.assert_array_equal(
+        gaussian_mixture_images(64, 8, 5, 2, num_components=3, seed=4),
+        ref_images(64, 8, 5, 2, num_components=3, seed=4))
+    data = synthetic_pd_data(100)
+    assert data.shape == (4096, 100) and data.dtype == np.float32
+    np.testing.assert_array_equal(
+        data, ref_images(4096, 16, 3, 3, seed=0)[:, :100])
+
+
 def _cli(*args):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     return subprocess.run(
@@ -189,3 +276,11 @@ def test_train_cli_defaults_to_cuda():
     out = _cli("--arch", "einet_rat", "--steps", "1")
     assert out.returncode != 0
     assert "device='cpu'" in out.stderr
+
+
+def test_train_cli_pd_on_cpu():
+    out = _cli("--arch", "einet_pd", "--steps", "2", "--batch", "16",
+               "--device", "cpu")
+    assert out.returncode == 0, out.stderr
+    assert "'gather'" in out.stdout and "ms/step" in out.stdout
+    assert "gather_grouped_log_einsum_exp_bwd 0 (1)" in out.stdout
