@@ -10,16 +10,18 @@
 2. Forward kernel phase: holds K1 (log_einsum_exp_fwd.cu) and K3
    (grouped_fwd.cu) against their plain PyTorch versions on the card (rtol
    1e-5, atol 1e-5; -inf and NEG_INF rows exactly) at einet_rat's shapes
-   (B = 2048), at odd K, at K = 40, with saturated rows and ragged batches,
-   and times each kernel, its plain version and a torch.einsum yardstick.
+   (B = 2048), at odd K, at K = 40 and 64, at K_out below, between and
+   above K1's 8-output tile, on one row, with saturated rows and ragged
+   batches, and times K3, its plain version and a torch.einsum chain.
 3. Backward kernel phase: holds K2 (log_einsum_exp_bwd.cu) and K4
-   (grouped_bwd.cu) against their plain backward versions at einet_rat's
-   shapes, odd K, K = 40, the K = 64 run of einet_rat_large, ragged batches
-   and saturated rows (input gradients rtol = atol = 1e-5 with the plain
-   version's exact zeros kept; weight gradients, summed over the batch in
-   another order, rtol 1e-4 and atol 1e-4 max|gw|), checks that two calls
-   give bitwise-equal gradients, and times each kernel, its plain version
-   and torch.autograd.grad through the plain forward.
+   (grouped_bwd.cu) against their plain backward versions at the same
+   shapes and the K = 64 run of einet_rat_large (input gradients rtol =
+   atol = 1e-5 with the plain version's exact zeros kept; weight gradients,
+   summed over the batch in another order, rtol 1e-4 and atol 1e-4
+   max|gw|), checks that two calls give bitwise-equal gradients, and times
+   K4, its plain version and its yardstick.  Then row independence: K1's
+   output and K2's gl and gr of a row computed alone are bitwise the same
+   row inside a batch of 512, at K = 10 and 40.
 4. Gather kernel phase: holds K5 (gather_fwd.cu) and K6 (gather_bwd.cu),
    the gather run of a Poon-Domingos interior with its mixing, against
    their plain versions at einet_pd's run gather[0,2) (B = 512, its leaf
@@ -27,8 +29,8 @@
    odd K = 3), on ragged batches, -inf and NEG_INF rows and a masked mixing
    child, with the tolerances above and two calls bitwise equal; times each
    kernel, its plain version and a yardstick (K5: the per-depth torch.einsum
-   chain plus log_mix_exp; K6: torch.autograd.grad through the plain
-   forward) and prints the row tiles and K6's partial-gradient bytes.
+   chain plus log_mix_exp; K6: autograd through the einsum chain plus
+   log_mix_exp) and prints the row tiles and K6's partial-gradient bytes.
 5. Serve phase: builds einet_rat at full width on the card (seed 0), serves
    the 256-request mixed stream through ServeEngine(max_batch=64) with the
    kernel launch counters reset just before, checks every result against
@@ -55,8 +57,22 @@
    fused run [0, 2) (B = 64), then joint_ll at B = 256 through its plan
    (3 K3 + 1 K1 launches) against its per-layer forward (7 K1 launches).
 10. Prints the launch counts of every main path (each kernel must have run
-   on them), a JSON "kernels" line, the nvidia-smi line, and last
-   {"ok": true, "device": {...}}.
+   on them) and the shapes (B, L, K_out, K) K1 and K2 were launched at
+   there (counted by wrapping the ops' kernels, whose launch counters stay
+   as they are); times K1 and K2 at each of those shapes (and K1 at
+   einet_pd's pairs at B = 64) on fresh inputs with their geometry, K2's
+   dW batch splits and partial bytes, each row with its plain version, its
+   yardstick, its bound and its launches; prints the rule-2 ranking (worst
+   kernel/yardstick factor, then launches x (ms - bound)), a JSON
+   "kernels" line with a "rows" list per kernel, the nvidia-smi line, and
+   last {"ok": true, "device": {...}}.
+
+The yardsticks, which the port never calls: K1 one torch.einsum on the
+stabilised frame; K2, K4 and K6 torch.autograd.grad through a forward whose
+contraction is one torch.einsum("lkij,bli,blj->blk") a depth on the
+stabilised frame (K4: the per-depth chain; K6: plus log_mix_exp for its
+mixing), forward included; K3 and K5 none (their einsum chain is shown).
+TF32 is off for all of them.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  It also exits non-zero when no CUDA device is present.  It imports
@@ -65,6 +81,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -80,6 +97,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 RTOL = ATOL = 1e-5
+# (K, K_out, B) of the extra K1/K2 checks beside the odd-K sweep
+PAIR_EXTRA = ((64, 64, 37), (64, 64, 300), (10, 2, 2053), (17, 7, 37),
+              (40, 9, 517), (10, 12, 37), (40, 40, 1), (13, 1, 2))
 
 
 def smi_line() -> str:
@@ -174,6 +194,27 @@ def counts_of(ops):
     return {op.name: op.launches for op in ops.KERNEL_OPS}
 
 
+# (op name, B, L, K_out, K) -> launches of K1 and K2 since the last reset:
+# filled by record_shapes, cleared with the launch counters
+SHAPES = collections.Counter()
+
+
+def record_shapes(op):
+    """Wrap a per-pair op's kernel so that each launch also counts its
+    shape in SHAPES.  The op's own launch counter is left as it is."""
+    kernel = op.kernel
+
+    def run(w, ln_left, *rest):
+        SHAPES[(op.name, ln_left.shape[0], *w.shape[:3])] += 1
+        return kernel(w, ln_left, *rest)
+    op.kernel = run
+
+
+def reset(ops):
+    ops.reset_counts()
+    SHAPES.clear()
+
+
 def main() -> int:
     import torch
 
@@ -186,7 +227,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import em, poon_domingos
     from repro_torch.core.einet import EiNet
-    from repro_torch.core.layers import NEG_INF, log_mix_exp
+    from repro_torch.core.layers import NEG_INF, log_mix_exp, stabilized_frame
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.grouped import (
         gather_grouped_log_einsum_exp_bwd_cuda,
@@ -196,6 +237,7 @@ def main() -> int:
         grouped_log_einsum_exp_cuda, grouped_log_einsum_exp_plain,
         pick_gather_tile_b)
     from repro_torch.kernels.log_einsum_exp import (
+        dw_geometry, dw_partial_bytes, dw_splits, launch_geometry,
         log_einsum_exp_bwd_cuda, log_einsum_exp_bwd_plain,
         log_einsum_exp_cuda, log_einsum_exp_plain)
     from repro_torch.launch.cells import build_einet
@@ -223,6 +265,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    record_shapes(ops.log_einsum_exp)
+    record_shapes(ops.log_einsum_exp_bwd)
+
     # ------------------------------------------------ forward kernel phase
     cfg = get_config("einet_rat")
     b_full = cfg.batch_size
@@ -246,9 +291,37 @@ def main() -> int:
         ws = [model.einsum[t].detach() for t in range(seg.start, seg.stop)]
 
     def frame(ln_l, ln_r):
-        a = torch.clamp(ln_l.amax(-1, keepdim=True), min=NEG_INF)
-        ap = torch.clamp(ln_r.amax(-1, keepdim=True), min=NEG_INF)
-        return torch.exp(ln_l - a), torch.exp(ln_r - ap)
+        return stabilized_frame(ln_l, ln_r)[2:]
+
+    # The yardsticks' forwards (the port never calls them): a pair's
+    # contraction as one torch.einsum on the stabilised frame, a canonical
+    # run as the chain of those, a gather run as that chain on gathered
+    # children plus log_mix_exp for its mixing.  Autograd through them is
+    # the backward kernels' yardstick.
+    def einsum_pair(w, ln_l, ln_r):
+        a, ap, el, er = stabilized_frame(ln_l, ln_r)
+        return a + ap + torch.log(
+            torch.einsum("lkij,bli,blj->blk", w, el, er))
+
+    def einsum_chain(ws_, x):
+        for w in ws_:
+            x = einsum_pair(w, x[:, :w.shape[0]], x[:, w.shape[0]:
+                                                    2 * w.shape[0]])
+        return x
+
+    def einsum_gather(tables, ws_, vs_, x):
+        buf, vi = x, 0
+        for t in range(tables.num_depths):
+            s = einsum_pair(ws_[t], buf[:, list(tables.left[t])],
+                            buf[:, list(tables.right[t])])
+            if tables.mix_child[t] is not None:
+                mask = torch.tensor(tables.mix_mask[t], dtype=torch.float32,
+                                    device=x.device)
+                child = torch.tensor(tables.mix_child[t], device=x.device)
+                s = torch.cat([s, log_mix_exp(vs_[vi], s[:, child], mask)], 1)
+                vi += 1
+            buf = torch.cat([buf, s], 1)
+        return buf[:, x.shape[1]:]
 
     rng = np.random.RandomState(0)
 
@@ -270,24 +343,11 @@ def main() -> int:
 
     with torch.inference_mode():
         # K1 at every pair of einet_rat
-        k1_err, k1_rows = 0.0, []
+        k1_err = 0.0
         for i, (w, l, r) in enumerate(inputs):
             got = log_einsum_exp_cuda(w, l, r)
             k1_err = max(k1_err, assert_close(
                 got, log_einsum_exp_plain(w, l, r), f"K1 pair {i}"))
-            el, er = frame(l, r)
-            l_cells, k_out, k, _ = w.shape
-            n_bytes = 4 * (2 * b_full * l_cells * k + w.numel()
-                           + b_full * l_cells * k_out)
-            flops = 2 * b_full * l_cells * k_out * k * k
-            k1_rows.append({
-                "shape": f"B={b_full} L={l_cells} K={k} K_out={k_out}",
-                "ms": time_ms(lambda: log_einsum_exp_cuda(w, l, r)),
-                "plain_ms": time_ms(lambda: log_einsum_exp_plain(w, l, r)),
-                "library_ms": time_ms(lambda: torch.einsum(
-                    "lkij,bli,blj->blk", w, el, er)),
-                "bytes": n_bytes, "flops": flops,
-            })
         # K3 at einet_rat's fused run [0, 4)
         got = grouped_log_einsum_exp_cuda(ws, leaf)
         k3_err = assert_close(
@@ -329,6 +389,16 @@ def main() -> int:
                                  grouped_log_einsum_exp_plain(gws, gx),
                                  f"K3 K={k} B={b} G={g}",
                                  exact=((0,), (1, 0), (3, 0)))
+        # K1's other register tiles and ragged K_out tiles: K = 64 (the
+        # per-layer einet_rat_large), K_out below, between and above the
+        # 8-output tile, one row
+        for k, k_out, b in PAIR_EXTRA:
+            w = rand_w(6, k_out, k)
+            x = rand_x(b, 12, k) if b > 3 else rand_x(b + 4, 12, k)[4:]
+            assert_close(log_einsum_exp_cuda(w, x[:, :6], x[:, 6:]),
+                         log_einsum_exp_plain(w, x[:, :6], x[:, 6:]),
+                         f"K1 K={k} K_out={k_out} B={b}",
+                         exact=((0,), (1, 0), (3, 0)) if b > 3 else ())
         torch.cuda.synchronize()
     print(f"forward kernels: K1 and K3 agree with their plain versions "
           f"(rtol={RTOL}, atol={ATOL}); einet_rat max|diff| K1 {k1_err:.3e}, "
@@ -357,8 +427,9 @@ def main() -> int:
         return errs + [assert_grad_close(got_x, want_x, f"{what} gx")]
 
     def autograd_yardstick(fn, params, g):
-        """torch.autograd.grad through the plain forward: the same gradients
-        by autodiff, forward pass included."""
+        """torch.autograd.grad through ``fn``, a forward whose contraction
+        is one torch.einsum a depth (einsum_pair): the same gradients by
+        autodiff, forward pass included."""
         req = [p.detach().clone().requires_grad_(True) for p in params]
 
         def run():
@@ -367,23 +438,12 @@ def main() -> int:
         return run
 
     with torch.no_grad():
-        k2_rows, k2_w_errs, k2_x_errs = [], [], []
+        k2_w_errs, k2_x_errs = [], []
         for i, (w, l, r) in enumerate(inputs):
             g = rand_g(b_full, w.shape[0], w.shape[1])
             errs = check_k2(w, l, r, g, f"K2 pair {i}")
             k2_w_errs.append(errs[0])
             k2_x_errs += errs[1:]
-            n_bytes, flops = bwd_cost(b_full, *w.shape[:3])
-            k2_rows.append({
-                "shape": f"B={b_full} L={w.shape[0]} K={w.shape[2]} "
-                         f"K_out={w.shape[1]}",
-                "ms": time_ms(lambda: log_einsum_exp_bwd_cuda(w, l, r, g)),
-                "plain_ms": time_ms(
-                    lambda: log_einsum_exp_bwd_plain(w, l, r, g)),
-                "library_ms": time_ms(autograd_yardstick(
-                    log_einsum_exp_plain, (w, l, r), g)),
-                "bytes": n_bytes, "flops": flops,
-            })
         g_out = rand_g(b_full, ws[-1].shape[0], ws[-1].shape[1])
         errs = check_k4(ws, leaf, g_out, "K4 fused[0,4)")
         k4_w_errs, k4_x_errs = errs[:-1], errs[-1:]
@@ -398,8 +458,7 @@ def main() -> int:
             "plain_ms": time_ms(lambda: grouped_log_einsum_exp_bwd_plain(
                 ws, leaf, g_out)),
             "library_ms": time_ms(autograd_yardstick(
-                lambda x, *w: grouped_log_einsum_exp_plain(list(w), x),
-                (leaf, *ws), g_out)),
+                lambda x, *w: einsum_chain(w, x), (leaf, *ws), g_out)),
             "bytes": n_bytes, "flops": flops,
         }
         for k in (3, 5, 13, 17, 40):
@@ -419,6 +478,13 @@ def main() -> int:
                                     f"K4 K={k} B={b} G={g}")
                     k4_w_errs += errs[:-1]
                     k4_x_errs += errs[-1:]
+        for k, k_out, b in PAIR_EXTRA:
+            w = rand_w(6, k_out, k)
+            x = rand_x(b, 12, k) if b > 3 else rand_x(b + 4, 12, k)[4:]
+            errs = check_k2(w, x[:, :6], x[:, 6:], rand_g(b, 6, k_out),
+                            f"K2 K={k} K_out={k_out} B={b}")
+            k2_w_errs.append(errs[0])
+            k2_x_errs += errs[1:]
         torch.cuda.synchronize()
 
     def worst(errs, key):
@@ -432,6 +498,33 @@ def main() -> int:
           f"max|gw| {worst(k2_w_errs, 'rel'):.3e}), K4 "
           f"{worst(k4_w_errs, 'abs'):.3e} (relative "
           f"{worst(k4_w_errs, 'rel'):.3e}) [{card}]")
+
+    # row independence: a row computed alone is bitwise the same row inside
+    # a batch of 512 (K1's output, K2's gl and gr), at K = 10 and K = 40
+    with torch.no_grad():
+        alone_rows = (0, 1, 3, 37, 200, 511)
+        for k in (10, 40):
+            for k_out in (k, 1):
+                w = rand_w(6, k_out, k)
+                x = rand_x(512, 12, k)
+                l, r = x[:, :6], x[:, 6:]
+                g = rand_g(512, 6, k_out)
+                out = log_einsum_exp_cuda(w, l, r)
+                _, gl, gr = log_einsum_exp_bwd_cuda(w, l, r, g)
+                for b in alone_rows:
+                    one = slice(b, b + 1)
+                    _, gl1, gr1 = log_einsum_exp_bwd_cuda(
+                        w, l[one], r[one], g[one].contiguous())
+                    if not (torch.equal(out[one], log_einsum_exp_cuda(
+                            w, l[one], r[one])) and torch.equal(gl[one], gl1)
+                            and torch.equal(gr[one], gr1)):
+                        raise AssertionError(
+                            f"K1/K2 K={k} K_out={k_out}: row {b} alone "
+                            "differs from the same row in a batch of 512")
+        torch.cuda.synchronize()
+    print(f"row independence: K1's output and K2's gl, gr of rows "
+          f"{alone_rows} computed alone are bitwise equal to the same rows "
+          f"in a batch of 512, at K=10 and K=40, K_out=K and 1 [{card}]")
 
     # ------------------------------------------------- gather kernel phase
     pd_cfg = get_config("einet_pd")
@@ -561,8 +654,7 @@ def main() -> int:
             "plain_ms": time_ms(lambda: gather_grouped_log_einsum_exp_bwd_plain(
                 pd_tab, pd_ws, pd_vs, pd_leaf, pd_g)),
             "library_ms": time_ms(autograd_yardstick(
-                lambda x, *wv: gather_grouped_log_einsum_exp_plain(
-                    pd_tab, list(wv[:2]), list(wv[2:]), x),
+                lambda x, *wv: einsum_gather(pd_tab, wv[:2], wv[2:], x),
                 (pd_leaf, *pd_ws, *pd_vs), pd_g)),
             "bytes": 4 * (2 * pd_leaf.numel() + n_new + 2 * n_w),
             "flops": sum(b_pd * len(l) * (6 * pd.K ** 3 + 4 * pd.K ** 2)
@@ -585,13 +677,14 @@ def main() -> int:
     # -------------------------------------------------------- serve phase
     reqs = mixed_requests(model.num_vars, 256, seed=0)
     engine = ServeEngine(model, max_batch=64)
-    ops.reset_counts()
+    reset(ops)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     served = engine.run(reqs)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     serve_counts = counts_of(ops)
+    serve_shapes = collections.Counter(SHAPES)
     plain_counts = {op.name: op.plain_calls for op in ops.KERNEL_OPS}
     if (serve_counts["log_einsum_exp"] == 0
             or serve_counts["grouped_log_einsum_exp"] == 0
@@ -693,7 +786,7 @@ def main() -> int:
     xb = data_dev[:b_full]
     em_cfg = em.EMConfig()
     model_pl = build_einet(cfg, device=dev, seed=0, grouped=False)
-    ops.reset_counts()
+    reset(ops)
     stats_card = em.em_statistics(model, xb)
     stats_pl = em.em_statistics(model_pl, xb)
     torch.cuda.synchronize()
@@ -734,7 +827,7 @@ def main() -> int:
     # ----------------------------------------------------- training phase
     def train_run(m, mode, steps, batches, want):
         step = make_em_step(m, TrainConfig(mode=mode))
-        ops.reset_counts()
+        reset(ops)
         lls, times = [], []
         for i in range(steps):
             x = batches(i)
@@ -744,6 +837,7 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         got = counts_of(ops)
+        shapes = collections.Counter(SHAPES)
         if any(got[k] != want.get(k, 0) * steps for k in got):
             raise AssertionError(
                 f"{mode} EM: launches {got} in {steps} steps, expected "
@@ -751,7 +845,7 @@ def main() -> int:
         if not all(np.isfinite(lls)):
             raise AssertionError(f"{mode} EM: LL {lls}")
         return {"lls": lls, "median_ms": sorted(times)[len(times) // 2] * 1e3,
-                "counts": got}
+                "counts": got, "shapes": shapes}
 
     fused_want = {"grouped_log_einsum_exp": 1, "grouped_log_einsum_exp_bwd": 1}
     layer_want = {"log_einsum_exp": 4, "log_einsum_exp_bwd": 4}
@@ -798,13 +892,14 @@ def main() -> int:
     # ---------------------------------------------- einet_pd serve phase
     pd_reqs = mixed_requests(pd.num_vars, 256, seed=0)
     pd_engine = ServeEngine(pd, max_batch=64)
-    ops.reset_counts()
+    reset(ops)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pd_served = pd_engine.run(pd_reqs)
     torch.cuda.synchronize()
     pd_serve_s = time.perf_counter() - t0
     pd_serve_counts = counts_of(ops)
+    pd_serve_shapes = collections.Counter(SHAPES)
     plain_counts = {op.name: op.plain_calls for op in ops.KERNEL_OPS}
     if (pd_serve_counts["gather_grouped_log_einsum_exp"] == 0
             or pd_serve_counts["log_einsum_exp"] == 0
@@ -848,11 +943,11 @@ def main() -> int:
         ll_cpu = pd_cpu.log_likelihood(pd_data[:8])
         if not torch.allclose(ll_card, ll_cpu, rtol=1e-5, atol=1e-4):
             raise AssertionError(f"einet_pd card LL {ll_card} vs CPU {ll_cpu}")
-        ops.reset_counts()
+        reset(ops)
         pd_ll_plan = pd.log_likelihood(pd_xb)
         torch.cuda.synchronize()
         pd_plan_counts = counts_of(ops)
-        ops.reset_counts()
+        reset(ops)
         pd_ll_layer = pd_pl.log_likelihood(pd_xb)
         torch.cuda.synchronize()
         pd_layer_counts = counts_of(ops)
@@ -891,12 +986,12 @@ def main() -> int:
           f"{(ll_card - ll_cpu).abs().max().item():.3e} [{card}]")
 
     # --------------------------------------------- einet_pd E-step phase
-    ops.reset_counts()
+    reset(ops)
     pd_stats = em.em_statistics(pd, pd_xb)
     torch.cuda.synchronize()
     pd_estep_counts = counts_of(ops)
     pd_stats2 = em.em_statistics(pd, pd_xb)
-    ops.reset_counts()
+    reset(ops)
     pd_stats_pl = em.em_statistics(pd_pl, pd_xb)
     torch.cuda.synchronize()
     pd_estep_pl_counts = counts_of(ops)
@@ -1012,7 +1107,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     x256 = big_data[:256]
     with torch.inference_mode():
-        ops.reset_counts()
+        reset(ops)
         ll_plan = big.log_likelihood(x256)
         torch.cuda.synchronize()
         big_counts = counts_of(ops)
@@ -1022,7 +1117,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     big_pl = build_einet(big_cfg, device=dev, seed=0, grouped=False)
     with torch.inference_mode():
-        ops.reset_counts()
+        reset(ops)
         ll_layer = big_pl.log_likelihood(x256)
         torch.cuda.synchronize()
         big_pl_counts = counts_of(ops)
@@ -1064,57 +1159,148 @@ def main() -> int:
     counts = {k: sum(c[k] for c in paths.values()) for k in serve_counts}
     if not all(counts.values()):
         raise AssertionError(f"a kernel never ran on the main paths: {counts}")
+    # K1 and K2 at every shape the main paths launched them at (einet_pd's
+    # pairs also at its largest serve bucket, B = 64), each row with the
+    # launches at its shape, on fresh inputs made from the seed
+    path_shapes = collections.Counter()
+    for sh in (serve_shapes, full["shapes"], train["fused"]["shapes"],
+               train["per-layer"]["shapes"], pd_serve_shapes,
+               pd_full["shapes"], pd_train["planned"]["shapes"],
+               pd_train["per-layer"]["shapes"]):
+        path_shapes.update(sh)
+    for (name, *shape), n in sorted(path_shapes.items()):
+        print(f"{name} launches at (B, L, K_out, K) = {tuple(shape)} on the "
+              f"main paths: {n}")
+
+    def pair_rows(op_name, backward):
+        shapes = {tuple(k[1:]): n for k, n in path_shapes.items()
+                  if k[0] == op_name}
+        if not backward:
+            for b, *rest in list(shapes):
+                if b == b_pd:
+                    shapes.setdefault((64, *rest), 0)
+        rows = []
+        for (b, l_cells, k_out, k), n in sorted(
+                shapes.items(), key=lambda it: (it[0][3], -it[0][0],
+                                                -it[0][1], -it[0][2])):
+            w = rand_w(l_cells, k_out, k)
+            x = torch.from_numpy((rng.randn(b, 2 * l_cells, k) * 4 - 20)
+                                 .astype(np.float32)).to(dev)
+            l, r = x[:, :l_cells], x[:, l_cells:]
+            if backward:
+                g = rand_g(b, l_cells, k_out)
+                ms = time_ms(lambda: log_einsum_exp_bwd_cuda(w, l, r, g))
+                plain_ms = time_ms(lambda: log_einsum_exp_bwd_plain(w, l, r, g))
+                lib_ms = time_ms(autograd_yardstick(einsum_pair, (w, l, r), g))
+                n_bytes, flops = bwd_cost(b, l_cells, k, k_out)
+                print(f"K2 B={b} L={l_cells} K={k} K_out={k_out}: rows "
+                      f"kernel (tile, subtiles, rows, K_out tile) "
+                      f"{launch_geometry(b, l_cells, k, k_out, True)}, dW "
+                      f"(JT, K_out tile) {dw_geometry(k, k_out)} in "
+                      f"{dw_splits(b, l_cells, k, k_out)} batch splits, "
+                      f"partials {dw_partial_bytes(b, l_cells, k, k_out)} B"
+                      f" [{card}]")
+            else:
+                print(f"K1 B={b} L={l_cells} K={k} K_out={k_out}: (tile, "
+                      f"subtiles, rows, K_out tile) "
+                      f"{launch_geometry(b, l_cells, k, k_out)} [{card}]")
+                el, er = frame(l, r)
+                ms = time_ms(lambda: log_einsum_exp_cuda(w, l, r))
+                plain_ms = time_ms(lambda: log_einsum_exp_plain(w, l, r))
+                lib_ms = time_ms(lambda: torch.einsum(
+                    "lkij,bli,blj->blk", w, el, er))
+                n_bytes = 4 * (2 * b * l_cells * k + w.numel()
+                               + b * l_cells * k_out)
+                flops = 2 * b * l_cells * k_out * k * k
+            b_ms, b_by = bound(n_bytes, flops)
+            rows.append({"shape": f"B={b} L={l_cells} K={k} K_out={k_out}",
+                         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "launches": n,
+                         "bytes": n_bytes, "flops": flops})
+            del w, x, l, r
+        return rows
+
+    with torch.no_grad():
+        k1_rows = pair_rows("log_einsum_exp", backward=False)
+        k2_rows = pair_rows("log_einsum_exp_bwd", backward=True)
+    for r in (k3_row, k5_row):
+        r["library_ms"] = None
+    for r in (k3_row, k4_row, k5_row, k6_row):
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"])
+        r["launches"] = None  # one row: all of the op's launches (report)
     kernel_json = []
 
-    def report(name, source, replaces, op, rows, err, yardstick, lib_ms):
-        n_bytes = sum(r["bytes"] for r in rows)
-        flops = sum(r["flops"] for r in rows)
-        b_ms, b_by = bound(n_bytes, flops)
+    def report(name, source, replaces, op, rows, err, yardstick):
         for r in rows:
-            rb, rby = bound(r["bytes"], r["flops"])
+            if r["launches"] is None:
+                r["launches"] = counts[op]
+            yard = r["library_ms"] if r["library_ms"] is not None \
+                else r["einsum_chain_ms"]
             print(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, {yardstick} "
-                  f"{r.get('library_ms', r.get('einsum_chain_ms')):.4f} ms, "
-                  f"bound {rb:.4f} ms ({rby}) [{card}]")
+                  f"{r['plain_ms']:.4f} ms, {yardstick} {yard:.4f} ms "
+                  f"({r['ms'] / yard:.2f}x), bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}), {r['launches']} launches on the main "
+                  f"paths [{card}]")
+        b_ms, b_by = bound(sum(r["bytes"] for r in rows),
+                           sum(r["flops"] for r in rows))
+        lib = [r["library_ms"] for r in rows]
         kernel_json.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[op], "max_abs_err": err,
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None if None in lib else sum(lib),
+            "rows": [{k: r[k] for k in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "launches")} for r in rows],
         })
 
     csrc = "src/repro_torch/kernels/csrc/"
     report("log_einsum_exp_fwd", csrc + "log_einsum_exp_fwd.cu",
            "src/repro/kernels/log_einsum_exp.py:182", "log_einsum_exp",
-           k1_rows, k1_err, "einsum yardstick",
-           sum(r["library_ms"] for r in k1_rows))
+           k1_rows, k1_err, "einsum yardstick")
     report("log_einsum_exp_bwd", csrc + "log_einsum_exp_bwd.cu",
            "src/repro/kernels/log_einsum_exp.py:224", "log_einsum_exp_bwd",
            k2_rows, max(worst(k2_x_errs, "abs"), worst(k2_w_errs, "abs")),
-           "autograd through the plain forward",
-           sum(r["library_ms"] for r in k2_rows))
+           "autograd einsum yardstick")
     report("grouped_fwd", csrc + "grouped_fwd.cu",
            "src/repro/kernels/grouped.py:305", "grouped_log_einsum_exp",
-           [k3_row], k3_err, "einsum chain yardstick", None)
+           [k3_row], k3_err, "einsum chain")
     report("grouped_bwd", csrc + "grouped_bwd.cu",
            "src/repro/kernels/grouped.py:380", "grouped_log_einsum_exp_bwd",
            [k4_row], max(worst(k4_x_errs, "abs"), worst(k4_w_errs, "abs")),
-           "autograd through the plain forward", k4_row["library_ms"])
+           "autograd einsum-chain yardstick")
     report("gather_fwd", csrc + "gather_fwd.cu",
            "src/repro/kernels/grouped.py:718", "gather_grouped_log_einsum_exp",
-           [k5_row], k5_err, "einsum chain + mixing yardstick", None)
+           [k5_row], k5_err, "einsum chain + mixing")
     report("gather_bwd", csrc + "gather_bwd.cu",
            "src/repro/kernels/grouped.py:780",
            "gather_grouped_log_einsum_exp_bwd", [k6_row],
            max(worst(k6_x_errs, "abs"), worst(k6_w_errs, "abs")),
-           "autograd through the plain forward", k6_row["library_ms"])
-    print("In the JSON line K1 and K2 are summed over einet_rat's 4 pairs (one "
-          "per-layer pass), K3 and K4 are one fused [0,4) pass, all at "
-          f"B={b_full}; K5 and K6 are einet_pd's gather[0,2) at B={b_pd}; "
-          "launches are summed over the main paths above; K2, K4 and K6's "
-          "library_ms is torch.autograd.grad through the plain forward "
-          "(forward included)")
+           "autograd einsum-chain + mixing yardstick")
+    # rule 2's ranking: the worst loss factor to the yardstick, then the
+    # launch-weighted time above the bound (launch ms)
+    rank = []
+    for kj, rows in zip(kernel_json, (k1_rows, k2_rows, [k3_row], [k4_row],
+                                      [k5_row], [k6_row])):
+        factor = max(r["ms"] / (r["library_ms"] if r["library_ms"] is not None
+                                else r["einsum_chain_ms"]) for r in rows)
+        over = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows)
+        rank.append((factor, over, kj["name"]))
+    print("ranking (worst kernel/yardstick factor, launches x (ms - bound)): "
+          + "; ".join(f"{n} {f:.2f}x, {o:.1f} launch ms"
+                      for f, o, n in sorted(rank, reverse=True)) + f" [{card}]")
+    print("In the JSON line each kernel's rows are timed at the shapes the "
+          "main paths launch it at (K1 and K2: every (B, L, K_out, K) seen, "
+          "on fresh inputs; K3, K4: einet_rat's fused [0,4) at "
+          f"B={b_full}; K5, K6: einet_pd's gather[0,2) at B={b_pd}), and its "
+          "ms, plain_ms, library_ms and bound_ms are the sums over its rows; "
+          "launches are summed over the main paths above.  library_ms is one "
+          "torch.einsum on the stabilised frame for K1, and for K2, K4 and "
+          "K6 torch.autograd.grad through a forward whose contraction is one "
+          "torch.einsum a depth (K6: plus log_mix_exp), forward included; "
+          "K3 and K5 have none (their rows show the einsum chain)")
     print(f"serve: {len(reqs)} mixed requests, first pass {serve_s:.3f} s, "
           f"steady {min(steady):.3f} s ({qps:.1f} req/s), "
           f"{engine.stats['steps'] // 3} engine steps a pass [{card}]")

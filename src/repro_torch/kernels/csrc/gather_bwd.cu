@@ -67,7 +67,7 @@ __global__ void __launch_bounds__(kThreads) gather_bwd_kernel(
   const int b0 = tile * tile_b;
   const int nb = min(tile_b, B - b0);
   const int KK = K * K;
-  const int KKp = gather_row_stride(K);
+  const int KKp = lee_row_stride(K);
   float* wbuf = smem;
   GatherRows g;
   g.X = wbuf + w_floats;
@@ -165,7 +165,8 @@ __global__ void __launch_bounds__(kThreads) gather_bwd_kernel(
       for (int k0 = 0; k0 < K; k0 += ch.kt) {
         const int kn = min(ch.kt, K - k0);
         __syncthreads();
-        gather_stage_weights(wbuf, p.w[t], m0, mn, k0, kn, K);
+        lee_stage_weights(wbuf, p.w[t], (long long)K * K * K, m0, mn, k0,
+                          kn, K);
         __syncthreads();
         for (int o = threadIdx.x; o < nb * mn * kn; o += blockDim.x) {
           const int r = o / (mn * kn);

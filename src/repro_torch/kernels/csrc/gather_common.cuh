@@ -104,77 +104,6 @@ __device__ __forceinline__ float gather_mix_frame(const GatherRows& g,
   return a;
 }
 
-// Shared-memory stride of one staged weight row (one output k of a cell,
-// K^2 floats): odd, so the rows that a warp's threads read at once (one k
-// each) fall in different banks.  At K = 40 an unpadded row is 1,600
-// floats, a multiple of the 32 banks, and every k would hit one bank.
-__device__ __forceinline__ int gather_row_stride(int K) { return (K * K) | 1; }
-
-// Stage cells [m0, m0 + mn), outputs [k0, k0 + kn) of a depth's weights wd
-// (L, K, K, K) into wbuf, one weight row every gather_row_stride(K) floats.
-// Each cell's part is one contiguous run of kn K^2 floats in device
-// memory; a thread loads kStageBatch values before it stores any, as
-// float4s where K^2 is a multiple of 4 and wd is 16-byte aligned, so that
-// a block keeps many loads in flight (one at a time leaves the copy bound
-// by the latency of each load).
-constexpr int kStageBatch = 8;
-
-__device__ __forceinline__ void gather_stage_weights(float* wbuf,
-                                                     const float* wd, int m0,
-                                                     int mn, int k0, int kn,
-                                                     int K) {
-  const int KK = K * K;
-  const int KKp = gather_row_stride(K);
-  const int n = kn * KK;  // floats of one cell's part
-  const bool vec = KK % 4 == 0 &&
-                   reinterpret_cast<unsigned long long>(wd) % 16 == 0;
-  for (int m = 0; m < mn; ++m) {
-    const float* src = wd + (long long)(m0 + m) * K * KK + (long long)k0 * KK;
-    float* dst = wbuf + m * kn * KKp;
-    if (vec) {
-      const float4* src4 = reinterpret_cast<const float4*>(src);
-      const int n4 = n / 4;
-      for (int b = threadIdx.x; b < n4; b += kStageBatch * blockDim.x) {
-        float4 v[kStageBatch];
-#pragma unroll
-        for (int u = 0; u < kStageBatch; ++u) {
-          const int q = b + u * blockDim.x;
-          if (q < n4) v[u] = src4[q];
-        }
-#pragma unroll
-        for (int u = 0; u < kStageBatch; ++u) {
-          const int q = b + u * blockDim.x;
-          if (q < n4) {
-            const int row = (4 * q) / KK;  // the 4 floats share a row
-            float* d = dst + row * KKp + (4 * q - row * KK);
-            d[0] = v[u].x;
-            d[1] = v[u].y;
-            d[2] = v[u].z;
-            d[3] = v[u].w;
-          }
-        }
-      }
-    } else {
-      for (int b = threadIdx.x; b < n; b += kStageBatch * blockDim.x) {
-        float v[kStageBatch];
-#pragma unroll
-        for (int u = 0; u < kStageBatch; ++u) {
-          const int q = b + u * blockDim.x;
-          if (q < n) v[u] = src[q];
-        }
-#pragma unroll
-        for (int u = 0; u < kStageBatch; ++u) {
-          const int q = b + u * blockDim.x;
-          if (q < n) {
-            const int row = q / KK;
-            dst[row * KKp + (q - row * KK)] = v[u];
-          }
-        }
-      }
-    }
-  }
-}
-
 // lee_cell_sum's arithmetic in its order (the same bits as every other
 // kernel's cell), with the inner loop unrolled so that a thread keeps
 // several shared-memory loads in flight ahead of its FMA chain.
@@ -203,7 +132,7 @@ __device__ inline void gather_forward_sweep(const int* tab,
                                             const GatherRows& g, int nb,
                                             float* wbuf, int w_floats) {
   const int K = g.K;
-  const int KKp = gather_row_stride(K);
+  const int KKp = lee_row_stride(K);
   const int D = tab[0];
   __syncthreads();
   gather_stabilize(g, nb, 0, tab[1]);
@@ -218,7 +147,8 @@ __device__ inline void gather_forward_sweep(const int* tab,
         const int kn = min(ch.kt, K - k0);
         // the previous chunk's outputs and the stabilised rows are written
         __syncthreads();
-        gather_stage_weights(wbuf, p.w[t], m0, mn, k0, kn, K);
+        lee_stage_weights(wbuf, p.w[t], (long long)K * K * K, m0, mn, k0,
+                          kn, K);
         __syncthreads();
         for (int o = threadIdx.x; o < nb * mn * kn; o += blockDim.x) {
           const int r = o / (mn * kn);

@@ -6,95 +6,149 @@
 //   s  = sum_{i,j} W[l,k,i,j] exp(ln_l[b,l,i] - a) exp(ln_r[b,l,j] - a')
 //   out[b,l,k] = (a + a') + log s
 //
-// Layout: one block per (cell l, tile of rows, tile of K_out); the wrapper
-// uses 32-row tiles.  The block
-// stages W[l] (its K_out tile) and the tile's ln rows in shared memory,
-// stabilises each row once in place, then each thread produces (row, k)
-// outputs with lee_cell_sum: fp32 FMAs in a fixed (i, j) order.  A row's
-// result therefore does not depend on the batch size or the tile.  Rows
-// past the end of the batch are neither read nor written.  Where one cell's
-// W does not fit beside the tile's rows in 227 KB, the wrapper tiles K_out
-// (grid z); at K = 40 a whole cell is 256 KB.
+// Layout: one block per (cell l, row tile, K_out tile).  The block stages
+// its K_out tile of W[l] (lee_stage_weights: float4 loads, each weight row
+// at the odd stride lee_row_stride) and its rows (at the odd stride
+// lee_pad), stabilises the rows once in place (lee_stabilize), then runs
+// lee_sweep: every t[r,k,i] = sum_j W[k,i,j] er[r,j] of the tile, register
+// tiled (a lane holds R rows x KO outputs, so a weight it loads feeds R
+// FMAs and an activation KO) and spread over the warps by (row subtile, i),
+// into shared memory.  Last, a thread per output sums s = sum_i el_i t_i.
+// Each output keeps lee_cell_sum's FMA order exactly (i outer, t over j
+// from 0, then s += el_i t), so the bits are those of K3's and K5's
+// cells, and a row's result depends on that row alone.  Rows past the
+// end of the batch are neither read nor written.
 //
-// What bounds it on the H100, at einet_rat's first pair (B = 2048, L = 80,
-// K = K_out = 10): it must read ln_l and ln_r (13.1 MB) and W (0.32 MB) and
-// write out (6.6 MB), about 20 MB or 6.0 us at 3.35 TB/s; the contraction is
-// 2 B L K_out K^2 = 0.33 GFLOP, 4.9 us at the 67 TFLOP/s fp32 (non-tensor)
-// rate.  So it is bound by bytes, and each input byte is read once.  At the
-// root pair (L = 10, K_out = 1) the bytes (1.7 MB) dominate further.
+// Bank conflicts: with weight rows K^2 floats apart and consecutive k on
+// consecutive lanes, every lane of a warp would hit one bank on each of
+// its 1,600 weight loads at K = 40 (K^2 = 50 x 32).  Here every warp-wide
+// load of the sweep reads rows at an odd stride, or one word for many
+// lanes (a broadcast), and the sum reads T at the odd stride lee_pad(K).
 //
-// Later work, not done here: tensor cores (TF32 or split-precision wgmma for
-// the K^2 x K_out product), cp.async/TMA staging, and larger tiles.
+// Filling the card: the wrapper (kernels/log_einsum_exp.py launch_geometry)
+// picks the register tile (32 rows x 8 or 10 outputs, whichever pads K_out
+// less; 64 rows x 1 output for K_out = 1 and for a K too large for 8 weight
+// rows) and the number of row subtiles a block holds (1 to 8): the most
+// that still leave about two blocks an SM and three blocks' shared memory
+// an SM, so that a launch keeps many warps in flight.  The registers are
+// capped at 64 a thread (kMinBlocks) for the same reason.  einet_pd's pairs
+// (B = 512, 3 or 4 cells, K = K_out = 40) run 240 or 320 blocks of one
+// subtile, whose 8 warps split the 40 values of i; einet_rat's (B = 2048,
+// K = 10) blocks of 128 rows and all 10 outputs.  Several cells a block
+// are not needed for that: at K = 10 one cell's weights are 4 KB and a
+// block's 128 rows give its warps 40 items.
+//
+// What bounds it on the H100: at einet_rat's first pair (B = 2048, L = 80,
+// K = K_out = 10) it must read ln_l and ln_r (13.1 MB) and W (0.32 MB) and
+// write out (6.6 MB), about 20 MB or 6.0 us at 3.35 TB/s, against 0.33
+// GFLOP or 4.9 us at the 67 TFLOP/s fp32 (non-tensor) rate: bound by bytes.
+// At einet_pd's (B = 512, L = 4, K = K_out = 40) it reads 1.3 MB and does
+// 0.26 GFLOP, 3.9 us: bound by operations.  The K_out = 1 root pairs are
+// bound by bytes.
+//
+// Later work, not done here: the contraction on tensor cores (TF32, or
+// an error-compensated 3xTF32 split to keep fp32 accuracy: every FMA here
+// is fp32), cp.async or TMA staging overlapped with the sweep, and a
+// persistent grid.
 
 #include "lee_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMinBlocks = 4;  // blocks an SM: at most 64 registers a thread
 
-__global__ void __launch_bounds__(kThreads) lee_fwd_kernel(
+template <class Tile>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) lee_fwd_kernel(
     const float* __restrict__ w, const float* __restrict__ ln_l,
     const float* __restrict__ ln_r, float* __restrict__ out, int B, int L,
-    int K, int K_out, int tile_b, int kt, long long l_sb, long long l_sl,
+    int K, int K_out, int nsub, long long l_sb, long long l_sl,
     long long r_sb, long long r_sl) {
   extern __shared__ float smem[];
+  constexpr int KT = Tile::KT;
+  const int tb = nsub * Tile::ROWS;
   const int l = blockIdx.x;
-  const int b0 = blockIdx.y * tile_b;
-  const int k0 = blockIdx.z * kt;
-  const int kn = min(kt, K_out - k0);
-  const int nb = min(tile_b, B - b0);
-  const int KK = K * K;
-  float* ws = smem;              // kt * K^2: W[l, k0:k0+kn]
-  float* el = ws + kt * KK;      // tile_b * K: left rows, then their exps
-  float* er = el + tile_b * K;   // tile_b * K: right rows, then their exps
-  float* ml = er + tile_b * K;   // tile_b: clamped left maxes
-  float* mr = ml + tile_b;       // tile_b: clamped right maxes
+  const int b0 = blockIdx.y * tb;
+  const int k0 = blockIdx.z * KT;
+  const int kn = min(KT, K_out - k0);
+  const int nb = min(tb, B - b0);
+  const int Kp = lee_pad(K);
+  float* ws = smem;                       // KT lee_row_stride(K): W[l, k0:]
+  float* el = ws + KT * lee_row_stride(K);  // tb Kp: left rows, then exps
+  float* er = el + tb * Kp;               // tb Kp: right rows, then exps
+  float* ml = er + tb * Kp;               // tb: clamped left maxes
+  float* mr = ml + tb;                    // tb: clamped right maxes
+  float* T = mr + tb;                     // tb KT Kp: t[r, k, i]
 
-  const float* wl = w + ((long long)l * K_out + k0) * KK;
-  for (int t = threadIdx.x; t < kn * KK; t += blockDim.x) ws[t] = wl[t];
-  for (int t = threadIdx.x; t < nb * K; t += blockDim.x) {
-    const int r = t / K;
-    const int i = t - r * K;
-    const long long b = b0 + r;
-    el[t] = ln_l[b * l_sb + l * l_sl + i];
-    er[t] = ln_r[b * r_sb + l * r_sl + i];
-  }
+  lee_stage_weights(ws, w, (long long)K_out * K * K, l, 1, k0, kn, K);
+  lee_stage_rows(el, ln_l + l * l_sl, l_sb, b0, nb, tb, K);
+  lee_stage_rows(er, ln_r + l * r_sl, r_sb, b0, nb, tb, K);
   __syncthreads();
   for (int t = threadIdx.x; t < 2 * nb; t += blockDim.x) {
     if (t < nb) {
-      ml[t] = lee_stabilize(el + t * K, K);
+      ml[t] = lee_stabilize(el + t * Kp, K);
     } else {
-      mr[t - nb] = lee_stabilize(er + (t - nb) * K, K);
+      mr[t - nb] = lee_stabilize(er + (t - nb) * Kp, K);
     }
   }
   __syncthreads();
-  for (int o = threadIdx.x; o < nb * kn; o += blockDim.x) {
-    const int r = o / kn;
-    const int k = o - r * kn;
-    const float s = lee_cell_sum(ws + k * KK, el + r * K, er + r * K, K);
+  lee_sweep<Tile, false>(ws, er, T, K, nsub);
+  __syncthreads();
+  for (int o = threadIdx.x; o < nb * KT; o += blockDim.x) {
+    const int r = o / KT;
+    const int k = o - r * KT;
+    if (k >= kn) continue;
+    const float* t = T + o * Kp;
+    const float* e = el + r * Kp;
+    float s = 0.f;
+    for (int i = 0; i < K; ++i) s = fmaf(e[i], t[i], s);
     out[((long long)(b0 + r) * L + l) * K_out + k0 + k] =
         (ml[r] + mr[r]) + logf(s);
   }
+}
+
+template <class Tile>
+cudaError_t launch(const float* w, const float* ln_l, const float* ln_r,
+                   float* out, int B, int L, int K, int K_out, int nsub,
+                   long long l_sb, long long l_sl, long long r_sb,
+                   long long r_sl, cudaStream_t stream) {
+  // the block's whole budget, allowed once; a launch asks for what it uses
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      lee_fwd_kernel<Tile>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kLeeSmemLimit);
+  if (attr != cudaSuccess) return attr;
+  const int tb = nsub * Tile::ROWS;
+  const long long smem =
+      4LL * ((long long)Tile::KT * lee_row_stride(K) + 2LL * tb +
+             (2LL + Tile::KT) * tb * lee_pad(K));
+  if (smem > kLeeSmemLimit) return cudaErrorInvalidValue;
+  const dim3 grid(L, (B + tb - 1) / tb, (K_out + Tile::KT - 1) / Tile::KT);
+  lee_fwd_kernel<Tile><<<grid, kThreads, (size_t)smem, stream>>>(
+      w, ln_l, ln_r, out, B, L, K, K_out, nsub, l_sb, l_sl, r_sb, r_sl);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // w (L, K_out, K, K) contiguous; ln_l / ln_r (B, L, K) with unit stride over
 // K and the given batch and cell strides; out (B, L, K_out) contiguous.
-// tile_b rows and kt outputs per block (the wrapper sizes them so that the
-// shared memory below fits).  Launches on `stream`; returns cudaGetLastError().
+// tile 0: 32-row subtiles x 8 outputs; tile 1: 64-row subtiles x 1 output;
+// tile 2: 32-row subtiles x 10 outputs; nsub subtiles a block (the wrapper
+// checks that the block fits).  Launches on `stream`; returns the first
+// CUDA error, or 0.
 extern "C" int lee_fwd(const float* w, const float* ln_l, const float* ln_r,
-                       float* out, int B, int L, int K, int K_out, int tile_b,
-                       int kt, long long l_sb, long long l_sl, long long r_sb,
-                       long long r_sl, void* stream) {
-  const long long smem =
-      4LL * ((long long)kt * K * K + 2LL * tile_b * K + 2LL * tile_b);
-  cudaError_t err = cudaFuncSetAttribute(
-      lee_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(L, (B + tile_b - 1) / tile_b, (K_out + kt - 1) / kt);
-  lee_fwd_kernel<<<grid, kThreads, (size_t)smem,
-                   reinterpret_cast<cudaStream_t>(stream)>>>(
-      w, ln_l, ln_r, out, B, L, K, K_out, tile_b, kt, l_sb, l_sl, r_sb, r_sl);
-  return (int)cudaGetLastError();
+                       float* out, int B, int L, int K, int K_out, int tile,
+                       int nsub, long long l_sb, long long l_sl,
+                       long long r_sb, long long r_sl, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (tile == 0) {
+    return (int)launch<LeeTile<4, 2, 4>>(w, ln_l, ln_r, out, B, L, K, K_out,
+                                         nsub, l_sb, l_sl, r_sb, r_sl, s);
+  }
+  if (tile == 2) {
+    return (int)launch<LeeTile<2, 5, 2>>(w, ln_l, ln_r, out, B, L, K, K_out,
+                                         nsub, l_sb, l_sl, r_sb, r_sl, s);
+  }
+  return (int)launch<LeeTile<2, 1, 1>>(w, ln_l, ln_r, out, B, L, K, K_out,
+                                       nsub, l_sb, l_sl, r_sb, r_sl, s);
 }

@@ -18,6 +18,7 @@ tensors, and the tests and ``chip_smoke.py`` hold the kernels against them.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,59 +26,136 @@ from repro_torch.core.layers import S_FLOOR, cell_sums, stabilized_frame
 from repro_torch.core.layers import log_einsum_exp as log_einsum_exp_plain
 from repro_torch.kernels import build
 
-# shared memory one block may use on the H100 (227 KB)
+# shared memory one block may use on the H100 (227 KB): kLeeSmemLimit
 SMEM_LIMIT_BYTES = 232_448
-TILE_B = 32  # rows per block
 MAX_GRID_Y = 65_535
+SMS = 132  # streaming multiprocessors of the H100 SXM
+TARGET_BLOCKS = 2 * SMS  # a launch aims for about two blocks an SM
+# The register tiles of lee_sweep (csrc/lee_common.cuh LeeTile), as (R rows,
+# KO outputs a lane, NKG k-groups of a warp): tiles 0 (8 outputs) and 2 (10
+# outputs) for K_out >= 2, whichever pads K_out less; tile 1 (one output)
+# for K_out = 1 and for a K too large for the others.  The backward's
+# 8-output and one-output tiles have half the forward's rows: its blocks do
+# more a row, and at einet_pd's K = 40 more, smaller blocks fill the card.
+FWD_TILES = ((4, 2, 4), (2, 1, 1), (2, 5, 2))
+BWD_TILES = ((2, 2, 4), (1, 1, 1), (2, 5, 2))
+NSUBS = (8, 4, 2, 1)  # row subtiles a block, largest first
+DW_CHUNK = 32  # rows a dW block stages at a time (kDwChunk)
+# a dW block's rows are one long chain of loads and FMAs, so its grid aims
+# at eight blocks an SM
+DW_TARGET_BLOCKS = 8 * SMS
+DW_THREADS = 256
 
 _SIGNATURES = {
     "lee_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
     + [ctypes.c_longlong] * 4 + [ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
-    "lee_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    "lee_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
     + [ctypes.c_longlong] * 4 + [ctypes.c_void_p],
 }
 
 __all__ = [
     "log_einsum_exp_cuda", "log_einsum_exp_plain", "log_einsum_exp_bwd_cuda",
-    "log_einsum_exp_bwd_plain", "k_out_tile",
+    "log_einsum_exp_bwd_plain", "launch_geometry", "dw_geometry",
 ]
 
 
-def smem_bytes(k: int, kt: int, tile_b: int = TILE_B) -> int:
-    """Shared memory of one block (the layout in ``lee_fwd_kernel``): a
-    K_out tile of ``kt`` weight cells, the tile's left and right rows and
-    their two clamped maxes."""
-    return 4 * (kt * k * k + 2 * tile_b * k + 2 * tile_b)
+def row_stride(k: int) -> int:
+    """Shared floats of one staged weight row (``lee_row_stride``): K^2,
+    made odd so that a warp's lanes, one output each, read distinct
+    banks."""
+    return (k * k) | 1
 
 
-def bwd_smem_bytes(k: int, kt: int, tile_b: int = TILE_B) -> int:
-    """Shared memory of one backward block (the layout in
-    ``lee_bwd_kernel``): a K_out tile of ``kt`` weight cells, the tile's
-    left and right rows, their two gradient accumulators, and ``ginv`` for
-    the K_out tile."""
-    return 4 * (kt * k * k + 4 * tile_b * k + tile_b * kt)
+def pad(k: int) -> int:
+    """Shared floats of one staged activation row (``lee_pad``): K, odd."""
+    return k | 1
 
 
-def k_out_tile(k: int, k_out: int, tile_b: int = TILE_B,
-               backward: bool = False) -> int:
-    """Largest K_out tile whose weights fit beside the row tile in shared
-    memory (of the forward block, or with ``backward`` of the backward
-    block): all of K_out when one cell's W fits (K = 10: 4 KB), a slice of
-    it otherwise (K = 40: one cell is 256 KB)."""
-    if backward:
-        kt = ((SMEM_LIMIT_BYTES - bwd_smem_bytes(k, 0, tile_b))
-              // (4 * (k * k + tile_b)))
-    else:
-        kt = (SMEM_LIMIT_BYTES - smem_bytes(k, 0, tile_b)) // (4 * k * k)
-    if kt < 1:
-        raise ValueError(
-            f"log_einsum_exp: K={k} leaves no room for one weight row of "
-            f"{4 * k * k} B beside a {tile_b}-row tile in "
-            f"{SMEM_LIMIT_BYTES} B of shared memory"
-        )
-    return min(k_out, kt)
+def tile_shape(tile) -> tuple:
+    """(rows of a row subtile, outputs of a K_out tile) of a register tile
+    (R, KO, NKG)."""
+    r, ko, nkg = tile
+    return 32 // nkg * r, nkg * ko
+
+
+def smem_bytes(k: int, kt: int, tb: int) -> int:
+    """Shared memory of one K1 block (the layout in ``lee_fwd_kernel``): kt
+    weight rows, the tile's left and right rows, their two clamped maxes and
+    the sweep's t for every (row, output, i)."""
+    return 4 * (kt * row_stride(k) + 2 * tb + (2 + kt) * tb * pad(k))
+
+
+def bwd_smem_bytes(k: int, kt: int, tb: int) -> int:
+    """Shared memory of one K2 rows block (``lee_bwd_rows_kernel``): kt
+    weight rows, the left and right rows, the sweep's t (then u) and ginv
+    of the K_out tile."""
+    return 4 * (kt * row_stride(k) + (2 + kt) * tb * pad(k) + tb * kt)
+
+
+def _tile_order(k_out: int) -> list:
+    """The tiles to try for K_out, best first: the 8- or 10-output tile
+    that pads K_out less (the 8 on a tie), then the one-output tile."""
+    if k_out == 1:
+        return [1]
+    pads = {t: -(-k_out // kt) * kt for t, kt in ((0, 8), (2, 10))}
+    return sorted(pads, key=lambda t: (pads[t], t)) + [1]
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_geometry(b: int, cells: int, k: int, k_out: int,
+                    backward: bool = False) -> tuple:
+    """(tile, nsub, rows a block, outputs of a K_out tile) of a K1 launch
+    (with ``backward`` of K2's rows kernel), whose grid is (cells, row
+    tiles, K_out tiles).  The first tile of ``_tile_order`` that fits; then
+    the most row subtiles a block that still leave TARGET_BLOCKS blocks and
+    three blocks' shared memory an SM, else one subtile.  Raises when no
+    tile fits in 227 KB (K above about 200)."""
+    tiles = BWD_TILES if backward else FWD_TILES
+    size = bwd_smem_bytes if backward else smem_bytes
+    for t in _tile_order(k_out):
+        rows, kt = tile_shape(tiles[t])
+        fits = [n for n in NSUBS if size(k, kt, n * rows) <= SMEM_LIMIT_BYTES]
+        if not fits:
+            continue
+        k_tiles = -(-k_out // kt)
+        good = [n for n in fits
+                if size(k, kt, n * rows) <= SMEM_LIMIT_BYTES // 3
+                and cells * -(-b // (n * rows)) * k_tiles >= TARGET_BLOCKS]
+        nsub = good[0] if good else fits[-1]
+        return t, nsub, nsub * rows, kt
+    raise ValueError(
+        f"log_einsum_exp: K={k} leaves no room for one weight row of "
+        f"{4 * row_stride(k)} B beside a row tile in {SMEM_LIMIT_BYTES} B of "
+        "shared memory"
+    )
+
+
+@functools.lru_cache(maxsize=1024)
+def dw_geometry(k: int, k_out: int) -> tuple:
+    """(JT, ktw) of K2's dW kernel: JT columns j a thread (4, 8 or 16: the
+    fewest that keep a k-quad's K ceil(K / JT) items within one block) and
+    the K_out tile ktw, 4 outputs a k-quad, as many quads as fit in the
+    block's threads."""
+    jt = next((j for j in (4, 8, 16) if k * -(-k // j) <= DW_THREADS), 16)
+    quad_items = k * -(-k // jt)
+    return jt, 4 * max(1, min(-(-k_out // 4), DW_THREADS // quad_items))
+
+
+@functools.lru_cache(maxsize=1024)
+def dw_splits(b: int, cells: int, k: int, k_out: int) -> int:
+    """Batch splits of K2's dW grid (cells, K_out tiles, splits): enough for
+    DW_TARGET_BLOCKS blocks, at most one a DW_CHUNK rows.  Each split beyond
+    one leaves a partial of gw's size, summed in split order."""
+    blocks = cells * -(-k_out // dw_geometry(k, k_out)[1])
+    return max(1, min(-(-b // DW_CHUNK), -(-DW_TARGET_BLOCKS // blocks)))
+
+
+def dw_partial_bytes(b: int, cells: int, k: int, k_out: int) -> int:
+    """Bytes of K2's dW partials (0 with one split: it writes gw itself)."""
+    splits = dw_splits(b, cells, k, k_out)
+    return 0 if splits == 1 else 4 * splits * cells * k_out * k * k
 
 
 def _check_pair(w, ln_left, ln_right):
@@ -100,9 +178,14 @@ def _check_pair(w, ln_left, ln_right):
         raise ValueError("log_einsum_exp: ln rows need unit stride over K")
     if b == 0 or l_cells == 0:
         raise ValueError("log_einsum_exp: empty batch or layer")
-    if -(-b // TILE_B) > MAX_GRID_Y:
-        raise ValueError(f"log_einsum_exp: batch {b} exceeds the grid limit")
     return b, l_cells, k, k_out
+
+
+def _geometry(b, l_cells, k, k_out, backward=False):
+    geo = launch_geometry(b, l_cells, k, k_out, backward)
+    if -(-b // geo[2]) > MAX_GRID_Y:
+        raise ValueError(f"log_einsum_exp: batch {b} exceeds the grid limit")
+    return geo
 
 
 def log_einsum_exp_cuda(w: torch.Tensor, ln_left: torch.Tensor,
@@ -110,7 +193,7 @@ def log_einsum_exp_cuda(w: torch.Tensor, ln_left: torch.Tensor,
     """Launch the CUDA kernel: w (L, K_out, K, K), ln_* (B, L, K), all
     float32 on one CUDA device; returns (B, L, K_out) float32."""
     b, l_cells, k, k_out = _check_pair(w, ln_left, ln_right)
-    kt = k_out_tile(k, k_out)
+    tile, nsub, _, _ = _geometry(b, l_cells, k, k_out)
     out = torch.empty((b, l_cells, k_out), dtype=torch.float32,
                       device=w.device)
     lib = build.load("log_einsum_exp_fwd", _SIGNATURES)
@@ -118,7 +201,7 @@ def log_einsum_exp_cuda(w: torch.Tensor, ln_left: torch.Tensor,
         stream = torch.cuda.current_stream(w.device).cuda_stream
         err = lib.lee_fwd(
             w.data_ptr(), ln_left.data_ptr(), ln_right.data_ptr(),
-            out.data_ptr(), b, l_cells, k, k_out, TILE_B, kt,
+            out.data_ptr(), b, l_cells, k, k_out, tile, nsub,
             ln_left.stride(0), ln_left.stride(1),
             ln_right.stride(0), ln_right.stride(1), stream,
         )
@@ -169,23 +252,32 @@ def log_einsum_exp_bwd_cuda(w: torch.Tensor, ln_left: torch.Tensor,
                          "float32")
     if not g.is_contiguous():
         raise ValueError("log_einsum_exp backward: g must be contiguous")
-    kt = k_out_tile(k, k_out, backward=True)
-    tiles = -(-b // TILE_B)
+    tile, nsub, _, kt = _geometry(b, l_cells, k, k_out, backward=True)
+    jt, ktw = dw_geometry(k, k_out)
+    splits = dw_splits(b, l_cells, k, k_out)
+    k_tiles = -(-k_out // kt)
     dev = w.device
     gw = torch.empty_like(w)
-    gw_part = gw if tiles == 1 else torch.empty(
-        (tiles,) + tuple(w.shape), dtype=torch.float32, device=dev)
-    gl = torch.empty((b, l_cells, k), dtype=torch.float32, device=dev)
-    gr = torch.empty_like(gl)
+    glr = torch.empty((2, b, l_cells, k), dtype=torch.float32, device=dev)
+    # one scratch tensor: ginv, then (with several K_out tiles of the rows
+    # kernel) gl's and gr's partials, then (with several batch splits) the
+    # dW partials
+    n_acc = 0 if k_tiles == 1 else 2 * k_tiles * b * l_cells * k
+    n_part = 0 if splits == 1 else splits * w.numel()
+    scratch = torch.empty(g.numel() + n_acc + n_part, dtype=torch.float32,
+                          device=dev)
+    ginv = scratch.data_ptr()
+    acc = ginv + 4 * g.numel()
+    gw_part = acc + 4 * n_acc if splits > 1 else gw.data_ptr()
     lib = build.load("log_einsum_exp_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lee_bwd(
             w.data_ptr(), ln_left.data_ptr(), ln_right.data_ptr(),
-            g.data_ptr(), gw_part.data_ptr(), gw.data_ptr(), gl.data_ptr(),
-            gr.data_ptr(), b, l_cells, k, k_out, TILE_B, kt,
-            ln_left.stride(0), ln_left.stride(1),
+            g.data_ptr(), ginv, acc, gw_part, gw.data_ptr(),
+            glr[0].data_ptr(), glr[1].data_ptr(), b, l_cells, k, k_out, tile,
+            nsub, jt, ktw, splits, ln_left.stride(0), ln_left.stride(1),
             ln_right.stride(0), ln_right.stride(1), stream,
         )
     build.check(lib, err, "lee_bwd")
-    return gw, gl, gr
+    return gw, glr[0], glr[1]

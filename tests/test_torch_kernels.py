@@ -169,20 +169,115 @@ def test_other_devices_and_mixed_devices_raise():
 
 # ------------------------------------------------------- launch geometry
 def test_k_out_tile_fits_shared_memory():
-    assert log_einsum_exp.k_out_tile(10, 10, backward=True) == 10
-    kt = log_einsum_exp.k_out_tile(40, 40, backward=True)
-    assert 1 <= kt < 40
-    assert (log_einsum_exp.bwd_smem_bytes(40, kt)
-            <= log_einsum_exp.SMEM_LIMIT_BYTES
-            < log_einsum_exp.bwd_smem_bytes(40, kt + 1))
-    assert log_einsum_exp.k_out_tile(10, 10) == 10
-    assert log_einsum_exp.k_out_tile(10, 1) == 1
-    kt = log_einsum_exp.k_out_tile(40, 40)  # one K=40 cell is 256 KB
-    assert 1 <= kt < 40
-    assert log_einsum_exp.smem_bytes(40, kt) <= log_einsum_exp.SMEM_LIMIT_BYTES
-    assert log_einsum_exp.smem_bytes(40, kt + 1) > log_einsum_exp.SMEM_LIMIT_BYTES
-    with pytest.raises(ValueError):
-        log_einsum_exp.k_out_tile(300, 1)
+    lee = log_einsum_exp
+    # einet_rat's pairs: 10-output tiles, blocks of 4 (K1) and 8 (K2) row
+    # subtiles; einet_pd's K=40 pairs: 8-output tiles of one subtile; the
+    # root pairs (K_out = 1): the one-output tile
+    assert lee.launch_geometry(2048, 80, 10, 10) == (2, 4, 128, 10)
+    assert lee.launch_geometry(2048, 80, 10, 10, backward=True) == (
+        2, 4, 128, 10)
+    assert lee.launch_geometry(512, 4, 40, 40) == (0, 1, 32, 8)
+    assert lee.launch_geometry(512, 4, 40, 40, backward=True) == (
+        0, 1, 16, 8)
+    assert lee.launch_geometry(512, 3, 40, 1)[0] == 1
+    assert lee.launch_geometry(2048, 10, 10, 1)[0] == 1
+    for backward, size in ((False, lee.smem_bytes),
+                           (True, lee.bwd_smem_bytes)):
+        tile, nsub, tb, kt = lee.launch_geometry(512, 4, 40, 40, backward)
+        assert size(40, kt, tb) <= lee.SMEM_LIMIT_BYTES
+        # K = 100: 8 weight rows no longer fit, one does
+        tile, nsub, tb, kt = lee.launch_geometry(64, 2, 100, 100, backward)
+        assert tile == 1 and kt == 1
+        assert size(100, kt, tb) <= lee.SMEM_LIMIT_BYTES
+        assert size(100, 8, tb) > lee.SMEM_LIMIT_BYTES
+        with pytest.raises(ValueError, match="no room"):
+            lee.launch_geometry(1, 1, 300, 1, backward)
+
+
+def _arch_pair_shapes(name):
+    """(L, K_out, K) of every pair of an arch, and the batch sizes its main
+    paths launch K1 and K2 at (the serve buckets and the config's batch)."""
+    cfg = get_config(name)
+    model = build_einet(cfg, device="meta")
+    shapes = sorted({tuple(w.shape[:3]) for w in model.einsum})
+    return shapes, (1, 2, 3, 8, 32, 37, 64, cfg.batch_size)
+
+
+ARCHS = ("einet_rat", "einet_rat_large", "einet_pd", "einet_pd_mnist",
+         "einet_celeba")
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_pair_kernel_blocks_fit_shared_memory_at_every_arch_shape(name):
+    lee = log_einsum_exp
+    shapes, batches = _arch_pair_shapes(name)
+    for l_cells, k_out, k in shapes:
+        for b in batches:
+            for backward, size in ((False, lee.smem_bytes),
+                                   (True, lee.bwd_smem_bytes)):
+                tile, nsub, tb, kt = lee.launch_geometry(b, l_cells, k, k_out,
+                                                        backward)
+                rows, tile_kt = lee.tile_shape(
+                    (lee.BWD_TILES if backward else lee.FWD_TILES)[tile])
+                assert (tb, kt) == (nsub * rows, tile_kt)
+                assert size(k, kt, tb) <= lee.SMEM_LIMIT_BYTES
+                assert -(-b // tb) <= lee.MAX_GRID_Y
+                # the tile, and so every output's order of operations, does
+                # not depend on the batch
+                assert tile == lee.launch_geometry(1, l_cells, k, k_out,
+                                                   backward)[0]
+            jt, ktw = lee.dw_geometry(k, k_out)
+            assert 4 * (2 * lee.DW_CHUNK * lee.pad(k)
+                        + lee.DW_CHUNK * ktw) <= lee.SMEM_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("k", [3, 4, 5, 10, 13, 17, 32, 40, 64])
+def test_staged_row_strides_are_odd(k):
+    lee = log_einsum_exp
+    assert lee.row_stride(k) % 2 == 1 and lee.row_stride(k) >= k * k
+    assert lee.pad(k) % 2 == 1 and lee.pad(k) >= k
+    # odd strides put the 32 lanes' rows in 32 distinct banks
+    assert len({r * lee.row_stride(k) % 32 for r in range(32)}) == 32
+    assert len({r * lee.pad(k) % 32 for r in range(32)}) == 32
+
+
+def test_staged_row_strides_match_the_cuda_source():
+    text = (build.CSRC / "lee_common.cuh").read_text()
+    assert "return (K * K) | 1;" in text and "return K | 1;" in text
+    for name in ("gather_common.cuh", "gather_fwd.cu", "gather_bwd.cu"):
+        src = (build.CSRC / name).read_text()
+        assert "gather_stage_weights" not in src
+        assert "gather_row_stride" not in src
+    assert "lee_stage_weights" in (build.CSRC / "gather_common.cuh").read_text()
+
+
+@pytest.mark.parametrize("b,cells,k,k_out,splits", [
+    (2048, 80, 10, 10, 14),   # einet_rat's first pair
+    (2048, 10, 10, 1, 64),    # its root: one split a 32 rows at most
+    (512, 4, 40, 40, 16),     # einet_pd's pairs
+    (512, 3, 40, 1, 16),
+    (32, 4, 40, 40, 1),       # a serve bucket: one split, no partials
+    (37, 6, 17, 17, 2),
+])
+def test_dw_split_count_and_partial_bytes(b, cells, k, k_out, splits):
+    lee = log_einsum_exp
+    assert lee.dw_splits(b, cells, k, k_out) == splits
+    jt, ktw = lee.dw_geometry(k, k_out)
+    assert ktw % 4 == 0 and jt in (4, 8, 16)
+    blocks = cells * -(-k_out // ktw)
+    assert splits <= -(-b // lee.DW_CHUNK)
+    assert splits == -(-b // lee.DW_CHUNK) or (
+        blocks * splits >= lee.DW_TARGET_BLOCKS
+        > blocks * (splits - 1))
+    want = 0 if splits == 1 else 4 * splits * cells * k_out * k * k
+    assert lee.dw_partial_bytes(b, cells, k, k_out) == want
+
+
+@pytest.mark.parametrize("k,want", [(3, 4), (10, 4), (32, 4), (40, 8),
+                                    (64, 16), (100, 16)])
+def test_dw_columns_a_thread(k, want):
+    jt, _ = log_einsum_exp.dw_geometry(k, k)
+    assert jt == want
 
 
 def test_grouped_tile_and_shared_memory_rules():
