@@ -19,18 +19,23 @@
    atol = 1e-5 with the plain version's exact zeros kept; weight gradients,
    summed over the batch in another order, rtol 1e-4 and atol 1e-4
    max|gw|), checks that two calls give bitwise-equal gradients, and times
-   K4, its plain version and its yardstick.  Then row independence: K1's
-   output and K2's gl and gr of a row computed alone are bitwise the same
-   row inside a batch of 512, at K = 10 and 40.
+   K4, its plain version, its yardstick and the per-layer K2 launches at
+   the same pairs.  Then row independence: K1's output and K2's gl and gr
+   of a row computed alone are bitwise the same row inside a batch of 512,
+   at K = 10 and 40, and K4's gx inside einet_rat's batch of 2048.
 4. Gather kernel phase: holds K5 (gather_fwd.cu) and K6 (gather_bwd.cu),
    the gather run of a Poon-Domingos interior with its mixing, against
    their plain versions at einet_pd's run gather[0,2) (B = 512, its leaf
    rows), at K = 32, at the reference's PD_SMOKE_SHAPES (a 5-depth run at
    odd K = 3), on ragged batches, -inf and NEG_INF rows and a masked mixing
-   child, with the tolerances above and two calls bitwise equal; times each
-   kernel, its plain version and a yardstick (K5: the per-depth torch.einsum
-   chain plus log_mix_exp; K6: autograd through the einsum chain plus
-   log_mix_exp) and prints the row tiles and K6's partial-gradient bytes.
+   child, with the tolerances above and two calls bitwise equal, and K6's
+   gx of a row alone against the same row in B = 512; times each kernel,
+   its plain version and a yardstick (K5: the per-depth torch.einsum chain
+   plus log_mix_exp; K6: autograd through the einsum chain plus
+   log_mix_exp), K6 beside the per-layer K2 launches at its pairs, and the
+   device time of each CUDA kernel inside one K6 and one K4 call
+   (torch.profiler); prints K5's row tile and K6's per-depth geometry and
+   partial bytes.
 5. Serve phase: builds einet_rat at full width on the card (seed 0), serves
    the 256-request mixed stream through ServeEngine(max_batch=64) with the
    kernel launch counters reset just before, checks every result against
@@ -54,8 +59,10 @@
    against the card per layer; training as in 7 (planned: K5 1, K6 1, K1 1,
    K2 1 a step; per layer: K1 3, K2 3).
 9. einet_rat_large: K3 and K4 against their plain versions at its K = 64
-   fused run [0, 2) (B = 64), then joint_ll at B = 256 through its plan
-   (3 K3 + 1 K1 launches) against its per-layer forward (7 K1 launches).
+   fused run [0, 2) (B = 64), K4 timed there as a row of its report (off
+   the main paths) beside its plain version, yardstick and K2 chain, then
+   joint_ll at B = 256 through its plan (3 K3 + 1 K1 launches) against its
+   per-layer forward (7 K1 launches).
 10. Prints the launch counts of every main path (each kernel must have run
    on them) and the shapes (B, L, K_out, K) K1 and K2 were launched at
    there (counted by wrapping the ops' kernels, whose launch counters stay
@@ -190,6 +197,32 @@ def bound(n_bytes, flops):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
+def kernel_parts(fn, calls: int = 10) -> list:
+    """Device time of each CUDA kernel that ``fn`` launches, by
+    torch.profiler over ``calls`` calls after a warm-up: [(name, launches a
+    call, us a call)], largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if us > 0 and e.count:
+            name = e.key.replace("(anonymous namespace)::", "").replace(
+                "void ", "").split("(")[0]
+            rows.append((name, e.count / calls, us / calls))
+    return sorted(rows, key=lambda r: -r[2])
+
+
 def counts_of(ops):
     return {op.name: op.launches for op in ops.KERNEL_OPS}
 
@@ -235,7 +268,8 @@ def main() -> int:
         gather_grouped_log_einsum_exp_cuda, gather_grouped_log_einsum_exp_plain,
         grouped_log_einsum_exp_bwd_cuda, grouped_log_einsum_exp_bwd_plain,
         grouped_log_einsum_exp_cuda, grouped_log_einsum_exp_plain,
-        pick_gather_tile_b)
+        bwd_geometry, bwd_partial_bytes, gather_bwd_geometry,
+        gather_bwd_partial_bytes, pick_gather_tile_b)
     from repro_torch.kernels.log_einsum_exp import (
         dw_geometry, dw_partial_bytes, dw_splits, launch_geometry,
         log_einsum_exp_bwd_cuda, log_einsum_exp_bwd_plain,
@@ -460,6 +494,13 @@ def main() -> int:
             "library_ms": time_ms(autograd_yardstick(
                 lambda x, *w: einsum_chain(w, x), (leaf, *ws), g_out)),
             "bytes": n_bytes, "flops": flops,
+            # the per-layer plan's K2 launches at the same pairs: what the
+            # fused kernel has to beat (not a yardstick)
+            "chain_ms": sum(
+                time_ms(lambda w=w, l=l, r=r, g=rand_g(
+                    b_full, w.shape[0], w.shape[1]):
+                    log_einsum_exp_bwd_cuda(w, l, r, g))
+                for w, l, r in inputs),
         }
         for k in (3, 5, 13, 17, 40):
             for b in (37, 2048 + 5):
@@ -525,6 +566,30 @@ def main() -> int:
     print(f"row independence: K1's output and K2's gl, gr of rows "
           f"{alone_rows} computed alone are bitwise equal to the same rows "
           f"in a batch of 512, at K=10 and K=40, K_out=K and 1 [{card}]")
+    # K4's gx at einet_rat's fused run: a row alone against the same row in
+    # a batch of 2048
+    with torch.no_grad():
+        k4_alone = (0, 1, 3, 37, 200, 2047)
+        x = rand_x(b_full, leaf.shape[1], model.K)
+        g = rand_g(b_full, ws[-1].shape[0], ws[-1].shape[1])
+        _, gx = grouped_log_einsum_exp_bwd_cuda(ws, x, g)
+        for b in k4_alone:
+            one = slice(b, b + 1)
+            _, gx1 = grouped_log_einsum_exp_bwd_cuda(ws, x[one],
+                                                     g[one].contiguous())
+            if not torch.equal(gx[one], gx1):
+                raise AssertionError(f"K4 einet_rat fused[0,4): row {b} "
+                                     f"alone differs from the same row in "
+                                     f"a batch of {b_full}")
+        torch.cuda.synchronize()
+    k_outs = tuple(w.shape[1] for w in ws)
+    print(f"row independence: K4's gx of rows {k4_alone} computed alone is "
+          f"bitwise equal to the same rows in a batch of {b_full} (einet_rat "
+          f"fused[0,4)); K4 geometry there "
+          f"{bwd_geometry(len(ws), model.K, k_outs, b_full, ws[-1].shape[0])}"
+          f", dW partials "
+          f"{bwd_partial_bytes(len(ws), model.K, k_outs, b_full, ws[-1].shape[0])}"
+          f" B [{card}]")
 
     # ------------------------------------------------- gather kernel phase
     pd_cfg = get_config("einet_pd")
@@ -618,12 +683,15 @@ def main() -> int:
         # times at einet_pd's run; the yardstick is each depth's contraction
         # as torch.einsum on its stabilised frame plus its mixing as
         # log_mix_exp (one call each, summed): no single call computes K5
-        yard, buf = 0.0, pd_leaf
+        yard, chain, buf = 0.0, 0.0, pd_leaf
         for t, w in enumerate(pd_ws):
             lr = (buf[:, list(pd_tab.left[t])], buf[:, list(pd_tab.right[t])])
             f = frame(*lr)
             yard += time_ms(lambda w=w, f=f: torch.einsum(
                 "lkij,bli,blj->blk", w, f[0], f[1]))
+            # the per-layer plan's K2 launch at this depth's pair
+            chain += time_ms(lambda w=w, lr=lr, g=rand_g(
+                b_pd, w.shape[0], pd.K): log_einsum_exp_bwd_cuda(w, *lr, g))
             sv = log_einsum_exp_plain(w, *lr)
             if pd_tab.mix_child[t] is not None:
                 child = torch.tensor(pd_tab.mix_child[t], device=dev)
@@ -659,20 +727,50 @@ def main() -> int:
             "bytes": 4 * (2 * pd_leaf.numel() + n_new + 2 * n_w),
             "flops": sum(b_pd * len(l) * (6 * pd.K ** 3 + 4 * pd.K ** 2)
                          for l in pd_tab.left),
+            "chain_ms": chain,
         }
+        # K6's gx: a row alone against the same row in a batch of 512
+        k6_alone = (0, 1, 3, 37, 200, b_pd - 1)
+        x = rand_x(b_pd, pd_tab.num_in_rows, pd.K)
+        g = rand_g(b_pd, pd_tab.num_new_rows, pd.K)
+        gx = gather_grouped_log_einsum_exp_bwd_cuda(pd_tab, pd_ws, pd_vs, x,
+                                                    g)[2]
+        for b in k6_alone:
+            one = slice(b, b + 1)
+            gx1 = gather_grouped_log_einsum_exp_bwd_cuda(
+                pd_tab, pd_ws, pd_vs, x[one], g[one].contiguous())[2]
+            if not torch.equal(gx[one], gx1):
+                raise AssertionError(f"K6 einet_pd gather[0,2): row {b} alone "
+                                     f"differs from the same row in a batch "
+                                     f"of {b_pd}")
         torch.cuda.synchronize()
-    tiles = (pick_gather_tile_b(pd_tab, pd.K, b_pd),
-             pick_gather_tile_b(pd_tab, pd.K, b_pd, backward=True))
-    n_tiles = -(-b_pd // tiles[1])
+    with torch.no_grad():
+        parts = {
+            "K6 einet_pd gather[0,2) B=512": kernel_parts(
+                lambda: gather_grouped_log_einsum_exp_bwd_cuda(
+                    pd_tab, pd_ws, pd_vs, pd_leaf, pd_g)),
+            f"K4 einet_rat fused[0,4) B={b_full}": kernel_parts(
+                lambda: grouped_log_einsum_exp_bwd_cuda(ws, leaf, g_out)),
+        }
+    for what, rows in parts.items():
+        print(f"{what}, device time by kernel (torch.profiler, 10 calls): "
+              + "; ".join(f"{n} x{c:g} {us:.1f} us" for n, c, us in rows)
+              + f"; sum {sum(r[2] for r in rows):.1f} us a call [{card}]")
+    k5_tile = pick_gather_tile_b(pd_tab, pd.K, b_pd)
+    k6_part = gather_bwd_partial_bytes(pd_tab, pd.K, b_pd)
     print(f"gather kernels: K5 and K6 agree with their plain versions and "
           f"are bitwise deterministic over two calls; K5 max |diff| "
           f"{k5_err:.3e} (rtol=atol={RTOL}); K6 input gradients max |diff| "
           f"{worst(k6_x_errs, 'abs'):.3e}, weight and mixing gradients max "
           f"|diff| {worst(k6_w_errs, 'abs'):.3e} (relative to max|gw| "
-          f"{worst(k6_w_errs, 'rel'):.3e}); einet_pd B={b_pd}: row tiles "
-          f"{tiles[0]} (K5, {-(-b_pd // tiles[0])} blocks) and {tiles[1]} "
-          f"(K6, {n_tiles} blocks), K6 partial gradients {n_tiles} x "
-          f"{4 * n_w} B = {n_tiles * 4 * n_w / 2 ** 20:.1f} MiB [{card}]")
+          f"{worst(k6_w_errs, 'rel'):.3e}); einet_pd B={b_pd}: K5 row tile "
+          f"{k5_tile} ({-(-b_pd // k5_tile)} blocks); K6 depth by depth, "
+          f"K1 (tile, subtiles) and K2 (tile, subtiles, JT, K_out tile, "
+          f"batch splits) per depth "
+          f"{gather_bwd_geometry(pd_tab, pd.K, b_pd)}, dW partials "
+          f"{k6_part} B = {k6_part / 2 ** 20:.1f} MiB; K6's gx of "
+          f"rows {k6_alone} computed alone is bitwise equal to the same rows "
+          f"in a batch of {b_pd} [{card}]")
 
     # -------------------------------------------------------- serve phase
     reqs = mixed_requests(model.num_vars, 256, seed=0)
@@ -1092,6 +1190,8 @@ def main() -> int:
     with torch.no_grad():
         big_leaf = big._leaf_rows(big.leaf_log_prob(big_data[:64], None))
         big_ws = [big.einsum[t].detach() for t in range(2)]
+        big_geo = (2, big.K, (big.K, big.K), big_leaf.shape[0],
+                   big_ws[-1].shape[0])
         got = grouped_log_einsum_exp_cuda(big_ws, big_leaf)
         big_k3_err = assert_close(
             got, grouped_log_einsum_exp_plain(big_ws, big_leaf),
@@ -1103,7 +1203,36 @@ def main() -> int:
             big_ws, big_leaf), iters=5, warmup=1)
         big_k4_ms = time_ms(lambda: grouped_log_einsum_exp_bwd_cuda(
             big_ws, big_leaf, big_g), iters=5, warmup=1)
-        del got, big_leaf, big_g
+        # the same run as a row of K4's report (no launches on the main
+        # paths); its per-layer K2 chain runs on the plain forward's inputs
+        big_in, cur = [], big_leaf
+        for w in big_ws:
+            h = w.shape[0]
+            big_in.append((w, cur[:, :h], cur[:, h: 2 * h]))
+            cur = log_einsum_exp_plain(*big_in[-1])
+        b_big = big_leaf.shape[0]
+        k4_big_row = {
+            "shape": f"B={b_big} x={tuple(big_leaf.shape)} G=2 "
+                     f"K_out={[w.shape[1] for w in big_ws]} (einet_rat_large)",
+            "ms": big_k4_ms,
+            "plain_ms": time_ms(lambda: grouped_log_einsum_exp_bwd_plain(
+                big_ws, big_leaf, big_g), iters=1, warmup=0),
+            "library_ms": time_ms(autograd_yardstick(
+                lambda x, *w: einsum_chain(w, x), (big_leaf, *big_ws), big_g),
+                iters=2, warmup=1),
+            "chain_ms": sum(time_ms(
+                lambda w=w, l=l, r=r, g=rand_g(b_big, w.shape[0], w.shape[1]):
+                log_einsum_exp_bwd_cuda(w, l, r, g), iters=2, warmup=1)
+                for w, l, r in big_in),
+            "bytes": 4 * (2 * big_leaf.numel() + big_g.numel()
+                          + 2 * sum(w.numel() for w in big_ws)),
+            "flops": sum(b_big * w.shape[0] * (6 * w.shape[2] ** 2
+                                                * w.shape[1]
+                                                + 4 * w.shape[2] ** 2)
+                         for w in big_ws),
+            "launches": 0,
+        }
+        del got, big_leaf, big_g, big_in, cur
     torch.cuda.empty_cache()
     x256 = big_data[:256]
     with torch.inference_mode():
@@ -1132,6 +1261,9 @@ def main() -> int:
         raise AssertionError(
             f"einet_rat_large joint_ll planned vs per layer: max |diff| "
             f"{(ll_plan - ll_layer).abs().max().item():.3e}")
+    print(f"einet_rat_large (K=64) fused[0,2) B=64: K4 geometry "
+          f"{bwd_geometry(*big_geo)}, dW partials "
+          f"{bwd_partial_bytes(*big_geo)} B [{card}]")
     print(f"einet_rat_large (K=64) fused[0,2) B=64: K3 {big_k3_ms:.3f} ms "
           f"(max |diff| {big_k3_err:.3e}), K4 {big_k4_ms:.3f} ms (gx max "
           f"|diff| {big_k4_x['abs']:.3e}, dW max |diff| / max|dW| "
@@ -1226,8 +1358,9 @@ def main() -> int:
     for r in (k3_row, k5_row):
         r["library_ms"] = None
     for r in (k3_row, k4_row, k5_row, k6_row):
-        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"])
         r["launches"] = None  # one row: all of the op's launches (report)
+    for r in (k3_row, k4_row, k4_big_row, k5_row, k6_row):
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"])
     kernel_json = []
 
     def report(name, source, replaces, op, rows, err, yardstick):
@@ -1236,19 +1369,26 @@ def main() -> int:
                 r["launches"] = counts[op]
             yard = r["library_ms"] if r["library_ms"] is not None \
                 else r["einsum_chain_ms"]
+            chain = ""
+            if "chain_ms" in r:
+                chain = (f", per-layer K2 chain at the same pairs "
+                         f"{r['chain_ms']:.4f} ms (fused/chain "
+                         f"{r['ms'] / r['chain_ms']:.2f}x)")
             print(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, {yardstick} {yard:.4f} ms "
                   f"({r['ms'] / yard:.2f}x), bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}), {r['launches']} launches on the main "
-                  f"paths [{card}]")
-        b_ms, b_by = bound(sum(r["bytes"] for r in rows),
-                           sum(r["flops"] for r in rows))
-        lib = [r["library_ms"] for r in rows]
+                  f"({r['bound_by']}){chain}, {r['launches']} launches on the "
+                  f"main paths [{card}]")
+        # the kernel's figures: sums over the rows the main paths launched
+        main = [r for r in rows if r["launches"]] or rows
+        b_ms, b_by = bound(sum(r["bytes"] for r in main),
+                           sum(r["flops"] for r in main))
+        lib = [r["library_ms"] for r in main]
         kernel_json.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[op], "max_abs_err": err,
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "ms": sum(r["ms"] for r in main),
+            "plain_ms": sum(r["plain_ms"] for r in main),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None if None in lib else sum(lib),
             "rows": [{k: r[k] for k in (
@@ -1269,7 +1409,8 @@ def main() -> int:
            [k3_row], k3_err, "einsum chain")
     report("grouped_bwd", csrc + "grouped_bwd.cu",
            "src/repro/kernels/grouped.py:380", "grouped_log_einsum_exp_bwd",
-           [k4_row], max(worst(k4_x_errs, "abs"), worst(k4_w_errs, "abs")),
+           [k4_row, k4_big_row],
+           max(worst(k4_x_errs, "abs"), worst(k4_w_errs, "abs")),
            "autograd einsum-chain yardstick")
     report("gather_fwd", csrc + "gather_fwd.cu",
            "src/repro/kernels/grouped.py:718", "gather_grouped_log_einsum_exp",
@@ -1282,10 +1423,12 @@ def main() -> int:
     # rule 2's ranking: the worst loss factor to the yardstick, then the
     # launch-weighted time above the bound (launch ms)
     rank = []
-    for kj, rows in zip(kernel_json, (k1_rows, k2_rows, [k3_row], [k4_row],
-                                      [k5_row], [k6_row])):
+    for kj, rows in zip(kernel_json, (k1_rows, k2_rows, [k3_row],
+                                      [k4_row, k4_big_row], [k5_row],
+                                      [k6_row])):
         factor = max(r["ms"] / (r["library_ms"] if r["library_ms"] is not None
-                                else r["einsum_chain_ms"]) for r in rows)
+                                else r["einsum_chain_ms"])
+                     for r in rows if r["launches"] or len(rows) == 1)
         over = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows)
         rank.append((factor, over, kj["name"]))
     print("ranking (worst kernel/yardstick factor, launches x (ms - bound)): "
@@ -1294,8 +1437,10 @@ def main() -> int:
     print("In the JSON line each kernel's rows are timed at the shapes the "
           "main paths launch it at (K1 and K2: every (B, L, K_out, K) seen, "
           "on fresh inputs; K3, K4: einet_rat's fused [0,4) at "
-          f"B={b_full}; K5, K6: einet_pd's gather[0,2) at B={b_pd}), and its "
-          "ms, plain_ms, library_ms and bound_ms are the sums over its rows; "
+          f"B={b_full}, and K4 also einet_rat_large's K=64 fused [0,2) at "
+          f"B=64, off the main paths; K5, K6: einet_pd's gather[0,2) at "
+          f"B={b_pd}), and its ms, plain_ms, library_ms and bound_ms are the "
+          "sums over its rows launched on the main paths; "
           "launches are summed over the main paths above.  library_ms is one "
           "torch.einsum on the stabilised frame for K1, and for K2, K4 and "
           "K6 torch.autograd.grad through a forward whose contraction is one "

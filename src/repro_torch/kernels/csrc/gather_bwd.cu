@@ -1,42 +1,43 @@
 // Gather-grouped log-einsum-exp backward: every depth's weight gradient,
 // every mixing depth's mixing-weight gradient and the input cotangent of a
-// whole gather run (a Poon-Domingos interior) in one launch, for sm_90a.
+// whole gather run (a Poon-Domingos interior) in one call, for sm_90a.
 //
 // Replaces the TPU kernel repro/kernels/grouped.py
 // gather_grouped_log_einsum_exp_bwd_pallas (_make_gather_bwd_kernel,
-// _gather_depth_bwd).  One block per tile of rows, batch-only grid, in
-// three steps:
-//  1. Residual recompute: load the tile's input rows and run the forward
-//     walk (gather_forward_sweep, the forward kernel's own code) in shared
-//     memory: every row in the log domain and the stabilised copy and max
-//     of every row that may be a child.  Nothing but x, the weights and the
-//     tables was saved by the forward.
-//  2. A cotangent buffer the size of the row buffer starts at 0 for the
-//     input rows and at g_out for the new rows.  Walk the depths in
-//     reverse; at each depth, in the plain version's order
-//     (kernels/grouped.py gather_grouped_log_einsum_exp_bwd_plain):
-//     a. mixing first: recompute the mixing frame, ginv = g / max(s, 1e-30),
-//        the terms ge = ginv e (an exact 0 for a masked child), the tile's
-//        partial gV (its rows' ge summed in row order), and add ge v into
-//        the depth's einsum rows, slot by slot in (m, c) order;
-//     b. then the pair: per chunk of weights (lee_chunks, as in the
-//        forward) recompute s with the forward's cell sum, turn the einsum
-//        rows' cotangent into ginv in place, add the chunk's share of the
-//        children's input cotangent (before its factor el or er) and write
-//        the chunk's partial dW for the tile's rows;
-//     c. add the children's input cotangents el sl and er sr into their
-//        rows: one thread a (batch row, i) walks the depth's right children
-//        in order, then its left children, so a row reached from several
-//        sides, depths and mixing slots always sums in the same order.
-//  3. Write the input rows' cotangent to gx.
-// Each block writes its own partial dW and dV; lee_sum_tiles sums the
-// partials in tile order: no atomics, and two calls give bitwise-equal
-// gradients, so EM statistics are reproducible run to run.  The partials
-// are (tiles) x (all weights): the wrapper picks the tile for about one
-// block an SM, as the forward's, and keeps them under 256 MB (einet_pd at
-// B = 512: 4-row tiles, 128 partials of 1.79 MB).  Rows past the end of
-// the batch are neither read nor written; an input at -inf has a
-// stabilised value of 0 and so a gradient of exactly 0.
+// _gather_depth_bwd).  A gather run's children come from anywhere below a
+// depth (gather_common.cuh), so there is no subtree to keep in shared
+// memory: a block holding a row tile's whole row buffer has few rows (4 at
+// einet_pd's B = 512 for one block an SM) and must stage every weight of
+// the run for them, twice, and write a partial dW of all of them.  Instead
+// the run goes depth by depth over grids of (cell, row tile, K_out tile),
+// with the row buffer in device memory (1.1 MB at einet_pd: it stays in the
+// 50 MB L2), through the per-pair kernels K1 and K2 (lee_fwd.cuh, lee_bwd.cuh):
+//  1. Residual recompute, depth by depth: gather each cell's left and right
+//     child rows from the row buffer X (the tables' left/right rows), run
+//     K1 on them (register-tiled lee_sweep, lee_cell_sum's order: K5's rows
+//     bit for bit), and write the depth's rows and, where it mixes, its
+//     mixing rows (gather_mix_frame, K5's own code) into X.  The gathered
+//     child rows are kept for step 2.
+//  2. A cotangent buffer like X starts at 0 for the input rows and at g_out
+//     for the new rows.  The depths in reverse, in the plain version's
+//     order (kernels/grouped.py gather_grouped_log_einsum_exp_bwd_plain):
+//     a. the mixing backward, a thread a (row, k): the frame, ginv =
+//        g / max(s, 1e-30), the terms ge = ginv e (an exact 0 for a masked
+//        child), added as ge v into the depth's einsum rows slot by slot in
+//        (m, c) order; gV sums ge over the batch in a fixed order;
+//     b. K2 on the depth's einsum rows' cotangent: its rows kernel (s,
+//        ginv, gl from the same sweep, gr from one more) over (cell, row
+//        tile, K_out tile), its dW kernel over (cell, K_out tile, batch
+//        split), the splits summed in split order;
+//     c. gl and gr into the children's rows: a thread a (row, i) adds the
+//        right children's in table order, then the left children's, so a
+//        row reached from several sides, depths and slots always sums in
+//        the same order.
+//  3. The input rows' cotangent goes to gx.
+// No atomics: two calls give bitwise-equal gradients; a row's gx depends on
+// that row alone (K1's and K2's geometry follows K and K_out, and the glue
+// works a row at a time).  An input at -inf has a stabilised value of 0 and
+// so a gradient of exactly 0.
 //
 // What bounds it on the H100, at einet_pd's run [0,2) (B = 512, r_in = 4,
 // K = 40, 7 cells, mixing (2, 2)): it must read x (328 KB), g_out (737 KB)
@@ -44,265 +45,292 @@
 // about 5.0 MB or 1.5 us at 3.35 TB/s.  The work is the forward's
 // contraction (s), c = ginv W for the input cotangent and dW, 2 K^3 flops
 // each per cell and row, plus 4 K^2 for the row and column sums of c:
-// 1.40 GFLOP in all, 20.9 us at the 67 TFLOP/s fp32 (non-tensor) rate.  So
-// it is bound by operations.  Summing the partials moves 229 MB more.
+// 1.40 GFLOP in all, 20.9 us at the 67 TFLOP/s fp32 (non-tensor) rate:
+// bound by operations.  The recompute adds K1's 2 K^3 a cell and row.
+// The dW partials are K2's: 16 splits of a depth's weights (at most 16.4
+// MB at einet_pd), where a partial of all the run's weights per 4-row tile
+// would be 229 MB.
 //
-// Later work, not done here: input-slice staging as in the forward's note,
-// tensor cores, a persistent loop over tiles to cut the partials.
+// Later work, not done here: folding the gathers into K1's and K2's
+// staging (a row-index table instead of a stride), a CUDA graph for the
+// ~20 launches, tensor cores.
 
 #include "gather_common.cuh"
+#include "lee_bwd.cuh"
+#include "lee_fwd.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads) gather_bwd_kernel(
-    GatherParams p, const int* __restrict__ tab_g, int n_tab,
-    const float* __restrict__ x, const float* __restrict__ g_out,
-    float* __restrict__ part_all, long long part_floats,
-    float* __restrict__ gx, int B, int K, int tile_b, long long x_sb,
-    int w_floats, int R, int Rc, int l_max, int mc_max) {
-  extern __shared__ float smem[];
-  const int tile = blockIdx.x;
-  const int b0 = tile * tile_b;
-  const int nb = min(tile_b, B - b0);
-  const int KK = K * K;
-  const int KKp = lee_row_stride(K);
-  float* wbuf = smem;
+inline unsigned grid_for(long long n) {
+  long long blocks = (n + kThreads - 1) / kThreads;
+  return (unsigned)(blocks > 4096 ? 4096 : blocks);
+}
+
+#define GATHER_LOOP(n)                                                      \
+  for (long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;     \
+       o < (n); o += (long long)gridDim.x * blockDim.x)
+
+// X[b, row < r_in] = x[b, row]; cot[b, row] = 0 for an input row, else
+// g_out[b, row - r_in].
+__global__ void __launch_bounds__(kThreads) init_kernel(
+    const float* __restrict__ x, long long x_sb,
+    const float* __restrict__ g_out, float* __restrict__ X,
+    float* __restrict__ cot, int B, int r_in, int R, int K) {
+  GATHER_LOOP((long long)B * R * K) {
+    const long long b = o / ((long long)R * K);
+    const int rem = (int)(o - b * R * K);
+    const int row = rem / K;
+    if (row < r_in) {
+      X[o] = x[b * x_sb + rem];
+      cot[o] = 0.f;
+    } else {
+      cot[o] = g_out[b * (R - r_in) * K + rem - r_in * K];
+    }
+  }
+}
+
+// lg[b, l] = X[b, left[l]], rg[b, l] = X[b, right[l]] (depth t's tables).
+__global__ void __launch_bounds__(kThreads) gather_children_kernel(
+    const float* __restrict__ X, const int* __restrict__ tab, int t,
+    float* __restrict__ lg, float* __restrict__ rg, int B, int R, int K) {
+  const GatherDepth d = gather_depth(tab, t);
+  const long long n = (long long)B * d.L * K;
+  GATHER_LOOP(2 * n) {
+    const bool right = o >= n;
+    const long long e = right ? o - n : o;
+    const long long b = e / ((long long)d.L * K);
+    const int rem = (int)(e - b * d.L * K);
+    const int l = rem / K;
+    const int row = tab[(right ? d.right : d.left) + l];
+    (right ? rg : lg)[e] = X[(b * R + row) * K + rem - l * K];
+  }
+}
+
+// Depth t's einsum rows from K1's out (B, L, K) into X, then its mixing
+// rows, a thread a (b, k) (K5's mixing, gather_mix_frame).
+__global__ void __launch_bounds__(kThreads) scatter_mix_kernel(
+    const float* __restrict__ out, float* __restrict__ X,
+    const int* __restrict__ tab, int t, const float* __restrict__ v, int B,
+    int R, int K) {
+  const GatherDepth d = gather_depth(tab, t);
   GatherRows g;
-  g.X = wbuf + w_floats;
-  g.E = g.X + (long long)tile_b * R * K;
-  g.A = g.E + (long long)tile_b * Rc * K;
+  g.X = X;
   g.R = R;
-  g.Rc = Rc;
   g.K = K;
-  float* cot = g.A + tile_b * Rc;                // (row, R, K)
-  float* sl = cot + (long long)tile_b * R * K;   // (row, L, K) left sums
-  float* sr = sl + (long long)tile_b * l_max * K;
-  float* ge = sr + (long long)tile_b * l_max * K;  // (row, M C, K)
-  int* tab = reinterpret_cast<int*>(ge + (long long)tile_b * mc_max * K);
-  for (int t = threadIdx.x; t < n_tab; t += blockDim.x) tab[t] = tab_g[t];
-  __syncthreads();
-  const int D = tab[0];
-  const int r_in = tab[1];
-  for (int t = threadIdx.x; t < nb * r_in * K; t += blockDim.x) {
-    const int r = t / (r_in * K);
-    const int rem = t - r * r_in * K;
-    g.X[(long long)r * R * K + rem] = x[(long long)(b0 + r) * x_sb + rem];
+  GATHER_LOOP((long long)B * K) {
+    const int b = (int)(o / K);
+    const int k = (int)(o - (long long)b * K);
+    for (int l = 0; l < d.L; ++l) {
+      X[((long long)b * R + d.base + l) * K + k] =
+          out[((long long)b * d.L + l) * K + k];
+    }
+    for (int mi = 0; mi < d.M; ++mi) {
+      float s;
+      const float a = gather_mix_frame(g, tab, d, v, b, mi, k, &s);
+      X[((long long)b * R + d.base + d.L + mi) * K + k] = a + logf(s);
+    }
   }
-  // 1. the forward, recomputed
-  gather_forward_sweep(tab, p, g, nb, wbuf, w_floats);
-  // 2. the cotangent buffer, then the depths in reverse
-  const int nk = (R - r_in) * K;
-  for (int t = threadIdx.x; t < nb * R * K; t += blockDim.x) {
-    const int r = t / (R * K);
-    const int rem = t - r * R * K;
-    cot[t] = rem < r_in * K
-                 ? 0.f
-                 : g_out[(long long)(b0 + r) * nk + rem - r_in * K];
+}
+
+// The mixing backward of depth t, a thread a (b, k): ge[b, q, k] for every
+// slot q = (mi, c), then ge v added into the einsum rows in slot order.
+__global__ void __launch_bounds__(kThreads) mix_bwd_kernel(
+    const float* __restrict__ X, float* __restrict__ cot,
+    float* __restrict__ ge, const int* __restrict__ tab, int t,
+    const float* __restrict__ v, int B, int R, int K) {
+  const GatherDepth d = gather_depth(tab, t);
+  const int* child = tab + d.child;
+  const int* mask = child + d.M * d.C;
+  const int MC = d.M * d.C;
+  GatherRows g;
+  g.X = const_cast<float*>(X);
+  g.R = R;
+  g.K = K;
+  GATHER_LOOP((long long)B * K) {
+    const int b = (int)(o / K);
+    const int k = (int)(o - (long long)b * K);
+    float* geb = ge + (long long)b * MC * K + k;
+    for (int mi = 0; mi < d.M; ++mi) {
+      float s;
+      const float a = gather_mix_frame(g, tab, d, v, b, mi, k, &s);
+      const float ginv = cot[((long long)b * R + d.base + d.L + mi) * K + k] /
+                         fmaxf(s, LEE_S_FLOOR);
+      for (int c = 0; c < d.C; ++c) {
+        const int q = mi * d.C + c;
+        geb[q * K] = mask[q] ? __fmul_rn(ginv, expf(gather_mix_child(
+                                             g, tab, d, b, mi, c, k) - a))
+                             : 0.f;
+      }
+    }
+    for (int li = 0; li < d.L; ++li) {
+      float* c = cot + ((long long)b * R + d.base + li) * K + k;
+      float acc = *c;
+      for (int q = 0; q < MC; ++q) {
+        if (mask[q] && child[q] == li) {
+          acc = __fadd_rn(acc, __fmul_rn(geb[q * K], v[q * K + k]));
+        }
+      }
+      *c = acc;
+    }
   }
-  float* part = part_all + (long long)tile * part_floats;
-  for (int t = D - 1; t >= 0; --t) {
-    const GatherDepth d = gather_depth(tab, t);
-    const int* left = tab + d.left;
-    const int* right = tab + d.right;
+}
+
+// gv[q, k] = sum_b ge[b, q, k], a block an output: thread t sums rows t,
+// t + 256, ... in order, then the block's sums are added in a fixed tree.
+__global__ void __launch_bounds__(kThreads) gv_sum_kernel(
+    const float* __restrict__ ge, float* __restrict__ gv, int B, int n) {
+  __shared__ float part[kThreads];
+  const int o = blockIdx.x;
+  float acc = 0.f;
+  for (int b = threadIdx.x; b < B; b += kThreads) {
+    acc += ge[(long long)b * n + o];
+  }
+  part[threadIdx.x] = acc;
+  for (int w = kThreads / 2; w > 0; w >>= 1) {
     __syncthreads();
-    if (d.M > 0) {
-      // a. the mixing backward
-      const float* v = p.v[d.vi];
-      const int* child = tab + d.child;
-      const int* mask = child + d.M * d.C;
-      const int MC = d.M * d.C;
-      for (int o = threadIdx.x; o < nb * d.M * K; o += blockDim.x) {
-        const int r = o / (d.M * K);
-        const int rem = o - r * d.M * K;
-        const int mi = rem / K;
-        const int k = rem - mi * K;
-        float s;
-        const float a = gather_mix_frame(g, tab, d, v, r, mi, k, &s);
-        const float ginv =
-            cot[((long long)r * R + d.base + d.L + mi) * K + k] /
-            fmaxf(s, LEE_S_FLOOR);
-        for (int c = 0; c < d.C; ++c) {
-          const int q = mi * d.C + c;
-          ge[((long long)r * MC + q) * K + k] =
-              mask[q] ? __fmul_rn(ginv, expf(gather_mix_child(
-                                              g, tab, d, r, mi, c, k) - a))
-                      : 0.f;
-        }
-      }
-      __syncthreads();
-      for (int o = threadIdx.x; o < nb * d.L * K; o += blockDim.x) {
-        const int r = o / (d.L * K);
-        const int rem = o - r * d.L * K;
-        const int li = rem / K;
-        const int k = rem - li * K;
-        float* c = cot + ((long long)r * R + d.base + li) * K + k;
-        float acc = *c;
-        for (int q = 0; q < MC; ++q) {
-          if (mask[q] && child[q] == li) {
-            acc = __fadd_rn(acc, __fmul_rn(ge[((long long)r * MC + q) * K + k],
-                                           v[q * K + k]));
-          }
-        }
-        *c = acc;
-      }
-      for (int o = threadIdx.x; o < MC * K; o += blockDim.x) {
-        float acc = 0.f;
-        for (int r = 0; r < nb; ++r) acc += ge[(long long)r * MC * K + o];
-        part[p.v_off[d.vi] + o] = acc;
-      }
-      __syncthreads();
+    if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
+  }
+  if (threadIdx.x == 0) gv[o] = part[0];
+}
+
+// gs[b, l] = cot[b, base + l]: the cotangent of depth t's einsum rows.
+__global__ void __launch_bounds__(kThreads) gather_cot_kernel(
+    const float* __restrict__ cot, const int* __restrict__ tab, int t,
+    float* __restrict__ gs, int B, int R, int K) {
+  const GatherDepth d = gather_depth(tab, t);
+  GATHER_LOOP((long long)B * d.L * K) {
+    const long long b = o / ((long long)d.L * K);
+    const int rem = (int)(o - b * d.L * K);
+    gs[o] = cot[(b * R + d.base) * K + rem];
+  }
+}
+
+// gl and gr of depth t into the children's rows, a thread a (b, i): the
+// right children in table order, then the left.
+__global__ void __launch_bounds__(kThreads) accumulate_kernel(
+    float* __restrict__ cot, const float* __restrict__ gl,
+    const float* __restrict__ gr, const int* __restrict__ tab, int t, int B,
+    int R, int K) {
+  const GatherDepth d = gather_depth(tab, t);
+  const int* left = tab + d.left;
+  const int* right = tab + d.right;
+  GATHER_LOOP((long long)B * K) {
+    const long long b = o / K;
+    const int i = (int)(o - b * K);
+    for (int li = 0; li < d.L; ++li) {
+      float* c = cot + (b * R + right[li]) * K + i;
+      *c = __fadd_rn(*c, gr[(b * d.L + li) * K + i]);
     }
-    // b. the pair's backward, chunk by chunk
-    for (int t2 = threadIdx.x; t2 < nb * d.L * K; t2 += blockDim.x) {
-      sl[t2] = 0.f;
-      sr[t2] = 0.f;
-    }
-    const LeeChunks ch = lee_chunks(d.L, K, KKp, w_floats);
-    for (int m0 = 0; m0 < d.L; m0 += ch.cells) {
-      const int mn = min(ch.cells, d.L - m0);
-      for (int k0 = 0; k0 < K; k0 += ch.kt) {
-        const int kn = min(ch.kt, K - k0);
-        __syncthreads();
-        lee_stage_weights(wbuf, p.w[t], (long long)K * K * K, m0, mn, k0,
-                          kn, K);
-        __syncthreads();
-        for (int o = threadIdx.x; o < nb * mn * kn; o += blockDim.x) {
-          const int r = o / (mn * kn);
-          const int rem = o - r * mn * kn;
-          const int m = rem / kn;
-          const int k = rem - m * kn;
-          const float s = gather_cell_sum(
-              wbuf + (m * kn + k) * KKp,
-              g.E + ((long long)r * Rc + left[m0 + m]) * K,
-              g.E + ((long long)r * Rc + right[m0 + m]) * K, K);
-          float* c = cot + ((long long)r * R + d.base + m0 + m) * K + k0 + k;
-          *c = *c / fmaxf(s, LEE_S_FLOOR);
-        }
-        __syncthreads();
-        // the chunk's share of the children's input cotangent; the batch
-        // row runs fastest, so a warp reads few weight addresses at once
-        for (int o = threadIdx.x; o < nb * mn * K; o += blockDim.x) {
-          const int m = o / (K * nb);
-          const int rem = o - m * K * nb;
-          const int i = rem / nb;
-          const int r = rem - i * nb;
-          const float* gi = cot + ((long long)r * R + d.base + m0 + m) * K + k0;
-          const float* wm = wbuf + m * kn * KKp;
-          const float* el = g.E + ((long long)r * Rc + left[m0 + m]) * K;
-          const float* er = g.E + ((long long)r * Rc + right[m0 + m]) * K;
-          float al = 0.f;  // sum_j er_j c[i, j]
-          float ar = 0.f;  // sum_i' el_i' c[i', i]
-          for (int j = 0; j < K; ++j) {
-            float cl = 0.f;
-            float cr = 0.f;
-#pragma unroll 4
-            for (int k = 0; k < kn; ++k) {
-              cl = fmaf(gi[k], wm[k * KKp + i * K + j], cl);
-              cr = fmaf(gi[k], wm[k * KKp + j * K + i], cr);
-            }
-            al = fmaf(cl, er[j], al);
-            ar = fmaf(cr, el[j], ar);
-          }
-          sl[((long long)r * d.L + m0 + m) * K + i] += al;
-          sr[((long long)r * d.L + m0 + m) * K + i] += ar;
-        }
-        // the chunk's partial dW over the tile's rows
-        for (int o = threadIdx.x; o < mn * kn * KK; o += blockDim.x) {
-          const int m = o / (kn * KK);
-          const int rem = o - m * kn * KK;
-          const int k = rem / KK;
-          const int ij = rem - k * KK;
-          const int i = ij / K;
-          const int j = ij - i * K;
-          float acc = 0.f;
-          for (int r = 0; r < nb; ++r) {
-            acc = fmaf(cot[((long long)r * R + d.base + m0 + m) * K + k0 + k],
-                       g.E[((long long)r * Rc + left[m0 + m]) * K + i] *
-                           g.E[((long long)r * Rc + right[m0 + m]) * K + j],
-                       acc);
-          }
-          part[p.w_off[t] + ((long long)(m0 + m) * K + k0 + k) * KK + ij] = acc;
-        }
-      }
-    }
-    __syncthreads();
-    // c. into the children's rows: right children first, then left
-    for (int o = threadIdx.x; o < nb * K; o += blockDim.x) {
-      const int r = o / K;
-      const int i = o - r * K;
-      for (int li = 0; li < d.L; ++li) {
-        const int row = right[li];
-        float* c = cot + ((long long)r * R + row) * K + i;
-        *c = __fadd_rn(*c, __fmul_rn(g.E[((long long)r * Rc + row) * K + i],
-                                     sr[((long long)r * d.L + li) * K + i]));
-      }
-      for (int li = 0; li < d.L; ++li) {
-        const int row = left[li];
-        float* c = cot + ((long long)r * R + row) * K + i;
-        *c = __fadd_rn(*c, __fmul_rn(g.E[((long long)r * Rc + row) * K + i],
-                                     sl[((long long)r * d.L + li) * K + i]));
-      }
+    for (int li = 0; li < d.L; ++li) {
+      float* c = cot + (b * R + left[li]) * K + i;
+      *c = __fadd_rn(*c, gl[(b * d.L + li) * K + i]);
     }
   }
-  // 3. the input rows' cotangent
-  __syncthreads();
-  for (int t = threadIdx.x; t < nb * r_in * K; t += blockDim.x) {
-    const int r = t / (r_in * K);
-    const int rem = t - r * r_in * K;
-    gx[(long long)(b0 + r) * r_in * K + rem] = cot[(long long)r * R * K + rem];
+}
+
+// gx[b, row] = cot[b, row] for the input rows.
+__global__ void __launch_bounds__(kThreads) gx_kernel(
+    const float* __restrict__ cot, float* __restrict__ gx, int B, int r_in,
+    int R, int K) {
+  GATHER_LOOP((long long)B * r_in * K) {
+    const long long b = o / ((long long)r_in * K);
+    gx[o] = cot[b * R * K + (o - b * r_in * K)];
   }
 }
 
 }  // namespace
 
-// ws[t] (L_t, K, K, K) and vs[q] (M_q, C_q, K) contiguous; w_offs[t] and
-// v_offs[q] their offsets in one flat gradient of part_floats floats; tab
-// the packed tables (n_tab int32) on the device; x (B, r_in, K) with unit
-// strides over rows and K and batch stride x_sb; g_out (B, R - r_in, K)
-// contiguous.  Writes gx (B, r_in, K) contiguous and gwv, every weight's
-// and mixing weight's gradient laid out like ws and vs at their offsets.
-// With more than one row tile, part holds ceil(B / tile_b) such buffers and
-// is summed into gwv in tile order; with one tile, pass part == gwv.
-// w_floats (at least K^2) sizes the weight staging area for a row tile of
-// tile_b; R, Rc, l_max (most cells of a depth) and mc_max (largest M C)
-// size the row areas (the wrapper computes them all).  Launches on
-// `stream`; returns the first CUDA error, or 0, or cudaErrorInvalidValue
-// for more than 16 depths or mixing depths.
+// ws[t] (L_t, K, K, K) and vs[q] (M_q, C_q, K) contiguous; gw_offs[t] and
+// gv_offs[q] their offsets in gwv, one flat gradient laid out like ws and
+// vs; tab the packed tables (n_tab int32) on the device and tab_h the same
+// on the host; x (B, r_in, K) with unit strides over rows and K and batch
+// stride x_sb; g_out (B, R - r_in, K) contiguous.  Writes gx (B, r_in, K)
+// contiguous and gwv.  geo[7 t .. 7 t + 6] is depth t's K1 (tile, nsub)
+// and K2 (tile, nsub, JT, K_out tile, batch splits), as the wrapper picks
+// them for the pair (B, L_t, K, K).  Scratch (the wrapper sizes it): the
+// row buffer X and the cotangent buffer cot (B, R, K) each; lr, every
+// depth's gathered left then right child rows (2 B L_t K a depth, in depth
+// order); buf (B l_max K: K1's output, then a depth's einsum rows'
+// cotangent); K2's ginv (B l_max K), gl and gr (glr, 2 B l_max K) and
+// K_out-tile sums acc; the mixing terms ge (B mc_max K); and K2's dW
+// split partials (part).  Launches on `stream`;
+// returns the first CUDA error, or 0, or cudaErrorInvalidValue for more
+// than 16 depths or mixing depths.
 extern "C" int gather_bwd(const float* const* ws, const float* const* vs,
-                          const long long* w_offs, const long long* v_offs,
-                          int D, int n_mix, const int* tab, int n_tab,
-                          const float* x, const float* g_out, float* part,
-                          float* gwv, long long part_floats, float* gx, int B,
-                          int K, int tile_b, long long x_sb, int w_floats,
-                          int R, int Rc, int l_max, int mc_max, void* stream) {
+                          const long long* gw_offs, const long long* gv_offs,
+                          int D, int n_mix, const int* tab, const int* tab_h,
+                          const float* x, long long x_sb, const float* g_out,
+                          float* gwv, float* gx, int B, int K, const int* geo,
+                          float* X, float* cot, float* lr, float* buf,
+                          float* ginv, float* glr, float* acc, float* ge,
+                          float* part, void* stream) {
   if (D < 1 || D > kGatherMaxDepths || n_mix < 0 || n_mix > kGatherMaxDepths)
     return (int)cudaErrorInvalidValue;
-  GatherParams p = {};
-  for (int t = 0; t < D; ++t) {
-    p.w[t] = ws[t];
-    p.w_off[t] = w_offs[t];
-  }
-  for (int q = 0; q < n_mix; ++q) {
-    p.v[q] = vs[q];
-    p.v_off[q] = v_offs[q];
-  }
-  const long long rows = (long long)R * K + (long long)Rc * (K + 1) +
-                         (long long)R * K + 2LL * l_max * K +
-                         (long long)mc_max * K;
-  const long long smem =
-      4LL * ((long long)w_floats + (long long)tile_b * rows + n_tab);
-  cudaError_t err = cudaFuncSetAttribute(
-      gather_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (B + tile_b - 1) / tile_b;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  gather_bwd_kernel<<<tiles, kThreads, (size_t)smem, s>>>(
-      p, tab, n_tab, x, g_out, part, part_floats, gx, B, K, tile_b, x_sb,
-      w_floats, R, Rc, l_max, mc_max);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || tiles == 1) return (int)err;
-  return (int)lee_sum_tiles(part, gwv, part_floats, tiles, s);
+  const int r_in = tab_h[1];
+  const int R = tab_h[2];
+  const long long rows = (long long)B * R * K;
+  init_kernel<<<grid_for(rows), kThreads, 0, s>>>(x, x_sb, g_out, X, cot, B,
+                                                   r_in, R, K);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // 1. the forward, recomputed
+  long long lr_off[kGatherMaxDepths];
+  long long off = 0;
+  for (int t = 0; t < D; ++t) {
+    const GatherDepth d = gather_depth(tab_h, t);
+    const long long n = (long long)B * d.L * K;
+    float* lg = lr + off;
+    lr_off[t] = off;
+    off += 2 * n;
+    const int* gt = geo + 7 * t;
+    gather_children_kernel<<<grid_for(2 * n), kThreads, 0, s>>>(
+        X, tab, t, lg, lg + n, B, R, K);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = lee_fwd_run(ws[t], lg, lg + n, buf, B, d.L, K, K, gt[0], gt[1],
+                      (long long)d.L * K, K, (long long)d.L * K, K, s);
+    if (err != cudaSuccess) return (int)err;
+    scatter_mix_kernel<<<grid_for((long long)B * K), kThreads, 0, s>>>(
+        buf, X, tab, t, d.M > 0 ? vs[d.vi] : nullptr, B, R, K);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  // 2. the depths in reverse
+  for (int t = D - 1; t >= 0; --t) {
+    const GatherDepth d = gather_depth(tab_h, t);
+    const long long n = (long long)B * d.L * K;
+    const int* gt = geo + 7 * t;
+    if (d.M > 0) {
+      mix_bwd_kernel<<<grid_for((long long)B * K), kThreads, 0, s>>>(
+          X, cot, ge, tab, t, vs[d.vi], B, R, K);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      const int nv = d.M * d.C * K;
+      gv_sum_kernel<<<nv, kThreads, 0, s>>>(ge, gwv + gv_offs[d.vi], B, nv);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    gather_cot_kernel<<<grid_for(n), kThreads, 0, s>>>(cot, tab, t, buf, B,
+                                                        R, K);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const float* lg = lr + lr_off[t];
+    float* gw = gwv + gw_offs[t];
+    err = lee_bwd_run(ws[t], lg, lg + n, buf, ginv, acc,
+                      gt[6] > 1 ? part : gw, gw, glr, glr + n, B, d.L, K, K,
+                      gt[2], gt[3], gt[4], gt[5], gt[6], (long long)d.L * K, K,
+                      (long long)d.L * K, K, s);
+    if (err != cudaSuccess) return (int)err;
+    accumulate_kernel<<<grid_for((long long)B * K), kThreads, 0, s>>>(
+        cot, glr, glr + n, tab, t, B, R, K);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  // 3. the input rows' cotangent
+  gx_kernel<<<grid_for((long long)B * r_in * K), kThreads, 0, s>>>(
+      cot, gx, B, r_in, R, K);
+  return (int)cudaGetLastError();
 }

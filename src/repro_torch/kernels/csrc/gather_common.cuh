@@ -31,7 +31,8 @@ struct GatherDepth {
   int L, M, C, base, left, right, child, vi;
 };
 
-__device__ __forceinline__ GatherDepth gather_depth(const int* tab, int t) {
+__host__ __device__ __forceinline__ GatherDepth gather_depth(const int* tab,
+                                                             int t) {
   const int* d = tab + kGatherHeader + kGatherDepthInts * t;
   return {d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7]};
 }

@@ -20,6 +20,13 @@
 // Shared memory one block may use on the H100 (227 KB).
 constexpr int kLeeSmemLimit = 232448;
 
+// Threads of a K1 or K2 rows block, and the blocks an SM they are compiled
+// for (registers: at most 64 a thread: at 80 to 102, where the compiler
+// puts them unbounded, only two blocks fit and the rows kernel's chain of
+// barriers is latency bound)
+constexpr int kLeeThreads = 256;
+constexpr int kLeeMinBlocks = 4;
+
 // v[0..K) <- exp(v - m) in place, with m = max(max_i v[i], NEG_INF); returns m.
 __device__ __forceinline__ float lee_stabilize(float* v, int K) {
   float m = __int_as_float(0xff800000);  // -inf
@@ -137,6 +144,39 @@ struct LeeTile {
   static constexpr int KT = NKG_ * KO_;  // outputs of a K_out tile
 };
 
+// One item of a sweep: a lane's micro-tile t[v][u] = sum_q W[k, p, q]
+// x[r, q] (TRANS: W[k, q, p]) for its rows r = v NRG (from xr, rows
+// lee_pad(K) apart) and outputs k = u NKG (from wk, weight rows
+// lee_row_stride(K) apart, offset to the lane's first row and p), q = 0,
+// 1, ... in order, fp32 FMAs from 0.
+template <class Tile, bool TRANS>
+__device__ __forceinline__ void lee_tile(const float* wk, const float* xr,
+                                         int K,
+                                         float (&t)[Tile::R][Tile::KO]) {
+  const int KKp = lee_row_stride(K);
+  const int Kp = lee_pad(K);
+  const int qs = TRANS ? K : 1;  // weight stride of q
+#pragma unroll
+  for (int v = 0; v < Tile::R; ++v)
+#pragma unroll
+    for (int u = 0; u < Tile::KO; ++u) t[v][u] = 0.f;
+#pragma unroll 4
+  for (int q = 0; q < K; ++q) {
+    float wv[Tile::KO];
+    float xv[Tile::R];
+#pragma unroll
+    for (int u = 0; u < Tile::KO; ++u)
+      wv[u] = wk[u * Tile::NKG * KKp + q * qs];
+#pragma unroll
+    for (int v = 0; v < Tile::R; ++v) xv[v] = xr[v * Tile::NRG * Kp + q];
+#pragma unroll
+    for (int v = 0; v < Tile::R; ++v)
+#pragma unroll
+      for (int u = 0; u < Tile::KO; ++u)
+        t[v][u] = fmaf(wv[u], xv[v], t[v][u]);
+  }
+}
+
 // For every subtile row r, tile output k and outer index p < K:
 //   T[(r KT + k) lee_pad(K) + p] = sum_q W[k, p, q] x[r, q]     (!TRANS)
 //                                  sum_q W[k, q, p] x[r, q]     (TRANS)
@@ -155,38 +195,55 @@ __device__ __forceinline__ void lee_sweep(const float* ws, const float* x,
   const int kg = lane % Tile::NKG;
   const int rg = lane / Tile::NKG;
   const int nwarps = blockDim.x >> 5;
-  const int qs = TRANS ? K : 1;  // weight stride of q
   for (int item = threadIdx.x >> 5; item < nsub * K; item += nwarps) {
     const int sub = item / K;
     const int p = item - sub * K;
     const int r0 = sub * Tile::ROWS + rg;
-    const float* wk = ws + kg * KKp + (TRANS ? p : p * K);
-    const float* xr = x + r0 * Kp;
     float t[Tile::R][Tile::KO];
-#pragma unroll
-    for (int v = 0; v < Tile::R; ++v)
-#pragma unroll
-      for (int u = 0; u < Tile::KO; ++u) t[v][u] = 0.f;
-#pragma unroll 4
-    for (int q = 0; q < K; ++q) {
-      float wv[Tile::KO];
-      float xv[Tile::R];
-#pragma unroll
-      for (int u = 0; u < Tile::KO; ++u)
-        wv[u] = wk[u * Tile::NKG * KKp + q * qs];
-#pragma unroll
-      for (int v = 0; v < Tile::R; ++v) xv[v] = xr[v * Tile::NRG * Kp + q];
-#pragma unroll
-      for (int v = 0; v < Tile::R; ++v)
-#pragma unroll
-        for (int u = 0; u < Tile::KO; ++u)
-          t[v][u] = fmaf(wv[u], xv[v], t[v][u]);
-    }
+    lee_tile<Tile, TRANS>(ws + kg * KKp + (TRANS ? p : p * K), x + r0 * Kp,
+                          K, t);
 #pragma unroll
     for (int v = 0; v < Tile::R; ++v)
 #pragma unroll
       for (int u = 0; u < Tile::KO; ++u)
         T[((r0 + v * Tile::NRG) * Tile::KT + kg + u * Tile::NKG) * Kp + p] =
+            t[v][u];
+  }
+}
+
+// lee_sweep over ncells cells at once, for the fused backward kernels (K4):
+// cell m's KT weight rows at ws + m ws_cell, its rows at x + m x_cell (tb
+// rows at lee_pad(K)) and its T at T + m t_cell, each laid out as in
+// lee_sweep.  The items, one per (cell, subtile, p), go round the block's
+// warps; each output is the same FMA chain as lee_sweep's.
+template <class Tile, bool TRANS>
+__device__ __forceinline__ void lee_sweep_cells(const float* ws, int ws_cell,
+                                                const float* x, int x_cell,
+                                                float* T, int t_cell, int K,
+                                                int nsub, int ncells) {
+  const int KKp = lee_row_stride(K);
+  const int Kp = lee_pad(K);
+  const int lane = threadIdx.x & 31;
+  const int kg = lane % Tile::NKG;
+  const int rg = lane / Tile::NKG;
+  const int nwarps = blockDim.x >> 5;
+  const int per_cell = nsub * K;
+  for (int item = threadIdx.x >> 5; item < ncells * per_cell;
+       item += nwarps) {
+    const int m = item / per_cell;
+    const int rest = item - m * per_cell;
+    const int sub = rest / K;
+    const int p = rest - sub * K;
+    const int r0 = sub * Tile::ROWS + rg;
+    float* Tm = T + m * t_cell;
+    float t[Tile::R][Tile::KO];
+    lee_tile<Tile, TRANS>(ws + m * ws_cell + kg * KKp + (TRANS ? p : p * K),
+                          x + m * x_cell + r0 * Kp, K, t);
+#pragma unroll
+    for (int v = 0; v < Tile::R; ++v)
+#pragma unroll
+      for (int u = 0; u < Tile::KO; ++u)
+        Tm[((r0 + v * Tile::NRG) * Tile::KT + kg + u * Tile::NKG) * Kp + p] =
             t[v][u];
   }
 }

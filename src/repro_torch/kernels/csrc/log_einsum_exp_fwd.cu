@@ -6,7 +6,8 @@
 //   s  = sum_{i,j} W[l,k,i,j] exp(ln_l[b,l,i] - a) exp(ln_r[b,l,j] - a')
 //   out[b,l,k] = (a + a') + log s
 //
-// Layout: one block per (cell l, row tile, K_out tile).  The block stages
+// Layout (lee_fwd_kernel in lee_fwd.cuh, which K6 also launches): one
+// block per (cell l, row tile, K_out tile).  The block stages
 // its K_out tile of W[l] (lee_stage_weights: float4 loads, each weight row
 // at the odd stride lee_row_stride) and its rows (at the odd stride
 // lee_pad), stabilises the rows once in place (lee_stabilize), then runs
@@ -51,84 +52,7 @@
 // is fp32), cp.async or TMA staging overlapped with the sweep, and a
 // persistent grid.
 
-#include "lee_common.cuh"
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kMinBlocks = 4;  // blocks an SM: at most 64 registers a thread
-
-template <class Tile>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) lee_fwd_kernel(
-    const float* __restrict__ w, const float* __restrict__ ln_l,
-    const float* __restrict__ ln_r, float* __restrict__ out, int B, int L,
-    int K, int K_out, int nsub, long long l_sb, long long l_sl,
-    long long r_sb, long long r_sl) {
-  extern __shared__ float smem[];
-  constexpr int KT = Tile::KT;
-  const int tb = nsub * Tile::ROWS;
-  const int l = blockIdx.x;
-  const int b0 = blockIdx.y * tb;
-  const int k0 = blockIdx.z * KT;
-  const int kn = min(KT, K_out - k0);
-  const int nb = min(tb, B - b0);
-  const int Kp = lee_pad(K);
-  float* ws = smem;                       // KT lee_row_stride(K): W[l, k0:]
-  float* el = ws + KT * lee_row_stride(K);  // tb Kp: left rows, then exps
-  float* er = el + tb * Kp;               // tb Kp: right rows, then exps
-  float* ml = er + tb * Kp;               // tb: clamped left maxes
-  float* mr = ml + tb;                    // tb: clamped right maxes
-  float* T = mr + tb;                     // tb KT Kp: t[r, k, i]
-
-  lee_stage_weights(ws, w, (long long)K_out * K * K, l, 1, k0, kn, K);
-  lee_stage_rows(el, ln_l + l * l_sl, l_sb, b0, nb, tb, K);
-  lee_stage_rows(er, ln_r + l * r_sl, r_sb, b0, nb, tb, K);
-  __syncthreads();
-  for (int t = threadIdx.x; t < 2 * nb; t += blockDim.x) {
-    if (t < nb) {
-      ml[t] = lee_stabilize(el + t * Kp, K);
-    } else {
-      mr[t - nb] = lee_stabilize(er + (t - nb) * Kp, K);
-    }
-  }
-  __syncthreads();
-  lee_sweep<Tile, false>(ws, er, T, K, nsub);
-  __syncthreads();
-  for (int o = threadIdx.x; o < nb * KT; o += blockDim.x) {
-    const int r = o / KT;
-    const int k = o - r * KT;
-    if (k >= kn) continue;
-    const float* t = T + o * Kp;
-    const float* e = el + r * Kp;
-    float s = 0.f;
-    for (int i = 0; i < K; ++i) s = fmaf(e[i], t[i], s);
-    out[((long long)(b0 + r) * L + l) * K_out + k0 + k] =
-        (ml[r] + mr[r]) + logf(s);
-  }
-}
-
-template <class Tile>
-cudaError_t launch(const float* w, const float* ln_l, const float* ln_r,
-                   float* out, int B, int L, int K, int K_out, int nsub,
-                   long long l_sb, long long l_sl, long long r_sb,
-                   long long r_sl, cudaStream_t stream) {
-  // the block's whole budget, allowed once; a launch asks for what it uses
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      lee_fwd_kernel<Tile>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kLeeSmemLimit);
-  if (attr != cudaSuccess) return attr;
-  const int tb = nsub * Tile::ROWS;
-  const long long smem =
-      4LL * ((long long)Tile::KT * lee_row_stride(K) + 2LL * tb +
-             (2LL + Tile::KT) * tb * lee_pad(K));
-  if (smem > kLeeSmemLimit) return cudaErrorInvalidValue;
-  const dim3 grid(L, (B + tb - 1) / tb, (K_out + Tile::KT - 1) / Tile::KT);
-  lee_fwd_kernel<Tile><<<grid, kThreads, (size_t)smem, stream>>>(
-      w, ln_l, ln_r, out, B, L, K, K_out, nsub, l_sb, l_sl, r_sb, r_sl);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "lee_fwd.cuh"
 
 // w (L, K_out, K, K) contiguous; ln_l / ln_r (B, L, K) with unit stride over
 // K and the given batch and cell strides; out (B, L, K_out) contiguous.
@@ -140,15 +64,7 @@ extern "C" int lee_fwd(const float* w, const float* ln_l, const float* ln_r,
                        float* out, int B, int L, int K, int K_out, int tile,
                        int nsub, long long l_sb, long long l_sl,
                        long long r_sb, long long r_sl, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (tile == 0) {
-    return (int)launch<LeeTile<4, 2, 4>>(w, ln_l, ln_r, out, B, L, K, K_out,
-                                         nsub, l_sb, l_sl, r_sb, r_sl, s);
-  }
-  if (tile == 2) {
-    return (int)launch<LeeTile<2, 5, 2>>(w, ln_l, ln_r, out, B, L, K, K_out,
-                                         nsub, l_sb, l_sl, r_sb, r_sl, s);
-  }
-  return (int)launch<LeeTile<2, 1, 1>>(w, ln_l, ln_r, out, B, L, K, K_out,
-                                       nsub, l_sb, l_sl, r_sb, r_sl, s);
+  return (int)lee_fwd_run(w, ln_l, ln_r, out, B, L, K, K_out, tile, nsub,
+                          l_sb, l_sl, r_sb, r_sl,
+                          reinterpret_cast<cudaStream_t>(stream));
 }

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +47,7 @@ from repro_torch.core.layers import (
     grouped_log_einsum_exp as grouped_log_einsum_exp_plain,
 )
 from repro_torch.kernels import build
+from repro_torch.kernels import log_einsum_exp as lee
 from repro_torch.kernels.log_einsum_exp import (
     MAX_GRID_Y,
     SMEM_LIMIT_BYTES,
@@ -54,8 +55,20 @@ from repro_torch.kernels.log_einsum_exp import (
     log_einsum_exp_plain,
 )
 
-MAX_DEPTHS = 8  # kMaxDepths in grouped_fwd.cu
-TILE_B_CHOICES = (32, 16, 8, 4, 2, 1)  # rows per block, largest that fits
+MAX_DEPTHS = 8  # kMaxDepths in grouped_fwd.cu and grouped_bwd.cu
+TILE_B_CHOICES = (32, 16, 8, 4, 2, 1)  # K3: rows per block, largest that fits
+# K4: rows a block, largest first (multiples of its register tiles' rows);
+# a block aims to leave room for a second one on its SM (228 KB an SM, 1 KB
+# of it reserved a block); K4's per-tile weight-gradient partials are kept
+# under GROUPED_PART_LIMIT_BYTES, else it takes the batch-split dW
+# K4: rows a block, largest first (multiples of its register tiles' rows,
+# K2's BWD_TILES); the blocks a launch aims for; its per-tile
+# weight-gradient partials are kept under GROUPED_PART_LIMIT_BYTES, else it
+# takes the batch-split dW
+BWD_TB_CHOICES = (64, 32, 16)
+BWD_TARGET_BLOCKS = 4 * lee.SMS
+BWD_CHUNK_CELLS = 4
+GROUPED_PART_LIMIT_BYTES = 64 * 2 ** 20
 
 _SIGNATURES = {
     "grouped_fwd": [
@@ -74,9 +87,11 @@ _BWD_SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p,  # x, g_out
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # parts, gw, n
         ctypes.c_void_p,  # gx
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B L_out K tile
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B L_out K tb
         ctypes.c_longlong,  # x batch stride
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # w / cot0 / cot1 floats
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ti, tf, t_cells
+        ctypes.c_int, ctypes.c_int,  # cot0 / cot1 floats
+        ctypes.c_void_p, ctypes.c_void_p,  # split scratch (or NULL), dW geo
         ctypes.c_void_p,  # stream
     ],
 }
@@ -84,13 +99,14 @@ _BWD_SIGNATURES = {
 __all__ = [
     "grouped_log_einsum_exp_cuda", "grouped_log_einsum_exp_plain",
     "grouped_log_einsum_exp_bwd_cuda", "grouped_log_einsum_exp_bwd_plain",
-    "group_geometry", "smem_layout", "bwd_smem_layout", "pick_tile_b",
+    "group_geometry", "smem_layout", "pick_tile_b", "bwd_geometry",
+    "bwd_dw_geometry", "bwd_partial_bytes",
     "depth_chunks",
     "gather_grouped_log_einsum_exp_cuda", "gather_grouped_log_einsum_exp_plain",
     "gather_grouped_log_einsum_exp_bwd_cuda",
     "gather_grouped_log_einsum_exp_bwd_plain", "gather_geometry",
     "pack_gather_tables", "gather_tables_tensor", "gather_smem_layout",
-    "pick_gather_tile_b",
+    "pick_gather_tile_b", "gather_bwd_geometry", "gather_bwd_partial_bytes",
 ]
 
 
@@ -166,38 +182,129 @@ def smem_layout(g: int, k: int, k_outs: Sequence[int],
     return w_floats, a_floats, b_floats, 4 * (w_floats + rows)
 
 
-def bwd_smem_layout(g: int, k: int, k_outs: Sequence[int],
-                    tile_b: int) -> Tuple[int, int, int, int]:
-    """(w_floats, cot0_floats, cot1_floats, total bytes) of one backward
-    block's shared memory (the layout in ``grouped_bwd_kernel``): weights
-    as in the forward, every depth's stabilised input rows (2^G + ... + 2
-    rows of K a batch row) and their maxes, and two cotangent areas.  Depth
-    d's output cotangent lives in area d % 2 and its input cotangent in the
-    other; depth 0's input cotangent (2^G rows) is in area 1."""
-    cells = [2 ** (g - 1 - d) for d in range(g)]
-    cot0 = tile_b * max(cells[d] * k_outs[d] for d in range(0, g, 2))
-    cot1 = tile_b * max(
-        [2 ** g * k] + [cells[d] * k_outs[d] for d in range(1, g, 2)])
-    rows = tile_b * (2 ** (g + 1) - 2) * (k + 1) + cot0 + cot1
-    w_floats = _weight_floats(k, cells, k_outs, rows)
-    return w_floats, cot0, cot1, 4 * (w_floats + rows)
-
-
-def pick_tile_b(g: int, k: int, k_outs: Sequence[int],
-                layout=smem_layout) -> int:
-    """Largest row tile whose block (laid out by ``layout``: the forward's
-    ``smem_layout`` or the backward's ``bwd_smem_layout``) fits in shared
+def pick_tile_b(g: int, k: int, k_outs: Sequence[int]) -> int:
+    """Largest row tile whose forward block (``smem_layout``) fits in shared
     memory with at least one weight row; raises when even one row of the
     subtree and one K_out row of one weight cell do not fit."""
     for tb in TILE_B_CHOICES:
-        if layout(g, k, k_outs, tb)[3] <= SMEM_LIMIT_BYTES:
+        if smem_layout(g, k, k_outs, tb)[3] <= SMEM_LIMIT_BYTES:
             return tb
     raise ValueError(
         f"grouped_log_einsum_exp: one output cell's {g}-depth subtree at "
-        f"K={k}, K_out={list(k_outs)} needs {layout(g, k, k_outs, 1)[3]} B "
-        f"of shared memory for a single row and one weight row; the card "
+        f"K={k}, K_out={list(k_outs)} needs {smem_layout(g, k, k_outs, 1)[3]} "
+        f"B of shared memory for a single row and one weight row; the card "
         f"allows {SMEM_LIMIT_BYTES} B"
     )
+
+
+class BwdGeometry(NamedTuple):
+    """A K4 launch (``grouped_bwd.cu``): register tiles ti (interior
+    depths) and tf (the last depth), numbered as K2's ``BWD_TILES``; tb
+    rows a block; t_cells weight cells a recompute chunk; the cotangent areas c0 and c1 (floats); the block's shared
+    bytes; and split, whether dW goes through K2's batch-split kernel
+    instead of per-tile partials."""
+    ti: int
+    tf: int
+    tb: int
+    t_cells: int
+    c0: int
+    c1: int
+    smem_bytes: int
+    split: bool
+
+
+def _bwd_block_floats(g, k, k_outs, tb, ktm, kt0):
+    """(fixed floats, floats a chunk cell, c0, c1) of a K4 block: every
+    depth's stabilised rows at lee_pad and their maxes, every depth's s,
+    and the two cotangent areas (depth d's output cotangent in area d % 2,
+    its input cotangent in the other; depth 0's goes straight to gx unless
+    its K_out tiles, kt0 outputs each, are several), every row at an odd
+    stride; a chunk cell's KTM weight rows at lee_row_stride and its
+    sweep."""
+    cells = [2 ** (g - 1 - d) for d in range(g)]
+    kp = lee.pad(k)
+    out = [cells[d] * lee.pad(k_outs[d]) for d in range(g)]
+    c0 = tb * max([out[d] for d in range(0, g, 2)]
+                  + [2 * cells[d] * kp for d in range(1, g, 2)])
+    first = 2 if k_outs[0] <= kt0 else 0
+    c1 = tb * max([out[d] for d in range(1, g, 2)]
+                  + [2 * cells[d] * kp for d in range(first, g, 2)] + [0])
+    slots = 2 ** (g + 1) - 2
+    fixed = slots * tb * (kp + 1) + tb * sum(out) + c0 + c1
+    return fixed, ktm * lee.row_stride(k) + tb * ktm * kp, c0, c1
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_geometry(g: int, k: int, k_outs: Tuple[int, ...], b: int,
+                 l_out: int) -> BwdGeometry:
+    """K4's launch geometry.  The tiles follow K and the K_outs alone (as
+    K2's: the 8- or 10-output tile that pads K_out less, the one-output
+    tile for K_out = 1), so a row's order of operations never depends on
+    the batch.  Then the largest row tile (a multiple of both tiles' rows)
+    whose block fits in 227 KB with at least one chunk cell and that still
+    gives BWD_TARGET_BLOCKS blocks, else the smallest that fits; the rest
+    of the budget goes to chunk cells, at most BWD_CHUNK_CELLS.  Raises
+    when no block fits."""
+    ti = lee._tile_order(k)[0]
+    tf = lee._tile_order(k_outs[-1])[0]
+    (ri, kti), (rf, ktf) = (lee.tile_shape(lee.BWD_TILES[t])
+                            for t in (ti, tf))
+    ktm = max(kti, ktf)
+    rows = ri * rf // int(np.gcd(ri, rf))
+    for budget in (SMEM_LIMIT_BYTES,):
+        fits = []
+        for tb in BWD_TB_CHOICES:
+            if tb % rows:
+                continue
+            fixed, per_cell, c0, c1 = _bwd_block_floats(
+                g, k, k_outs, tb, ktm, kti if g > 1 else ktf)
+            cells = min(2 ** (g - 1), BWD_CHUNK_CELLS,
+                        (budget // 4 - fixed) // per_cell)
+            if cells >= 1:
+                fits.append((tb, cells, c0, c1,
+                             4 * (fixed + cells * per_cell)))
+        if fits:
+            good = [f for f in fits
+                    if l_out * -(-b // f[0]) >= BWD_TARGET_BLOCKS]
+            tb, cells, c0, c1, smem = good[0] if good else fits[-1]
+            tiles = -(-b // tb)
+            split = tiles > 1 and 4 * tiles * sum(
+                _depth_sizes(g, k, k_outs, l_out)) > GROUPED_PART_LIMIT_BYTES
+            return BwdGeometry(ti, tf, tb, cells, c0, c1, smem, split)
+    raise ValueError(
+        f"grouped_log_einsum_exp backward: one output cell's {g}-depth "
+        f"subtree at K={k}, K_out={list(k_outs)} does not fit one row tile "
+        f"and one weight chunk in {SMEM_LIMIT_BYTES} B of shared memory"
+    )
+
+
+def _depth_sizes(g, k, k_outs, l_out):
+    """Floats of each depth's weights."""
+    return [2 ** (g - 1 - d) * l_out * ko * k * k
+            for d, ko in enumerate(k_outs)]
+
+
+def bwd_dw_geometry(g: int, k: int, k_outs: Sequence[int], b: int,
+                    l_out: int) -> List[Tuple[int, int, int]]:
+    """Split mode: each depth's (JT, K_out tile, batch splits) of K2's dW
+    kernel (``dw_geometry``, ``dw_splits``)."""
+    return [lee.dw_geometry(k, ko)
+            + (lee.dw_splits(b, l_out * 2 ** (g - 1 - d), k, ko),)
+            for d, ko in enumerate(k_outs)]
+
+
+def bwd_partial_bytes(g: int, k: int, k_outs: Sequence[int], b: int,
+                      l_out: int) -> int:
+    """Bytes of K4's weight-gradient partials: per-tile partials of all
+    the run's weights, or in split mode the largest depth's batch-split
+    partials (0 where K4 writes gw itself)."""
+    geo = bwd_geometry(g, k, tuple(k_outs), b, l_out)
+    sizes = _depth_sizes(g, k, k_outs, l_out)
+    if not geo.split:
+        tiles = -(-b // geo.tb)
+        return 0 if tiles == 1 else 4 * tiles * sum(sizes)
+    return max(4 * n * sp if sp > 1 else 0 for n, (_, _, sp) in zip(
+        sizes, bwd_dw_geometry(g, k, k_outs, b, l_out)))
 
 
 def _check_run(ws, x, what: str):
@@ -280,23 +387,37 @@ def grouped_log_einsum_exp_bwd_cuda(ws: Sequence[torch.Tensor],
             f"grouped_log_einsum_exp backward: g_out {tuple(g_out.shape)} "
             f"{g_out.dtype}, expected contiguous ({b}, {l_out}, "
             f"{k_outs[-1]}) float32")
-    tile_b = pick_tile_b(g, k, k_outs, bwd_smem_layout)
-    tiles = -(-b // tile_b)
+    geo = bwd_geometry(g, k, tuple(k_outs), b, l_out)
+    tiles = -(-b // geo.tb)
     if tiles > MAX_GRID_Y:
         raise ValueError(f"grouped_log_einsum_exp backward: batch {b} "
                          "exceeds the grid")
-    w_floats, cot0, cot1, _ = bwd_smem_layout(g, k, k_outs, tile_b)
     sizes = [w.numel() for w in ws]
     offs = [sum(sizes[:d]) for d in range(g)]
     total = sum(sizes)
     dev = x.device
     gw_flat = torch.empty(total, dtype=torch.float32, device=dev)
-    gw_part = gw_flat if tiles == 1 else torch.empty(
-        (tiles, total), dtype=torch.float32, device=dev)
     gx = torch.empty((b, l_out * 2 ** g, k), dtype=torch.float32, device=dev)
+    dw = bwd_dw_geometry(g, k, k_outs, b, l_out)
+    if geo.split:
+        # the interior depths' rows, every depth's ginv, then the largest
+        # depth's batch-split dW partials
+        n_rows = sum(b * l_out * 2 ** (g - d) * k for d in range(1, g))
+        n_ginv = sum(b * l_out * 2 ** (g - 1 - d) * ko
+                     for d, ko in enumerate(k_outs))
+        n_part = max(n * sp if sp > 1 else 0
+                     for n, (_, _, sp) in zip(sizes, dw))
+        scratch = torch.empty(n_rows + n_ginv + n_part, dtype=torch.float32,
+                              device=dev)
+        gw_part, scratch_ptr = gw_flat, scratch.data_ptr()
+    else:
+        gw_part = gw_flat if tiles == 1 else torch.empty(
+            (tiles, total), dtype=torch.float32, device=dev)
+        scratch_ptr = None
     w_ptrs = (ctypes.c_void_p * g)(*[w.data_ptr() for w in ws])
     k_arr = (ctypes.c_int * g)(*k_outs)
     off_arr = (ctypes.c_longlong * g)(*offs)
+    dw_arr = (ctypes.c_int * (3 * g))(*[v for geo_d in dw for v in geo_d])
     lib = build.load("grouped_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -305,8 +426,9 @@ def grouped_log_einsum_exp_bwd_cuda(ws: Sequence[torch.Tensor],
             ctypes.cast(k_arr, ctypes.c_void_p),
             ctypes.cast(off_arr, ctypes.c_void_p), g,
             x.data_ptr(), g_out.data_ptr(), gw_part.data_ptr(),
-            gw_flat.data_ptr(), total, gx.data_ptr(), b, l_out, k, tile_b,
-            x.stride(0), w_floats, cot0, cot1, stream,
+            gw_flat.data_ptr(), total, gx.data_ptr(), b, l_out, k, geo.tb,
+            x.stride(0), geo.ti, geo.tf, geo.t_cells, geo.c0, geo.c1,
+            scratch_ptr, ctypes.cast(dw_arr, ctypes.c_void_p), stream,
         )
     build.check(lib, err, "grouped_bwd")
     gws = [gw_flat[o: o + n].view(w.shape) for o, n, w in zip(offs, sizes, ws)]
@@ -317,11 +439,8 @@ def grouped_log_einsum_exp_bwd_cuda(ws: Sequence[torch.Tensor],
 # gather runs (Poon-Domingos): K5 forward, K6 backward
 # ---------------------------------------------------------------------------
 GATHER_MAX_DEPTHS = 16  # kGatherMaxDepths in gather_common.cuh
-# row tiles are picked for about one block an SM (the H100 has 132); the
-# backward's every tile writes a partial gradient of all the run's weights,
-# kept under GATHER_PART_LIMIT_BYTES
+# K5's row tiles are picked for about one block an SM (the H100 has 132)
 GATHER_TARGET_BLOCKS = 128
-GATHER_PART_LIMIT_BYTES = 256 * 2 ** 20
 _HEADER_INTS = 4  # D, r_in, R, Rc
 _DEPTH_INTS = 8  # L, M, C, base, left, right, child, vi
 
@@ -339,16 +458,13 @@ _GATHER_SIGNATURES = {
 _GATHER_BWD_SIGNATURES = {
     "gather_bwd": [
         ctypes.c_void_p, ctypes.c_void_p,  # ws vs
-        ctypes.c_void_p, ctypes.c_void_p,  # their offsets in a partial
+        ctypes.c_void_p, ctypes.c_void_p,  # their offsets in gwv
         ctypes.c_int, ctypes.c_int,  # D n_mix
-        ctypes.c_void_p, ctypes.c_int,  # packed tables, their ints
-        ctypes.c_void_p, ctypes.c_void_p,  # x, g_out
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # parts, gwv, n
-        ctypes.c_void_p,  # gx
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B K tile
-        ctypes.c_longlong,  # x batch stride
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # w floats, R, Rc
-        ctypes.c_int, ctypes.c_int,  # max cells a depth, max M C a depth
+        ctypes.c_void_p, ctypes.c_void_p,  # packed tables: device, host
+        ctypes.c_void_p, ctypes.c_longlong,  # x, its batch stride
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # g_out gwv gx
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # B K, depths' geometry
+        *[ctypes.c_void_p] * 9,  # X cot lr buf ginv glr acc ge part
         ctypes.c_void_p,  # stream
     ],
 }
@@ -464,20 +580,13 @@ def _gather_sizes(tables) -> Tuple[int, int, int, int, int]:
     return int(tab[2]), int(tab[3]), l_max, mc_max, len(tab)
 
 
-def gather_row_stride(k: int) -> int:
-    """Shared-memory floats of one staged weight row (one output of a cell)
-    in K5/K6: K^2 made odd, so a warp's rows fall in different banks
-    (``gather_row_stride`` in ``gather_common.cuh``)."""
-    return (k * k) | 1
-
-
 def _balanced_weight_floats(k: int, cells: int, left: int) -> int:
     """Floats of shared memory for staging the weights of a depth of
     ``cells`` (K, K, K) cells when ``left`` floats are free: the whole
     depth when it fits, else equal chunks of whole cells, else equal K_out
     tiles of one cell (``lee_chunks`` cuts them from this size), each
-    weight row ``gather_row_stride(k)`` floats."""
-    kk = gather_row_stride(k)
+    weight row ``row_stride(k)`` floats."""
+    kk = lee.row_stride(k)
     cell = k * kk
     if cells * cell <= left:
         return cells * cell
@@ -492,53 +601,57 @@ def _balanced_weight_floats(k: int, cells: int, left: int) -> int:
     return -(-k // n) * kk
 
 
-def gather_smem_layout(tables, k: int, tile_b: int,
-                       backward: bool = False) -> Tuple[int, int]:
-    """(w_floats, total bytes) of one K5 block's shared memory, or with
-    ``backward`` one K6 block's (the layouts in ``gather_fwd.cu`` and
-    ``gather_bwd.cu``): the weight staging area, the tile's row buffer in
+def gather_smem_layout(tables, k: int, tile_b: int) -> Tuple[int, int]:
+    """(w_floats, total bytes) of one K5 block's shared memory (the layout
+    in ``gather_fwd.cu``): the weight staging area, the tile's row buffer in
     the log domain (R rows of K a batch row), the stabilised copies and
-    maxes of the rows that may be children (Rc), and the packed tables.
-    The backward adds a cotangent buffer of R rows, two per-depth input
-    cotangent areas (max cells rows each) and the mixing terms (max M C
-    rows)."""
-    r_all, r_child, l_max, mc_max, n_tab = _gather_sizes(tables)
-    rows = r_all * k + r_child * (k + 1)
-    if backward:
-        rows += r_all * k + 2 * l_max * k + mc_max * k
-    fixed = tile_b * rows + n_tab
+    maxes of the rows that may be children (Rc), and the packed tables."""
+    r_all, r_child, l_max, _, n_tab = _gather_sizes(tables)
+    fixed = tile_b * (r_all * k + r_child * (k + 1)) + n_tab
     w_floats = _balanced_weight_floats(k, l_max, SMEM_LIMIT_BYTES // 4 - fixed)
     return w_floats, 4 * (w_floats + fixed)
 
 
-def pick_gather_tile_b(tables, k: int, b: int, backward: bool = False) -> int:
-    """The row tile of a gather launch (of K5, or with ``backward`` of K6):
-    the largest tile that fits in shared memory and still gives
-    ``GATHER_TARGET_BLOCKS`` blocks for a batch of ``b``, else the smallest
-    that fits; the backward then grows the tile, as far as shared memory
-    allows, until its per-tile partial gradients stay under
-    ``GATHER_PART_LIMIT_BYTES`` (larger batches go in microbatches).  A
-    block's time hardly depends on its rows (it stages every weight and
-    runs one FMA chain an output), so one block an SM is the fastest
-    tile at einet_pd's B = 512 in both kernels.  Raises when one row's
+def pick_gather_tile_b(tables, k: int, b: int) -> int:
+    """K5's row tile: the largest tile that fits in shared memory and still
+    gives ``GATHER_TARGET_BLOCKS`` blocks for a batch of ``b``, else the
+    smallest that fits.  A block's time hardly depends on its rows (it
+    stages every weight and runs one FMA chain an output), so one block an
+    SM is the fastest tile at einet_pd's B = 512.  Raises when one row's
     buffer and one weight row do not fit."""
     fits = [tb for tb in TILE_B_CHOICES
-            if gather_smem_layout(tables, k, tb, backward)[1]
-            <= SMEM_LIMIT_BYTES]
+            if gather_smem_layout(tables, k, tb)[1] <= SMEM_LIMIT_BYTES]
     if not fits:
         raise ValueError(
             f"gather_grouped_log_einsum_exp: one row's buffer of "
             f"{tables.num_in_rows + tables.num_new_rows} rows at K={k} and "
-            f"one weight row need "
-            f"{gather_smem_layout(tables, k, 1, backward)[1]} B of shared "
-            f"memory; the card allows {SMEM_LIMIT_BYTES} B")
-    i = next((i for i, tb in enumerate(fits)
-              if -(-b // tb) >= GATHER_TARGET_BLOCKS), len(fits) - 1)
-    if backward:
-        part = 4 * sum(len(l) * k ** 3 for l in tables.left)
-        while i > 0 and -(-b // fits[i]) * part > GATHER_PART_LIMIT_BYTES:
-            i -= 1
-    return fits[i]
+            f"one weight row need {gather_smem_layout(tables, k, 1)[1]} B of "
+            f"shared memory; the card allows {SMEM_LIMIT_BYTES} B")
+    return next((tb for tb in fits if -(-b // tb) >= GATHER_TARGET_BLOCKS),
+                fits[-1])
+
+
+def gather_bwd_geometry(tables, k: int, b: int
+                        ) -> List[Tuple[int, int, int, int, int, int, int]]:
+    """K6's launches, depth by depth (``gather_bwd.cu``): the geometry of
+    K1 (tile, nsub) and of K2 (tile, nsub, JT, K_out tile, batch splits) at
+    the depth's pair (B, L_t, K, K), as the per-pair wrappers pick them."""
+    geo = []
+    for left in tables.left:
+        cells = len(left)
+        f_tile, f_nsub, _, _ = lee._geometry(b, cells, k, k)
+        b_tile, b_nsub, _, _ = lee._geometry(b, cells, k, k, backward=True)
+        geo.append((f_tile, f_nsub, b_tile, b_nsub, *lee.dw_geometry(k, k),
+                    lee.dw_splits(b, cells, k, k)))
+    return geo
+
+
+def gather_bwd_partial_bytes(tables, k: int, b: int) -> int:
+    """Bytes of K6's weight-gradient partials, summed over the depths: K2's
+    batch-split partials of each depth's weights (0 for a depth of one
+    split)."""
+    return sum(lee.dw_partial_bytes(b, len(left), k, k)
+               for left in tables.left)
 
 
 def gather_grouped_log_einsum_exp_plain(tables, ws: Sequence[torch.Tensor],
@@ -699,22 +812,35 @@ def gather_grouped_log_einsum_exp_bwd_cuda(tables,
         raise ValueError(
             f"{what}: g_out {tuple(g_out.shape)} {g_out.dtype}, expected "
             f"contiguous ({b}, {tables.num_new_rows}, {k}) float32")
-    tile_b = pick_gather_tile_b(tables, k, b, backward=True)
-    tiles = -(-b // tile_b)
-    w_floats, _ = gather_smem_layout(tables, k, tile_b, backward=True)
-    r_all, r_child, l_max, mc_max, n_tab = _gather_sizes(tables)
+    geo = gather_bwd_geometry(tables, k, b)
+    r_all, _, l_max, mc_max, _ = _gather_sizes(tables)
     sizes = [t.numel() for t in list(ws) + list(vs)]
     offs = [sum(sizes[:i]) for i in range(len(sizes))]
-    total = sum(sizes)
     dev = x.device
     tab = gather_tables_tensor(tables, dev)
-    flat = torch.empty(total, dtype=torch.float32, device=dev)
-    part = flat if tiles == 1 else torch.empty(
-        (tiles, total), dtype=torch.float32, device=dev)
+    tab_h = pack_gather_tables(tables)
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     gx = torch.empty((b, x.shape[1], k), dtype=torch.float32, device=dev)
+    # one scratch tensor, cut as gather_bwd.cu lists it
+    k_tiles = max(-(-k // lee.launch_geometry(b, len(left), k, k, True)[3])
+                  for left in tables.left)
+    n_row = b * l_max * k
+    parts = [b * r_all * k, b * r_all * k,
+             sum(2 * b * len(left) * k for left in tables.left),
+             n_row, n_row, 2 * n_row,
+             0 if k_tiles == 1 else 2 * k_tiles * n_row,
+             b * mc_max * k,
+             max(sp * len(left) * k ** 3 if sp > 1 else 0
+                 for left, (*_, sp) in zip(tables.left, geo))]
+    scratch = torch.empty(sum(parts), dtype=torch.float32, device=dev)
+    ptrs, base = [], scratch.data_ptr()
+    for n in parts:
+        ptrs.append(base)
+        base += 4 * n
     w_ptrs, v_ptrs = _pointers(ws), _pointers(vs)
     w_offs = (ctypes.c_longlong * len(ws))(*offs[:len(ws)])
     v_offs = (ctypes.c_longlong * max(1, len(vs)))(*offs[len(ws):])
+    geo_arr = (ctypes.c_int * (7 * len(geo)))(*[v for g in geo for v in g])
     lib = build.load("gather_bwd", _GATHER_BWD_SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -723,10 +849,9 @@ def gather_grouped_log_einsum_exp_bwd_cuda(tables,
             ctypes.cast(v_ptrs, ctypes.c_void_p),
             ctypes.cast(w_offs, ctypes.c_void_p),
             ctypes.cast(v_offs, ctypes.c_void_p), len(ws), len(vs),
-            tab.data_ptr(), n_tab, x.data_ptr(), g_out.data_ptr(),
-            part.data_ptr(), flat.data_ptr(), total, gx.data_ptr(), b, k,
-            tile_b, x.stride(0), w_floats, r_all, r_child, l_max, mc_max,
-            stream,
+            tab.data_ptr(), tab_h.ctypes.data, x.data_ptr(), x.stride(0),
+            g_out.data_ptr(), flat.data_ptr(), gx.data_ptr(), b, k,
+            ctypes.cast(geo_arr, ctypes.c_void_p), *ptrs, stream,
         )
     build.check(lib, err, "gather_bwd")
     views = [flat[o: o + n].view(t.shape)

@@ -302,20 +302,74 @@ def test_grouped_tile_and_shared_memory_rules():
 
 
 def test_grouped_backward_shared_memory_rules():
-    # einet_rat's [0, 4) at a 32-row tile: one depth's weights, the
-    # 16+8+4+2 stabilised rows and maxes, cotangent areas of 8 and 16 rows
-    tb = grouped.pick_tile_b(4, 10, [10, 10, 10, 1], grouped.bwd_smem_layout)
-    w_f, c0, c1, total = grouped.bwd_smem_layout(4, 10, [10, 10, 10, 1], tb)
-    assert tb == 32 and w_f == 8000
-    assert c0 == 32 * 8 * 10 and c1 == 32 * 16 * 10
-    assert total == 4 * (8000 + 32 * 30 * 11 + c0 + c1) == 104_960
-    # K = 64 fits with K_out tiles, as in the forward
-    tb = grouped.pick_tile_b(2, 64, [64, 64], grouped.bwd_smem_layout)
-    w_f, _, _, total = grouped.bwd_smem_layout(2, 64, [64, 64], tb)
-    assert total <= log_einsum_exp.SMEM_LIMIT_BYTES
-    assert grouped.depth_chunks(2, 64, 64, w_f)[0] == 1
-    with pytest.raises(ValueError, match="single row"):
-        grouped.pick_tile_b(2, 240, [240, 240], grouped.bwd_smem_layout)
+    # einet_rat's [0, 4) at B = 2048: the 10-output tile for the interior
+    # depths, the one-output tile for the root, 32-row tiles (640 blocks),
+    # chunks of four cells.  A block holds every depth's 16+8+4+2
+    # stabilised rows at lee_pad(10) = 11 and their maxes, every depth's s
+    # (8, 4, 2 cells of 11, the root's 1), the output cotangents (8 cells of
+    # 11) and input cotangents above depth 0 (4 slots of 11), and a chunk's
+    # weight rows (10 at lee_row_stride(10) = 101) and sweep a cell
+    geo = grouped.bwd_geometry(4, 10, (10, 10, 10, 1), 2048, 10)
+    assert (geo.ti, geo.tf, geo.tb, geo.t_cells) == (2, 1, 32, 4)
+    assert geo.c0 == 32 * 8 * 11 and geo.c1 == 32 * 4 * 11
+    fixed = 30 * 32 * 12 + 32 * (88 + 44 + 22 + 1) + geo.c0 + geo.c1
+    assert geo.smem_bytes == 4 * (fixed + 4 * (10 * 101 + 32 * 10 * 11))
+    # per-tile partials: 64 tiles of the run's 141,000 weights
+    assert not geo.split
+    assert grouped.bwd_partial_bytes(4, 10, (10, 10, 10, 1), 2048, 10) == (
+        64 * 4 * 141_000)
+    # K = 64 (einet_rat_large's [0, 2)): 16-row tiles, one chunk cell of 8
+    # weight rows, depth 0's input cotangent summed over its 8 K_out tiles
+    # in shared memory; a partial would be 1.6 GB, so dW goes by K2's
+    # batch-split kernel, which needs no partial at B = 64
+    geo = grouped.bwd_geometry(2, 64, (64, 64), 64, 512)
+    assert (geo.ti, geo.tf, geo.tb, geo.t_cells, geo.split) == (
+        0, 0, 16, 1, True)
+    assert (geo.c0, geo.c1) == (16 * 130, 16 * 260)
+    assert geo.smem_bytes == 4 * (6 * 16 * 66 + 16 * 195 + geo.c0 + geo.c1
+                                  + 8 * 4097 + 16 * 8 * 65)
+    assert geo.smem_bytes <= log_einsum_exp.SMEM_LIMIT_BYTES
+    assert grouped.bwd_partial_bytes(2, 64, (64, 64), 64, 512) == 0
+    assert grouped.bwd_dw_geometry(2, 64, (64, 64), 64, 512) == [
+        (16, 4, 1), (16, 4, 1)]
+    with pytest.raises(ValueError, match="does not fit"):
+        grouped.bwd_geometry(2, 240, (240, 240), 64, 2)
+
+
+def _fused_runs(name):
+    """(G, K, K_outs, L_out) of every fused run of an arch's plan."""
+    model = build_einet(get_config(name), device="meta")
+    runs = []
+    for seg in model.exec_plan:
+        if seg.kind == "fused":
+            ws = model.einsum[seg.start: seg.stop]
+            runs.append((len(ws), ws[0].shape[-1],
+                         tuple(int(w.shape[1]) for w in ws), ws[-1].shape[0]))
+    return runs
+
+
+@pytest.mark.parametrize("name", ("einet_rat", "einet_rat_large"))
+def test_grouped_backward_blocks_fit_at_every_fused_run(name):
+    runs = _fused_runs(name)
+    assert len(runs) == {"einet_rat": 1, "einet_rat_large": 3}[name]
+    for g, k, k_outs, l_out in runs:
+        tiles = set()
+        for b in (1, 37, 64, get_config(name).batch_size):
+            geo = grouped.bwd_geometry(g, k, k_outs, b, l_out)
+            assert geo.smem_bytes <= log_einsum_exp.SMEM_LIMIT_BYTES
+            rows = [log_einsum_exp.tile_shape(
+                log_einsum_exp.BWD_TILES[t])[0] for t in (geo.ti, geo.tf)]
+            assert all(geo.tb % r == 0 for r in rows)
+            assert 1 <= geo.t_cells <= 2 ** (g - 1)
+            assert -(-b // geo.tb) <= log_einsum_exp.MAX_GRID_Y
+            # per-tile partials only where they are small
+            if not geo.split:
+                assert grouped.bwd_partial_bytes(g, k, k_outs, b, l_out) <= (
+                    grouped.GROUPED_PART_LIMIT_BYTES)
+            tiles.add((geo.ti, geo.tf))
+        # the register tiles, and so a row's order of operations, do not
+        # depend on the batch
+        assert len(tiles) == 1
 
 
 @pytest.mark.parametrize("cells,k_out,k,w_floats,want", [
@@ -710,25 +764,103 @@ def test_gather_geometry_rejects_bad_shapes():
 def test_gather_tile_and_shared_memory_rules():
     tables = build_einet(get_config("einet_pd"), device="meta").exec_plan[0].tables
     limit = log_einsum_exp.SMEM_LIMIT_BYTES
-    # einet_pd at B = 512: 4-row tiles (128 blocks) in both kernels; the
-    # backward's 128 partials of the 1.79 MB of weights are 229 MB
+    # K5 at einet_pd's B = 512: 4-row tiles, 128 blocks
     assert grouped.pick_gather_tile_b(tables, 40, 512) == 4
-    assert grouped.pick_gather_tile_b(tables, 40, 512, backward=True) == 4
-    for tb, bwd in ((4, False), (4, True)):
-        w_f, total = grouped.gather_smem_layout(tables, 40, tb, bwd)
-        assert total <= limit
-        # a K = 40 cell (256 KB) goes in two K_out tiles of 20 rows, each
-        # row padded to an odd stride against bank conflicts
-        assert grouped.gather_row_stride(40) == 1601
-        assert w_f == 20 * 1601
-    assert grouped.gather_smem_layout(tables, 40, 4)[1] == 4 * (
-        20 * 1601 + 4 * (13 * 40 + 7 * 41) + 42)
+    w_f, total = grouped.gather_smem_layout(tables, 40, 4)
+    assert total <= limit
+    # a K = 40 cell (256 KB) goes in two K_out tiles of 20 rows, each row
+    # padded to an odd stride against bank conflicts
+    assert log_einsum_exp.row_stride(40) == 1601 and w_f == 20 * 1601
+    assert total == 4 * (20 * 1601 + 4 * (13 * 40 + 7 * 41) + 42)
     # small batches take the smallest tile; a tiny K stages a whole depth
     assert grouped.pick_gather_tile_b(tables, 40, 37) == 1
     w_f, _ = grouped.gather_smem_layout(tables, 4, 32)
     assert w_f == 4 * 4 * 17
-    # at B = 2048 the backward grows its tile until the partials fit
-    tb = grouped.pick_gather_tile_b(tables, 40, 2048, backward=True)
-    assert tb == 16 and 128 * 4 * 7 * 40 ** 3 <= grouped.GATHER_PART_LIMIT_BYTES
     with pytest.raises(ValueError, match="shared"):
         grouped.pick_gather_tile_b(tables, 240, 512)
+    # K6 launches K1 and K2 at each depth's pair (B, L_t, K, K), with the
+    # per-pair wrappers' geometry: at B = 512 both depths' dW in 16 batch
+    # splits, 28.7 MB of partials in all, an eighth of the 229 MB that one
+    # partial of all the weights a 4-row tile would write
+    geo = grouped.gather_bwd_geometry(tables, 40, 512)
+    for (f_tile, f_nsub, b_tile, b_nsub, jt, ktw, splits), cells in zip(
+            geo, (3, 4)):
+        assert (f_tile, f_nsub) == log_einsum_exp.launch_geometry(
+            512, cells, 40, 40)[:2]
+        assert (b_tile, b_nsub) == log_einsum_exp.launch_geometry(
+            512, cells, 40, 40, backward=True)[:2]
+        assert (jt, ktw) == log_einsum_exp.dw_geometry(40, 40)
+        assert splits == 16
+    part = grouped.gather_bwd_partial_bytes(tables, 40, 512)
+    assert part == 4 * 16 * 7 * 40 ** 3 == 28_672_000
+    assert part * 8 <= 128 * 4 * 7 * 40 ** 3
+
+
+@pytest.mark.parametrize("name", ("einet_pd", "einet_pd_mnist", "einet_celeba"))
+def test_gather_backward_blocks_fit_at_every_pd_arch(name):
+    cfg = get_config(name)
+    model = build_einet(cfg, device="meta")
+    tables = model.exec_plan[0].tables
+    k = model.K
+    lee = log_einsum_exp
+    for b in (1, 37, cfg.batch_size):
+        geo = grouped.gather_bwd_geometry(tables, k, b)
+        assert len(geo) == tables.num_depths
+        for (f_tile, f_nsub, b_tile, b_nsub, jt, ktw, splits), left in zip(
+                geo, tables.left):
+            for tile, nsub, tiles, size in (
+                    (f_tile, f_nsub, lee.FWD_TILES, lee.smem_bytes),
+                    (b_tile, b_nsub, lee.BWD_TILES, lee.bwd_smem_bytes)):
+                rows, kt = lee.tile_shape(tiles[tile])
+                assert size(k, kt, nsub * rows) <= lee.SMEM_LIMIT_BYTES
+                assert -(-b // (nsub * rows)) <= lee.MAX_GRID_Y
+            assert 4 * (2 * lee.DW_CHUNK * lee.pad(k)
+                        + lee.DW_CHUNK * ktw) <= lee.SMEM_LIMIT_BYTES
+            assert splits == lee.dw_splits(b, len(left), k, k)
+        # no partials at one split; never more than the per-pair kernels'
+        assert grouped.gather_bwd_partial_bytes(tables, k, b) == sum(
+            lee.dw_partial_bytes(b, len(l), k, k) for l in tables.left)
+
+
+def _banks(words):
+    """Whether 32 lanes' shared-memory words (one load) are free of bank
+    conflicts: lanes reading one word share it; distinct words need
+    distinct banks."""
+    distinct = set(words)
+    return len({w % 32 for w in distinct}) == len(distinct)
+
+
+@pytest.mark.parametrize("k", [10, 40, 64])
+def test_backward_sweep_and_dw_reads_hit_distinct_banks(k):
+    """A warp's loads in K4's and K6's contractions, by the kernels'
+    address arithmetic: the sweep's weight rows (lee_row_stride apart) and
+    activation rows (lee_pad apart), transposed or not, for every register
+    tile; K4's dW reads of el and er; its rows-fastest rescaling of the
+    input cotangent by the stabilised rows."""
+    lee = log_einsum_exp
+    kkp, kp = lee.row_stride(k), lee.pad(k)
+    for r_, ko, nkg in lee.BWD_TILES:
+        nrg = 32 // nkg
+        lanes = [(lane % nkg, lane // nkg) for lane in range(32)]
+        for p in (0, k - 1):
+            for q in (0, 1, k - 1):
+                for trans in (False, True):
+                    for u in range(ko):
+                        w = [kg * kkp + u * nkg * kkp
+                             + (p + q * k if trans else p * k + q)
+                             for kg, _ in lanes]
+                        assert _banks(w), (k, nkg, p, q, trans, u)
+                for v in range(r_):
+                    x = [(rg + v * nrg) * kp + q for _, rg in lanes]
+                    assert _banks(x)
+    # K4's dW: a thread's item is (k-quad, i, column group jg), jg fastest
+    njg = -(-k // 4)
+    items = [(it // njg % k, it % njg) for it in range(32)]
+    for r in (0, 5):
+        assert _banks([r * kp + i for i, _ in items])  # el
+        for c in range(4):
+            assert _banks([r * kp + jg + c * njg for _, jg in items
+                           if jg + c * njg < k])  # er
+    # gin *= e: rows fastest over a 32-row tile
+    for i in (0, k - 1):
+        assert _banks([r * kp + i for r in range(32)])
