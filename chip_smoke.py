@@ -12,7 +12,10 @@
    1e-5, atol 1e-5; -inf and NEG_INF rows exactly) at einet_rat's shapes
    (B = 2048), at odd K, at K = 40 and 64, at K_out below, between and
    above K1's 8-output tile, on one row, with saturated rows and ragged
-   batches, and times K3, its plain version and a torch.einsum chain.
+   batches; checks that K3's output equals the per-layer K1 chain's and a
+   second call's bit for bit and that a row computed alone equals that row
+   in the batch; and times K3, its plain version, a torch.einsum chain and
+   the per-layer K1 launches at the same pairs.
 3. Backward kernel phase: holds K2 (log_einsum_exp_bwd.cu) and K4
    (grouped_bwd.cu) against their plain backward versions at the same
    shapes and the K = 64 run of einet_rat_large (input gradients rtol =
@@ -28,14 +31,16 @@
    their plain versions at einet_pd's run gather[0,2) (B = 512, its leaf
    rows), at K = 32, at the reference's PD_SMOKE_SHAPES (a 5-depth run at
    odd K = 3), on ragged batches, -inf and NEG_INF rows and a masked mixing
-   child, with the tolerances above and two calls bitwise equal, and K6's
-   gx of a row alone against the same row in B = 512; times each kernel,
-   its plain version and a yardstick (K5: the per-depth torch.einsum chain
-   plus log_mix_exp; K6: autograd through the einsum chain plus
-   log_mix_exp), K6 beside the per-layer K2 launches at its pairs, and the
-   device time of each CUDA kernel inside one K6 and one K4 call
-   (torch.profiler); prints K5's row tile and K6's per-depth geometry and
-   partial bytes.
+   child, with the tolerances above and two calls bitwise equal; K5's new
+   rows against K6's recompute bit for bit, and K5's rows and K6's gx of a
+   row alone against the same row in B = 512; times each kernel, its plain
+   version and a yardstick (K5: the per-depth torch.einsum chain plus
+   log_mix_exp; K6: autograd through the einsum chain plus log_mix_exp),
+   K5 (at B = 512 and at the serve bucket B = 64) beside the per-layer K1
+   launches and log_mix_exp at its pairs, K6 beside the per-layer K2
+   launches, and the device time of each CUDA kernel inside one K6, K4, K5
+   and K3 call (torch.profiler); prints K5's and K6's per-depth geometry
+   and K6's partial bytes.
 5. Serve phase: builds einet_rat at full width on the card (seed 0), serves
    the 256-request mixed stream through ServeEngine(max_batch=64) with the
    kernel launch counters reset just before, checks every result against
@@ -59,10 +64,11 @@
    against the card per layer; training as in 7 (planned: K5 1, K6 1, K1 1,
    K2 1 a step; per layer: K1 3, K2 3).
 9. einet_rat_large: K3 and K4 against their plain versions at its K = 64
-   fused run [0, 2) (B = 64), K4 timed there as a row of its report (off
-   the main paths) beside its plain version, yardstick and K2 chain, then
+   fused run [0, 2) (B = 64), K3 also bit for bit against its K1 chain;
+   K3 and K4 timed there as rows of their reports (off the main paths)
+   beside their plain versions, yardsticks and per-layer chains, then
    joint_ll at B = 256 through its plan (3 K3 + 1 K1 launches) against its
-   per-layer forward (7 K1 launches).
+   per-layer forward (7 K1 launches), both timed.
 10. Prints the launch counts of every main path (each kernel must have run
    on them) and the shapes (B, L, K_out, K) K1 and K2 were launched at
    there (counted by wrapping the ops' kernels, whose launch counters stay
@@ -84,6 +90,12 @@ TF32 is off for all of them.
 Any failed check raises, and the script exits non-zero without the last
 line.  It also exits non-zero when no CUDA device is present.  It imports
 nothing of JAX.
+
+  python3 chip_smoke.py --compare
+
+prints only a hash of each kernel's outputs on seeded inputs and its time
+there, for holding two trees' kernels against each other, bit for bit and
+in time, in one call.
 """
 
 from __future__ import annotations
@@ -268,8 +280,8 @@ def main() -> int:
         gather_grouped_log_einsum_exp_cuda, gather_grouped_log_einsum_exp_plain,
         grouped_log_einsum_exp_bwd_cuda, grouped_log_einsum_exp_bwd_plain,
         grouped_log_einsum_exp_cuda, grouped_log_einsum_exp_plain,
-        bwd_geometry, bwd_partial_bytes, gather_bwd_geometry,
-        gather_bwd_partial_bytes, pick_gather_tile_b)
+        bwd_geometry, bwd_partial_bytes, fwd_geometry, gather_bwd_geometry,
+        gather_bwd_partial_bytes, gather_fwd_geometry)
     from repro_torch.kernels.log_einsum_exp import (
         dw_geometry, dw_partial_bytes, dw_splits, launch_geometry,
         log_einsum_exp_bwd_cuda, log_einsum_exp_bwd_plain,
@@ -357,6 +369,32 @@ def main() -> int:
             buf = torch.cat([buf, s], 1)
         return buf[:, x.shape[1]:]
 
+    def k1_chain(ws_, x):
+        """The per-layer plan's K1 launches over a canonical run."""
+        for w in ws_:
+            h = w.shape[0]
+            x = log_einsum_exp_cuda(w, x[:, :h], x[:, h: 2 * h])
+        return x
+
+    def k1_chain_ms(pairs, **kw):
+        return sum(time_ms(lambda w=w, l=l, r=r: log_einsum_exp_cuda(w, l, r),
+                           **kw) for w, l, r in pairs)
+
+    def check_k3_bits(ws_, x, got, what, alone):
+        """K3's output equals the per-layer K1 chain's and a second call's
+        bit for bit, and a row computed alone equals that row in the
+        batch."""
+        if not torch.equal(got, k1_chain(ws_, x)):
+            raise AssertionError(f"{what}: differs from the per-layer K1 "
+                                 "chain")
+        if not torch.equal(got, grouped_log_einsum_exp_cuda(ws_, x)):
+            raise AssertionError(f"{what}: two calls differ")
+        for b in alone:
+            if not torch.equal(got[b: b + 1], grouped_log_einsum_exp_cuda(
+                    ws_, x[b: b + 1])):
+                raise AssertionError(f"{what}: row {b} alone differs from the "
+                                     f"same row in a batch of {x.shape[0]}")
+
     rng = np.random.RandomState(0)
 
     def rand_w(cells, k_out, k):
@@ -382,10 +420,14 @@ def main() -> int:
             got = log_einsum_exp_cuda(w, l, r)
             k1_err = max(k1_err, assert_close(
                 got, log_einsum_exp_plain(w, l, r), f"K1 pair {i}"))
-        # K3 at einet_rat's fused run [0, 4)
+        # K3 at einet_rat's fused run [0, 4): against its plain version,
+        # and bit for bit against the per-layer K1 launches it fuses, two
+        # calls of its own, and each row computed alone
         got = grouped_log_einsum_exp_cuda(ws, leaf)
         k3_err = assert_close(
             got, grouped_log_einsum_exp_plain(ws, leaf), "K3 fused[0,4)")
+        check_k3_bits(ws, leaf, got, "K3 einet_rat fused[0,4)",
+                      (0, 1, 3, 37, 200, b_full - 1))
         frames = [frame(l, r) for _, l, r in inputs]
         n_bytes = 4 * (leaf.numel() + sum(w.numel() for w in ws)
                        + got.numel())
@@ -403,6 +445,9 @@ def main() -> int:
                     "lkij,bli,blj->blk", w, f[0], f[1]))
                 for w, f in zip(ws, frames)),
             "bytes": n_bytes, "flops": flops,
+            # the per-layer plan's K1 launches at the same pairs: what the
+            # fused kernel has to beat (not a yardstick)
+            "chain_ms": k1_chain_ms(inputs),
         }
 
         # odd K, K_out tiling (K = 40), saturated rows, ragged batches
@@ -434,9 +479,14 @@ def main() -> int:
                          f"K1 K={k} K_out={k_out} B={b}",
                          exact=((0,), (1, 0), (3, 0)) if b > 3 else ())
         torch.cuda.synchronize()
+    k3_outs = tuple(w.shape[1] for w in ws)
     print(f"forward kernels: K1 and K3 agree with their plain versions "
           f"(rtol={RTOL}, atol={ATOL}); einet_rat max|diff| K1 {k1_err:.3e}, "
-          f"K3 {k3_err:.3e} [{card}]")
+          f"K3 {k3_err:.3e}; K3 at einet_rat's fused[0,4) B={b_full} equals "
+          f"the per-layer K1 chain and a second call bit for bit, and rows "
+          f"computed alone the same rows in the batch; K3 geometry "
+          f"{fwd_geometry(len(ws), model.K, k3_outs, b_full, ws[-1].shape[0])}"
+          f" [{card}]")
 
     # ----------------------------------------------- backward kernel phase
     def check_k2(w, l, r, g, what):
@@ -661,6 +711,22 @@ def main() -> int:
         k5_err = check_k5(pd_tab, pd_ws, pd_vs, pd_leaf,
                           "K5 einet_pd gather[0,2)")
         pd_g = rand_g(b_pd, pd_tab.num_new_rows, pd.K)
+        # K5's new rows equal, bit for bit, the rows K6's recompute writes,
+        # and a row computed alone equals that row in the batch
+        k5_out = gather_grouped_log_einsum_exp_cuda(pd_tab, pd_ws, pd_vs,
+                                                    pd_leaf)
+        if not torch.equal(k5_out, gather_grouped_log_einsum_exp_bwd_cuda(
+                pd_tab, pd_ws, pd_vs, pd_leaf, pd_g, keep_rows=True)[3]):
+            raise AssertionError("K5 einet_pd gather[0,2): differs from K6's "
+                                 "recompute")
+        k5_alone = (0, 1, 3, 37, 200, b_pd - 1)
+        for b in k5_alone:
+            if not torch.equal(k5_out[b: b + 1],
+                               gather_grouped_log_einsum_exp_cuda(
+                                   pd_tab, pd_ws, pd_vs, pd_leaf[b: b + 1])):
+                raise AssertionError(f"K5 einet_pd gather[0,2): row {b} alone "
+                                     f"differs from the same row in a batch "
+                                     f"of {b_pd}")
         k6_w_errs, e = check_k6(pd_tab, pd_ws, pd_vs, pd_leaf, pd_g,
                                 "K6 einet_pd gather[0,2)")
         k6_x_errs = [e]
@@ -680,41 +746,59 @@ def main() -> int:
                                rand_g(b, tables.num_new_rows, k), f"K6 {what}")
             k6_w_errs += errs
             k6_x_errs.append(e)
-        # times at einet_pd's run; the yardstick is each depth's contraction
-        # as torch.einsum on its stabilised frame plus its mixing as
-        # log_mix_exp (one call each, summed): no single call computes K5
-        yard, chain, buf = 0.0, 0.0, pd_leaf
-        for t, w in enumerate(pd_ws):
-            lr = (buf[:, list(pd_tab.left[t])], buf[:, list(pd_tab.right[t])])
-            f = frame(*lr)
-            yard += time_ms(lambda w=w, f=f: torch.einsum(
-                "lkij,bli,blj->blk", w, f[0], f[1]))
-            # the per-layer plan's K2 launch at this depth's pair
-            chain += time_ms(lambda w=w, lr=lr, g=rand_g(
-                b_pd, w.shape[0], pd.K): log_einsum_exp_bwd_cuda(w, *lr, g))
-            sv = log_einsum_exp_plain(w, *lr)
-            if pd_tab.mix_child[t] is not None:
-                child = torch.tensor(pd_tab.mix_child[t], device=dev)
-                mask = torch.tensor(pd_tab.mix_mask[t], dtype=torch.float32,
-                                    device=dev)
-                ln = sv[:, child]
-                yard += time_ms(lambda ln=ln, mask=mask: log_mix_exp(
-                    pd_vs[0], ln, mask))
-                sv = torch.cat([sv, log_mix_exp(pd_vs[0], ln, mask)], 1)
-            buf = torch.cat([buf, sv], 1)
+        # times at einet_pd's run (B = 512 and the serve bucket B = 64);
+        # the yardstick is each depth's contraction as torch.einsum on its
+        # stabilised frame plus its mixing as log_mix_exp (one call each,
+        # summed): no single call computes K5.  The per-layer plan's
+        # launches at the same pairs (K1, and log_mix_exp) and its K2
+        # launches stand beside K5 and K6.
         n_w = sum(w.numel() for w in pd_ws) + sum(v.numel() for v in pd_vs)
-        n_new = b_pd * pd_tab.num_new_rows * pd.K
-        k5_row = {
-            "shape": f"B={b_pd} x={tuple(pd_leaf.shape)} "
-                     f"cells={[len(l) for l in pd_tab.left]} K={pd.K}",
-            "ms": time_ms(lambda: gather_grouped_log_einsum_exp_cuda(
-                pd_tab, pd_ws, pd_vs, pd_leaf)),
-            "plain_ms": time_ms(lambda: gather_grouped_log_einsum_exp_plain(
-                pd_tab, pd_ws, pd_vs, pd_leaf)),
-            "einsum_chain_ms": yard,
-            "bytes": 4 * (pd_leaf.numel() + n_w + n_new),
-            "flops": sum(2 * b_pd * len(l) * pd.K ** 3 for l in pd_tab.left),
-        }
+        k5_rows = []
+        for b_row in (b_pd, 64):
+            x_row = pd_leaf[:b_row]
+            yard, fchain, chain, buf = 0.0, 0.0, 0.0, x_row
+            for t, w in enumerate(pd_ws):
+                lr = (buf[:, list(pd_tab.left[t])],
+                      buf[:, list(pd_tab.right[t])])
+                f = frame(*lr)
+                yard += time_ms(lambda w=w, f=f: torch.einsum(
+                    "lkij,bli,blj->blk", w, f[0], f[1]))
+                fchain += k1_chain_ms([(w, *lr)])
+                if b_row == b_pd:
+                    chain += time_ms(lambda w=w, lr=lr, g=rand_g(
+                        b_pd, w.shape[0], pd.K): log_einsum_exp_bwd_cuda(
+                            w, *lr, g))
+                sv = log_einsum_exp_plain(w, *lr)
+                if pd_tab.mix_child[t] is not None:
+                    child = torch.tensor(pd_tab.mix_child[t], device=dev)
+                    mask = torch.tensor(pd_tab.mix_mask[t],
+                                        dtype=torch.float32, device=dev)
+                    ln = sv[:, child]
+                    mix_ms = time_ms(lambda ln=ln, mask=mask: log_mix_exp(
+                        pd_vs[0], ln, mask))
+                    yard += mix_ms
+                    fchain += mix_ms
+                    sv = torch.cat([sv, log_mix_exp(pd_vs[0], ln, mask)], 1)
+                buf = torch.cat([buf, sv], 1)
+            n_new = b_row * pd_tab.num_new_rows * pd.K
+            k5_rows.append({
+                "shape": f"B={b_row} x={tuple(x_row.shape)} "
+                         f"cells={[len(l) for l in pd_tab.left]} K={pd.K}",
+                "ms": time_ms(lambda x_row=x_row:
+                              gather_grouped_log_einsum_exp_cuda(
+                                  pd_tab, pd_ws, pd_vs, x_row)),
+                "plain_ms": time_ms(lambda x_row=x_row:
+                                    gather_grouped_log_einsum_exp_plain(
+                                        pd_tab, pd_ws, pd_vs, x_row)),
+                "einsum_chain_ms": yard,
+                "chain_ms": fchain,
+                "bytes": 4 * (x_row.numel() + n_w + n_new),
+                "flops": sum(2 * b_row * len(l) * pd.K ** 3
+                             for l in pd_tab.left),
+            })
+            if b_row == b_pd:
+                k6_chain = chain
+        k5_row = k5_rows[0]
         k6_row = {
             "shape": k5_row["shape"],
             "ms": time_ms(lambda: gather_grouped_log_einsum_exp_bwd_cuda(
@@ -724,10 +808,10 @@ def main() -> int:
             "library_ms": time_ms(autograd_yardstick(
                 lambda x, *wv: einsum_gather(pd_tab, wv[:2], wv[2:], x),
                 (pd_leaf, *pd_ws, *pd_vs), pd_g)),
-            "bytes": 4 * (2 * pd_leaf.numel() + n_new + 2 * n_w),
+            "bytes": 4 * (2 * pd_leaf.numel() + pd_g.numel() + 2 * n_w),
             "flops": sum(b_pd * len(l) * (6 * pd.K ** 3 + 4 * pd.K ** 2)
                          for l in pd_tab.left),
-            "chain_ms": chain,
+            "chain_ms": k6_chain,
         }
         # K6's gx: a row alone against the same row in a batch of 512
         k6_alone = (0, 1, 3, 37, 200, b_pd - 1)
@@ -751,20 +835,28 @@ def main() -> int:
                     pd_tab, pd_ws, pd_vs, pd_leaf, pd_g)),
             f"K4 einet_rat fused[0,4) B={b_full}": kernel_parts(
                 lambda: grouped_log_einsum_exp_bwd_cuda(ws, leaf, g_out)),
+            f"K5 einet_pd gather[0,2) B={b_pd}": kernel_parts(
+                lambda: gather_grouped_log_einsum_exp_cuda(
+                    pd_tab, pd_ws, pd_vs, pd_leaf)),
+            f"K3 einet_rat fused[0,4) B={b_full}": kernel_parts(
+                lambda: grouped_log_einsum_exp_cuda(ws, leaf)),
         }
     for what, rows in parts.items():
         print(f"{what}, device time by kernel (torch.profiler, 10 calls): "
               + "; ".join(f"{n} x{c:g} {us:.1f} us" for n, c, us in rows)
               + f"; sum {sum(r[2] for r in rows):.1f} us a call [{card}]")
-    k5_tile = pick_gather_tile_b(pd_tab, pd.K, b_pd)
     k6_part = gather_bwd_partial_bytes(pd_tab, pd.K, b_pd)
     print(f"gather kernels: K5 and K6 agree with their plain versions and "
           f"are bitwise deterministic over two calls; K5 max |diff| "
           f"{k5_err:.3e} (rtol=atol={RTOL}); K6 input gradients max |diff| "
           f"{worst(k6_x_errs, 'abs'):.3e}, weight and mixing gradients max "
           f"|diff| {worst(k6_w_errs, 'abs'):.3e} (relative to max|gw| "
-          f"{worst(k6_w_errs, 'rel'):.3e}); einet_pd B={b_pd}: K5 row tile "
-          f"{k5_tile} ({-(-b_pd // k5_tile)} blocks); K6 depth by depth, "
+          f"{worst(k6_w_errs, 'rel'):.3e}); einet_pd B={b_pd}: K5 depth by "
+          f"depth, K1 (tile, subtiles) per depth "
+          f"{gather_fwd_geometry(pd_tab, pd.K, b_pd)} (B=64: "
+          f"{gather_fwd_geometry(pd_tab, pd.K, 64)}), its new rows equal "
+          f"K6's recompute bit for bit and rows {k5_alone} computed alone "
+          f"the same rows in the batch; K6 depth by depth, "
           f"K1 (tile, subtiles) and K2 (tile, subtiles, JT, K_out tile, "
           f"batch splits) per depth "
           f"{gather_bwd_geometry(pd_tab, pd.K, b_pd)}, dW partials "
@@ -1196,11 +1288,15 @@ def main() -> int:
         big_k3_err = assert_close(
             got, grouped_log_einsum_exp_plain(big_ws, big_leaf),
             "K3 einet_rat_large fused[0,2)")
+        check_k3_bits(big_ws, big_leaf, got, "K3 einet_rat_large fused[0,2)",
+                      (0, big_leaf.shape[0] - 1))
         big_g = rand_g(*got.shape)
         errs = check_k4(big_ws, big_leaf, big_g, "K4 einet_rat_large fused[0,2)")
         big_k4_w, big_k4_x = errs[:-1], errs[-1]
         big_k3_ms = time_ms(lambda: grouped_log_einsum_exp_cuda(
             big_ws, big_leaf), iters=5, warmup=1)
+        big_k3_geo = fwd_geometry(2, big.K, (big.K, big.K), big_leaf.shape[0],
+                                  big_ws[-1].shape[0])
         big_k4_ms = time_ms(lambda: grouped_log_einsum_exp_bwd_cuda(
             big_ws, big_leaf, big_g), iters=5, warmup=1)
         # the same run as a row of K4's report (no launches on the main
@@ -1211,6 +1307,23 @@ def main() -> int:
             big_in.append((w, cur[:, :h], cur[:, h: 2 * h]))
             cur = log_einsum_exp_plain(*big_in[-1])
         b_big = big_leaf.shape[0]
+        k3_big_row = {
+            "shape": f"B={b_big} x={tuple(big_leaf.shape)} G=2 "
+                     f"K_out={[w.shape[1] for w in big_ws]} (einet_rat_large)",
+            "ms": big_k3_ms,
+            "plain_ms": time_ms(lambda: grouped_log_einsum_exp_plain(
+                big_ws, big_leaf), iters=1, warmup=0),
+            "einsum_chain_ms": sum(time_ms(
+                lambda w=w, f=frame(l, r): torch.einsum(
+                    "lkij,bli,blj->blk", w, f[0], f[1]), iters=2, warmup=1)
+                for w, l, r in big_in),
+            "chain_ms": k1_chain_ms(big_in, iters=2, warmup=1),
+            "bytes": 4 * (big_leaf.numel() + sum(w.numel() for w in big_ws)
+                          + got.numel()),
+            "flops": sum(2 * b_big * w.shape[0] * w.shape[1] * w.shape[2] ** 2
+                         for w in big_ws),
+            "launches": 0,
+        }
         k4_big_row = {
             "shape": f"B={b_big} x={tuple(big_leaf.shape)} G=2 "
                      f"K_out={[w.shape[1] for w in big_ws]} (einet_rat_large)",
@@ -1250,6 +1363,8 @@ def main() -> int:
         ll_layer = big_pl.log_likelihood(x256)
         torch.cuda.synchronize()
         big_pl_counts = counts_of(ops)
+        big_pl_ll_ms = time_ms(lambda: big_pl.log_likelihood(x256), iters=3,
+                               warmup=1)
     del big_pl
     torch.cuda.empty_cache()
     if (big_counts["grouped_log_einsum_exp"], big_counts["log_einsum_exp"]) \
@@ -1265,11 +1380,13 @@ def main() -> int:
           f"{bwd_geometry(*big_geo)}, dW partials "
           f"{bwd_partial_bytes(*big_geo)} B [{card}]")
     print(f"einet_rat_large (K=64) fused[0,2) B=64: K3 {big_k3_ms:.3f} ms "
-          f"(max |diff| {big_k3_err:.3e}), K4 {big_k4_ms:.3f} ms (gx max "
+          f"(max |diff| {big_k3_err:.3e}; equal to the per-layer K1 chain "
+          f"and a second call bit for bit, rows alone too; geometry "
+          f"{big_k3_geo}), K4 {big_k4_ms:.3f} ms (gx max "
           f"|diff| {big_k4_x['abs']:.3e}, dW max |diff| / max|dW| "
           f"{max(e['rel'] for e in big_k4_w):.3e}); joint_ll B=256 through "
-          f"the plan (K3 3, K1 1 launches) {big_ll_ms:.3f} ms, against the "
-          f"per-layer forward (K1 7) max |diff| "
+          f"the plan (K3 3, K1 1 launches) {big_ll_ms:.3f} ms, per layer (K1 "
+          f"7) {big_pl_ll_ms:.3f} ms, max |diff| "
           f"{(ll_plan - ll_layer).abs().max().item():.3e}; model built in "
           f"{big_build_s:.1f} s [{card}]")
 
@@ -1355,15 +1472,17 @@ def main() -> int:
     with torch.no_grad():
         k1_rows = pair_rows("log_einsum_exp", backward=False)
         k2_rows = pair_rows("log_einsum_exp_bwd", backward=True)
-    for r in (k3_row, k5_row):
+    for r in [k3_row, k3_big_row] + k5_rows:
         r["library_ms"] = None
     for r in (k3_row, k4_row, k5_row, k6_row):
-        r["launches"] = None  # one row: all of the op's launches (report)
-    for r in (k3_row, k4_row, k4_big_row, k5_row, k6_row):
+        r["launches"] = None  # all of the op's launches (report)
+    k5_rows[1]["launches"] = 0  # the serve bucket's time, beside B = 512
+    for r in [k3_row, k3_big_row, k4_row, k4_big_row, k6_row] + k5_rows:
         r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"])
     kernel_json = []
 
     def report(name, source, replaces, op, rows, err, yardstick):
+        fused_of = "K2" if op.endswith("_bwd") else "K1"
         for r in rows:
             if r["launches"] is None:
                 r["launches"] = counts[op]
@@ -1371,7 +1490,7 @@ def main() -> int:
                 else r["einsum_chain_ms"]
             chain = ""
             if "chain_ms" in r:
-                chain = (f", per-layer K2 chain at the same pairs "
+                chain = (f", per-layer {fused_of} chain at the same pairs "
                          f"{r['chain_ms']:.4f} ms (fused/chain "
                          f"{r['ms'] / r['chain_ms']:.2f}x)")
             print(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -1393,7 +1512,7 @@ def main() -> int:
             "library_ms": None if None in lib else sum(lib),
             "rows": [{k: r[k] for k in (
                 "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "launches")} for r in rows],
+                "bound_by", "launches", "chain_ms") if k in r} for r in rows],
         })
 
     csrc = "src/repro_torch/kernels/csrc/"
@@ -1406,7 +1525,7 @@ def main() -> int:
            "autograd einsum yardstick")
     report("grouped_fwd", csrc + "grouped_fwd.cu",
            "src/repro/kernels/grouped.py:305", "grouped_log_einsum_exp",
-           [k3_row], k3_err, "einsum chain")
+           [k3_row, k3_big_row], max(k3_err, big_k3_err), "einsum chain")
     report("grouped_bwd", csrc + "grouped_bwd.cu",
            "src/repro/kernels/grouped.py:380", "grouped_log_einsum_exp_bwd",
            [k4_row, k4_big_row],
@@ -1414,7 +1533,7 @@ def main() -> int:
            "autograd einsum-chain yardstick")
     report("gather_fwd", csrc + "gather_fwd.cu",
            "src/repro/kernels/grouped.py:718", "gather_grouped_log_einsum_exp",
-           [k5_row], k5_err, "einsum chain + mixing")
+           k5_rows, k5_err, "einsum chain + mixing")
     report("gather_bwd", csrc + "gather_bwd.cu",
            "src/repro/kernels/grouped.py:780",
            "gather_grouped_log_einsum_exp_bwd", [k6_row],
@@ -1423,24 +1542,28 @@ def main() -> int:
     # rule 2's ranking: the worst loss factor to the yardstick, then the
     # launch-weighted time above the bound (launch ms)
     rank = []
-    for kj, rows in zip(kernel_json, (k1_rows, k2_rows, [k3_row],
-                                      [k4_row, k4_big_row], [k5_row],
+    for kj, rows in zip(kernel_json, (k1_rows, k2_rows, [k3_row, k3_big_row],
+                                      [k4_row, k4_big_row], k5_rows,
                                       [k6_row])):
         factor = max(r["ms"] / (r["library_ms"] if r["library_ms"] is not None
                                 else r["einsum_chain_ms"])
                      for r in rows if r["launches"] or len(rows) == 1)
         over = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows)
         rank.append((factor, over, kj["name"]))
-    print("ranking (worst kernel/yardstick factor, launches x (ms - bound)): "
-          + "; ".join(f"{n} {f:.2f}x, {o:.1f} launch ms"
+    print("ranking (worst kernel/yardstick factor, launches x (ms - bound); "
+          "every kernel has had one Hopper redesign): "
+          + "; ".join(f"{n} {f:.2f}x, {o:.1f} launch ms, redesigned"
                       for f, o, n in sorted(rank, reverse=True)) + f" [{card}]")
     print("In the JSON line each kernel's rows are timed at the shapes the "
           "main paths launch it at (K1 and K2: every (B, L, K_out, K) seen, "
           "on fresh inputs; K3, K4: einet_rat's fused [0,4) at "
-          f"B={b_full}, and K4 also einet_rat_large's K=64 fused [0,2) at "
+          f"B={b_full}, and both also einet_rat_large's K=64 fused [0,2) at "
           f"B=64, off the main paths; K5, K6: einet_pd's gather[0,2) at "
-          f"B={b_pd}), and its ms, plain_ms, library_ms and bound_ms are the "
-          "sums over its rows launched on the main paths; "
+          f"B={b_pd}, K5 also at the serve bucket B=64), and its ms, "
+          "plain_ms, library_ms and bound_ms are the "
+          "sums over its rows launched on the main paths; chain_ms is the "
+          "per-layer plan's launches at the same pairs (K3, K5: K1, K5 plus "
+          "log_mix_exp; K4, K6: K2); "
           "launches are summed over the main paths above.  library_ms is one "
           "torch.einsum on the stabilised frame for K1, and for K2, K4 and "
           "K6 torch.autograd.grad through a forward whose contraction is one "
@@ -1469,5 +1592,76 @@ def main() -> int:
     return 0
 
 
+def compare() -> int:
+    """``--compare``: builds the kernels, runs each of K1-K6 on inputs made
+    from seed 0 at einet_rat's and einet_pd's shapes (K5 also at the serve
+    bucket B = 64), and prints a SHA-256 of each kernel's outputs and its
+    time there, so that two trees' kernels can be held against each other,
+    bit for bit and in time, in one call (a copy of this script beside the
+    other tree's src/ runs that tree's kernels)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import grouped as gr
+    from repro_torch.kernels import log_einsum_exp as lee
+    from repro_torch.launch.cells import build_einet
+
+    build.build(force=True)
+    card = smi_line()
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(0)
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.randn(*shape) * scale + shift)
+                                .astype(np.float32)).to(dev)
+
+    def sha(out):
+        h = hashlib.sha256()
+        for t in out if isinstance(out, (list, tuple)) else [out]:
+            for u in t if isinstance(t, (list, tuple)) else [t]:
+                h.update(u.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    rat = build_einet(get_config("einet_rat"), device=dev, seed=0)
+    pd = build_einet(get_config("einet_pd"), device=dev, seed=0)
+    calls = {}
+    with torch.no_grad():
+        ws = [rat.einsum[t].detach() for t in range(4)]
+        x = rand(2048, ws[0].shape[0] * 2, rat.K, scale=4, shift=-20)
+        h = ws[0].shape[0]
+        g1 = rand(2048, h, rat.K)
+        g4 = rand(2048, ws[-1].shape[0], ws[-1].shape[1])
+        calls["K1 einet_rat pair 0 B=2048"] = lambda: lee.log_einsum_exp_cuda(
+            ws[0], x[:, :h], x[:, h:])
+        calls["K2 einet_rat pair 0 B=2048"] = lambda: \
+            lee.log_einsum_exp_bwd_cuda(ws[0], x[:, :h], x[:, h:], g1)
+        calls["K3 einet_rat fused[0,4) B=2048"] = lambda: \
+            gr.grouped_log_einsum_exp_cuda(ws, x)
+        calls["K4 einet_rat fused[0,4) B=2048"] = lambda: \
+            gr.grouped_log_einsum_exp_bwd_cuda(ws, x, g4)
+        tab = pd.exec_plan[0].tables
+        pws = [pd.einsum[t].detach() for t in range(2)]
+        pvs = [pd.mixing[1].detach()]
+        px = rand(512, tab.num_in_rows, pd.K, scale=4, shift=-20)
+        pg = rand(512, tab.num_new_rows, pd.K)
+        for b in (512, 64):
+            calls[f"K5 einet_pd gather[0,2) B={b}"] = lambda b=b: \
+                gr.gather_grouped_log_einsum_exp_cuda(tab, pws, pvs, px[:b])
+        calls["K6 einet_pd gather[0,2) B=512"] = lambda: \
+            gr.gather_grouped_log_einsum_exp_bwd_cuda(tab, pws, pvs, px, pg)
+        for name, fn in calls.items():
+            print(f"compare {name}: outputs {sha(fn())}, "
+                  f"{time_ms(fn, iters=50):.4f} ms [{card}]")
+    print(card)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(compare() if sys.argv[1:] == ["--compare"] else main())

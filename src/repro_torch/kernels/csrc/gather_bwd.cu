@@ -16,7 +16,7 @@
 //     child rows from the row buffer X (the tables' left/right rows), run
 //     K1 on them (register-tiled lee_sweep, lee_cell_sum's order: K5's rows
 //     bit for bit), and write the depth's rows and, where it mixes, its
-//     mixing rows (gather_mix_frame, K5's own code) into X.  The gathered
+//     mixing rows (gather_mix_frame, as K5 mixes) into X.  The gathered
 //     child rows are kept for step 2.
 //  2. A cotangent buffer like X starts at 0 for the input rows and at g_out
 //     for the new rows.  The depths in reverse, in the plain version's
@@ -61,16 +61,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
-inline unsigned grid_for(long long n) {
-  long long blocks = (n + kThreads - 1) / kThreads;
-  return (unsigned)(blocks > 4096 ? 4096 : blocks);
-}
-
-#define GATHER_LOOP(n)                                                      \
-  for (long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;     \
-       o < (n); o += (long long)gridDim.x * blockDim.x)
+constexpr int kThreads = kGatherThreads;
 
 // X[b, row < r_in] = x[b, row]; cot[b, row] = 0 for an input row, else
 // g_out[b, row - r_in].
@@ -109,7 +100,7 @@ __global__ void __launch_bounds__(kThreads) gather_children_kernel(
 }
 
 // Depth t's einsum rows from K1's out (B, L, K) into X, then its mixing
-// rows, a thread a (b, k) (K5's mixing, gather_mix_frame).
+// rows, a thread a (b, k) (gather_mix_frame, as K5 mixes).
 __global__ void __launch_bounds__(kThreads) scatter_mix_kernel(
     const float* __restrict__ out, float* __restrict__ X,
     const int* __restrict__ tab, int t, const float* __restrict__ v, int B,
@@ -272,7 +263,7 @@ extern "C" int gather_bwd(const float* const* ws, const float* const* vs,
   const int r_in = tab_h[1];
   const int R = tab_h[2];
   const long long rows = (long long)B * R * K;
-  init_kernel<<<grid_for(rows), kThreads, 0, s>>>(x, x_sb, g_out, X, cot, B,
+  init_kernel<<<gather_grid(rows), kThreads, 0, s>>>(x, x_sb, g_out, X, cot, B,
                                                    r_in, R, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -286,14 +277,14 @@ extern "C" int gather_bwd(const float* const* ws, const float* const* vs,
     lr_off[t] = off;
     off += 2 * n;
     const int* gt = geo + 7 * t;
-    gather_children_kernel<<<grid_for(2 * n), kThreads, 0, s>>>(
+    gather_children_kernel<<<gather_grid(2 * n), kThreads, 0, s>>>(
         X, tab, t, lg, lg + n, B, R, K);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     err = lee_fwd_run(ws[t], lg, lg + n, buf, B, d.L, K, K, gt[0], gt[1],
                       (long long)d.L * K, K, (long long)d.L * K, K, s);
     if (err != cudaSuccess) return (int)err;
-    scatter_mix_kernel<<<grid_for((long long)B * K), kThreads, 0, s>>>(
+    scatter_mix_kernel<<<gather_grid((long long)B * K), kThreads, 0, s>>>(
         buf, X, tab, t, d.M > 0 ? vs[d.vi] : nullptr, B, R, K);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -304,7 +295,7 @@ extern "C" int gather_bwd(const float* const* ws, const float* const* vs,
     const long long n = (long long)B * d.L * K;
     const int* gt = geo + 7 * t;
     if (d.M > 0) {
-      mix_bwd_kernel<<<grid_for((long long)B * K), kThreads, 0, s>>>(
+      mix_bwd_kernel<<<gather_grid((long long)B * K), kThreads, 0, s>>>(
           X, cot, ge, tab, t, vs[d.vi], B, R, K);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
@@ -313,7 +304,7 @@ extern "C" int gather_bwd(const float* const* ws, const float* const* vs,
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
-    gather_cot_kernel<<<grid_for(n), kThreads, 0, s>>>(cot, tab, t, buf, B,
+    gather_cot_kernel<<<gather_grid(n), kThreads, 0, s>>>(cot, tab, t, buf, B,
                                                         R, K);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -324,13 +315,13 @@ extern "C" int gather_bwd(const float* const* ws, const float* const* vs,
                       gt[2], gt[3], gt[4], gt[5], gt[6], (long long)d.L * K, K,
                       (long long)d.L * K, K, s);
     if (err != cudaSuccess) return (int)err;
-    accumulate_kernel<<<grid_for((long long)B * K), kThreads, 0, s>>>(
+    accumulate_kernel<<<gather_grid((long long)B * K), kThreads, 0, s>>>(
         cot, glr, glr + n, tab, t, B, R, K);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   // 3. the input rows' cotangent
-  gx_kernel<<<grid_for((long long)B * r_in * K), kThreads, 0, s>>>(
+  gx_kernel<<<gather_grid((long long)B * r_in * K), kThreads, 0, s>>>(
       cot, gx, B, r_in, R, K);
   return (int)cudaGetLastError();
 }

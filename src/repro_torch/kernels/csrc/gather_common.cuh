@@ -1,6 +1,6 @@
-// The forward walk of a gather run, shared by gather_fwd.cu (K5) and its
-// residual recompute in gather_bwd.cu (K6), so the backward recomputes
-// exactly the rows and frames the forward computed.
+// The tables and the mixing of a gather run, shared by gather_fwd.cu (K5)
+// and gather_bwd.cu (K6), so the backward recomputes exactly the rows and
+// frames the forward computed.
 //
 // A gather run (a Poon-Domingos interior, repro_torch/core/plan.py
 // GatherTables) is a list of depths; depth t reads its L_t left and right
@@ -12,8 +12,9 @@
 // The Pallas kernel bakes the tables into its trace as constants.  These
 // kernels are built once from the sources, for every run of every model,
 // so the tables cannot be constexpr-unrolled: the wrapper packs them into
-// one int32 tensor per (tables, device), and a block copies it into shared
-// memory before the walk.  Layout (kernels/grouped.py pack_gather_tables):
+// one int32 tensor per (tables, device), which the kernels read, and the
+// host walks the same array to launch them.  Layout (kernels/grouped.py
+// pack_gather_tables):
 //   [0] D depths, [1] r_in, [2] R rows in all, [3] Rc rows that may be a
 //   child (every row below the last depth);
 //   then 8 ints a depth: L, M, C, base (its first row), the offsets of its
@@ -37,37 +38,11 @@ __host__ __device__ __forceinline__ GatherDepth gather_depth(const int* tab,
   return {d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7]};
 }
 
-struct GatherParams {
-  const float* w[kGatherMaxDepths];  // depth t: (L_t, K, K, K)
-  const float* v[kGatherMaxDepths];  // mixing ordinal q: (M, C, K)
-  long long w_off[kGatherMaxDepths];  // backward: offsets in one partial
-  long long v_off[kGatherMaxDepths];
-};
-
-// The shared-memory row areas of one block: the tile's row buffer in the
-// log domain (R rows of K a batch row), the stabilised copy of every row
-// that may be a child (Rc rows of K) and its clamped max.
+// A row buffer in the log domain: R rows of K floats a batch row.
 struct GatherRows {
   float* X;
-  float* E;
-  float* A;
-  int R, Rc, K;
+  int R, K;
 };
-
-// Stabilise rows [r0, r1) of every batch row: E = exp(X - m), A = m, with
-// m the NEG_INF-clamped row max (lee_stabilize).
-__device__ __forceinline__ void gather_stabilize(const GatherRows& g, int nb,
-                                                 int r0, int r1) {
-  const int n = r1 - r0;
-  for (int t = threadIdx.x; t < nb * n; t += blockDim.x) {
-    const int r = t / n;
-    const int row = r0 + t - r * n;
-    const float* xr = g.X + ((long long)r * g.R + row) * g.K;
-    float* er = g.E + ((long long)r * g.Rc + row) * g.K;
-    for (int i = 0; i < g.K; ++i) er[i] = xr[i];
-    g.A[r * g.Rc + row] = lee_stabilize(er, g.K);
-  }
-}
 
 // Child c of mixing slot (mi, k) in the log domain, NEG_INF where masked
 // (the plain version's where(mask > 0, ln, NEG_INF)).
@@ -105,82 +80,14 @@ __device__ __forceinline__ float gather_mix_frame(const GatherRows& g,
   return a;
 }
 
-// lee_cell_sum's arithmetic in its order (the same bits as every other
-// kernel's cell), with the inner loop unrolled so that a thread keeps
-// several shared-memory loads in flight ahead of its FMA chain.
-__device__ __forceinline__ float gather_cell_sum(const float* w,
-                                                 const float* el,
-                                                 const float* er, int K) {
-  float s = 0.f;
-  for (int i = 0; i < K; ++i) {
-    const float* wi = w + i * K;
-    float t = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < K; ++j) t = fmaf(wi[j], er[j], t);
-    s = fmaf(el[i], t, s);
-  }
-  return s;
+constexpr int kGatherThreads = 256;
+
+// Blocks of kGatherThreads for a grid-stride loop over n items.
+inline unsigned gather_grid(long long n) {
+  long long blocks = (n + kGatherThreads - 1) / kGatherThreads;
+  return (unsigned)(blocks > 4096 ? 4096 : blocks);
 }
 
-// The forward walk for the block's nb rows, whose input rows [0, r_in) are
-// in X on entry.  Per depth: the weights go through wbuf in chunks
-// (lee_chunks: whole cells, or one cell's K_out tile: a K = 40 cell is
-// 256 KB), every (row, cell, k) output is gather_cell_sum on the stabilised
-// children, then the masked mixing, then (below the last depth) the new
-// rows are stabilised.  Returns with every row of X written and synced.
-__device__ inline void gather_forward_sweep(const int* tab,
-                                            const GatherParams& p,
-                                            const GatherRows& g, int nb,
-                                            float* wbuf, int w_floats) {
-  const int K = g.K;
-  const int KKp = lee_row_stride(K);
-  const int D = tab[0];
-  __syncthreads();
-  gather_stabilize(g, nb, 0, tab[1]);
-  for (int t = 0; t < D; ++t) {
-    const GatherDepth d = gather_depth(tab, t);
-    const int* left = tab + d.left;
-    const int* right = tab + d.right;
-    const LeeChunks ch = lee_chunks(d.L, K, KKp, w_floats);
-    for (int m0 = 0; m0 < d.L; m0 += ch.cells) {
-      const int mn = min(ch.cells, d.L - m0);
-      for (int k0 = 0; k0 < K; k0 += ch.kt) {
-        const int kn = min(ch.kt, K - k0);
-        // the previous chunk's outputs and the stabilised rows are written
-        __syncthreads();
-        lee_stage_weights(wbuf, p.w[t], (long long)K * K * K, m0, mn, k0,
-                          kn, K);
-        __syncthreads();
-        for (int o = threadIdx.x; o < nb * mn * kn; o += blockDim.x) {
-          const int r = o / (mn * kn);
-          const int rem = o - r * mn * kn;
-          const int m = rem / kn;
-          const int k = rem - m * kn;
-          const int l = left[m0 + m];
-          const int rr = right[m0 + m];
-          const float s = gather_cell_sum(
-              wbuf + (m * kn + k) * KKp, g.E + ((long long)r * g.Rc + l) * K,
-              g.E + ((long long)r * g.Rc + rr) * K, K);
-          g.X[((long long)r * g.R + d.base + m0 + m) * K + k0 + k] =
-              (g.A[r * g.Rc + l] + g.A[r * g.Rc + rr]) + logf(s);
-        }
-      }
-    }
-    __syncthreads();
-    if (d.M > 0) {
-      const float* v = p.v[d.vi];
-      for (int o = threadIdx.x; o < nb * d.M * K; o += blockDim.x) {
-        const int r = o / (d.M * K);
-        const int rem = o - r * d.M * K;
-        const int mi = rem / K;
-        const int k = rem - mi * K;
-        float s;
-        const float a = gather_mix_frame(g, tab, d, v, r, mi, k, &s);
-        g.X[((long long)r * g.R + d.base + d.L + mi) * K + k] = a + logf(s);
-      }
-      __syncthreads();
-    }
-    if (t < D - 1) gather_stabilize(g, nb, d.base, d.base + d.L + d.M);
-  }
-  __syncthreads();
-}
+#define GATHER_LOOP(n)                                                      \
+  for (long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;     \
+       o < (n); o += (long long)gridDim.x * blockDim.x)

@@ -4,7 +4,7 @@
 //
 // Replaces the TPU kernel repro/kernels/grouped.py
 // grouped_log_einsum_exp_bwd_pallas (_make_bwd_kernel, _depth_bwd).  The
-// subtree geometry is grouped_fwd.cu's: output cell c of the run owns the
+// subtree geometry is grouped_common.cuh's: output cell c of the run owns the
 // depth-g cells {c + m L_out : m < 2^(G-1-g)}, and at each depth cell
 // c + m L_out has left child row c + m L_out and right child row
 // c + (m + 2^(G-1-g)) L_out of the layer below.  So a block that owns one
@@ -13,10 +13,11 @@
 // fusion buys over the per-layer chain of K2 launches.
 //
 // One block per (output cell c, tile of tb rows):
-//  1. Residual recompute.  Load the tile's 2^G input rows, stabilise them
-//     (lee_stabilize), and walk the depths forward: per chunk of cells and
-//     K_out tile, stage the weight rows at the odd stride lee_row_stride
-//     (lee_stage_weights), run the register-tiled sweep t[r, k, i] =
+//  1. Residual recompute.  Load the tile's 2^G input rows and stabilise
+//     them (grouped_load_stabilized, as K3 does), and walk the depths
+//     forward: per chunk of cells and K_out tile, stage the weight rows at
+//     the odd stride lee_row_stride (grouped_stage, as K3 does), run the
+//     register-tiled sweep t[r, k, i] =
 //     sum_j W[k, i, j] er[r, j] over the chunk's cells (lee_sweep_cells)
 //     and sum s = sum_i el_i t_i in lee_cell_sum's order, so the rows are
 //     K3's bit for bit.  Every depth's stabilised rows, their maxes and its
@@ -66,12 +67,13 @@
 // cp.async/TMA staging overlapped with the sweeps, a persistent loop over
 // row tiles that stages each weight chunk once for all of them.
 
+#include "grouped_common.cuh"
 #include "lee_dw.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxDepths = 8;
+constexpr int kMaxDepths = kGroupedMaxDepths;
 constexpr int kJT = 4;  // dW columns a thread (tile mode)
 
 struct GroupBwdArgs {
@@ -112,16 +114,12 @@ __device__ __forceinline__ float* s_of(const Blk& b, const GroupBwdArgs& a,
 }
 
 // Stage cells [m0, m0 + mn), outputs [k0, k0 + kn) of depth d's weights
-// into U, KT rows a cell apart.
+// into U, KT rows a cell apart (grouped_stage, as K3 stages them).
 __device__ __forceinline__ void stage(const Blk& b, const GroupBwdArgs& a,
                                       int d, int m0, int mn, int k0, int kn,
                                       int KT) {
-  const int ko = a.k_out[d];
-  const long long kk = (long long)b.K * b.K;
-  for (int m = 0; m < mn; ++m) {
-    lee_stage_weights(b.U + m * KT * b.KKp, a.w[d] + b.c * ko * kk,
-                      (long long)b.L_out * ko * kk, m0 + m, 1, k0, kn, b.K);
-  }
+  grouped_stage(b.U, KT * b.KKp, a.w[d], b.c, b.L_out, a.k_out[d], m0, mn,
+                k0, kn, b.K);
 }
 
 // Depth d of the recompute, chunk by chunk (t_cells cells, one K_out
@@ -411,21 +409,9 @@ __global__ void __launch_bounds__(kThreads) grouped_bwd_kernel(
   b.U = b.C[1] + c1_floats;
   const int M0 = 1 << G;
 
-  // the tile's input rows, zeros past the end of the batch
-  for (int t = threadIdx.x; t < tb * M0 * K; t += blockDim.x) {
-    const int r = t / (M0 * K);
-    const int rem = t - r * M0 * K;
-    const int m = rem / K;
-    const int i = rem - m * K;
-    b.E[(m * tb + r) * b.Kp + i] =
-        r < b.nb ? x[(long long)(b.b0 + r) * x_sb +
-                     ((long long)b.c + (long long)m * L_out) * K + i]
-                 : 0.f;
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < M0 * tb; t += blockDim.x) {
-    b.A[t] = lee_stabilize(b.E + t * b.Kp, K);
-  }
+  // the tile's input rows, zeros past the end of the batch, stabilised
+  grouped_load_stabilized(b.E, b.Kp, b.A, 1, x, x_sb, b.b0, b.nb, tb, tb,
+                          b.c, L_out, M0, K);
   // 1. the forward, recomputed: every depth's s, every interior depth's
   // rows
   for (int d = 0; d + 1 < G; ++d) fwd_depth<TI>(b, args, d);

@@ -1,9 +1,10 @@
 // Per-cell arithmetic shared by the log-einsum-exp kernels, forward
-// (log_einsum_exp_fwd.cu, grouped_fwd.cu) and backward
-// (log_einsum_exp_bwd.cu, grouped_bwd.cu).  Every kernel computes a cell the
-// same way, in the same order, so that a row's result depends on nothing but
-// that row (not on the batch size, the batch tile or the kernel), and a
-// backward kernel recomputes exactly the stabilized sum its forward logged.
+// (log_einsum_exp_fwd.cu, grouped_fwd.cu, gather_fwd.cu) and backward
+// (log_einsum_exp_bwd.cu, grouped_bwd.cu, gather_bwd.cu).  Every kernel
+// computes a cell the same way, in the same order, so that a row's result
+// depends on nothing but that row (not on the batch size, the batch tile or
+// the kernel), and a backward kernel recomputes exactly the stabilized sum
+// its forward logged.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,7 +37,9 @@ __device__ __forceinline__ float lee_stabilize(float* v, int K) {
   return m;
 }
 
-// sum_i el[i] * (sum_j w[i*K + j] * er[j]): fp32 FMAs in a fixed (i, j) order.
+// sum_i el[i] * (sum_j w[i*K + j] * er[j]): fp32 FMAs in a fixed (i, j) order,
+// the order every kernel's cell keeps (their register-tiled sweeps form the
+// same chains; this is its definition, which no kernel calls).
 __device__ __forceinline__ float lee_cell_sum(const float* w, const float* el,
                                               const float* er, int K) {
   float s = 0.f;
@@ -259,21 +262,6 @@ __device__ __forceinline__ void lee_stage_rows(float* x, const float* ln,
     const int i = t - r * K;
     x[r * Kp + i] = r < nb ? ln[(long long)(b0 + r) * sb + i] : 0.f;
   }
-}
-
-// How one depth's H weight cells, each (ko, K, K), are staged through w_cap
-// floats of shared memory: `cells` whole cells at a time when one cell fits,
-// else one cell's `kt` outputs at a time.
-struct LeeChunks {
-  int cells;
-  int kt;
-};
-
-__host__ __device__ inline LeeChunks lee_chunks(int H, int ko, int KK,
-                                                int w_cap) {
-  const int cell = ko * KK;
-  if (cell <= w_cap) return {H < w_cap / cell ? H : w_cap / cell, ko};
-  return {1, w_cap / KK};
 }
 
 namespace {

@@ -13,11 +13,12 @@ and ``gather_grouped_log_einsum_exp_bwd_pallas``.  A canonical run of G
 depths is a forest of complete binary trees over its L_out output cells;
 one CUDA block walks one cell's tree for a tile of rows in shared memory,
 so the intermediate depths never reach device memory.  A gather run has no
-such tree: a block keeps its row tile's whole row buffer in shared memory
-and walks the depths through the run's tables (``GatherTables``, packed
-once per device into an int32 tensor).  The backwards recompute the
-forward there from x (residual recompute).  The TPU kernels' lane padding
-is not carried over: the kernels take the unpadded shapes.
+such tree: its kernels walk the depths through the run's tables
+(``GatherTables``, packed once per device into an int32 tensor), depth by
+depth through the per-pair kernels, with the row buffer in device memory.
+The backwards recompute the forward from x (residual recompute).  The TPU
+kernels' lane padding is not carried over: the kernels take the unpadded
+shapes.
 
 ``grouped_log_einsum_exp_plain`` is ``repro_torch.core.layers
 .grouped_log_einsum_exp`` (the chained per-depth op), and
@@ -55,12 +56,14 @@ from repro_torch.kernels.log_einsum_exp import (
     log_einsum_exp_plain,
 )
 
-MAX_DEPTHS = 8  # kMaxDepths in grouped_fwd.cu and grouped_bwd.cu
-TILE_B_CHOICES = (32, 16, 8, 4, 2, 1)  # K3: rows per block, largest that fits
-# K4: rows a block, largest first (multiples of its register tiles' rows);
-# a block aims to leave room for a second one on its SM (228 KB an SM, 1 KB
-# of it reserved a block); K4's per-tile weight-gradient partials are kept
-# under GROUPED_PART_LIMIT_BYTES, else it takes the batch-split dW
+MAX_DEPTHS = 8  # kGroupedMaxDepths in grouped_common.cuh
+# K3: rows a block, largest first; the blocks a launch aims for; the work
+# items (chunk cell, row subtile, K_out tile) a chunk should give a block's
+# eight warps
+FWD_TB_CHOICES = (128, 64, 32, 16, 8, 4, 2, 1)
+FWD_TARGET_BLOCKS = 2 * lee.SMS
+FWD_MIN_ITEMS = 8
+FWD_ONE_TILE = 3  # K3's register tile for a last depth of one output
 # K4: rows a block, largest first (multiples of its register tiles' rows,
 # K2's BWD_TILES); the blocks a launch aims for; its per-tile
 # weight-gradient partials are kept under GROUPED_PART_LIMIT_BYTES, else it
@@ -74,9 +77,10 @@ _SIGNATURES = {
     "grouped_fwd": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # ws, k_outs, G
         ctypes.c_void_p, ctypes.c_void_p,  # x, out
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B L_out K tile
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B L_out K tb
         ctypes.c_longlong,  # x batch stride
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # w / a / b floats
+        ctypes.c_int, ctypes.c_int,  # ti, tf
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # cells, kt, u floats
         ctypes.c_void_p,  # stream
     ],
 }
@@ -99,14 +103,14 @@ _BWD_SIGNATURES = {
 __all__ = [
     "grouped_log_einsum_exp_cuda", "grouped_log_einsum_exp_plain",
     "grouped_log_einsum_exp_bwd_cuda", "grouped_log_einsum_exp_bwd_plain",
-    "group_geometry", "smem_layout", "pick_tile_b", "bwd_geometry",
+    "group_geometry", "fwd_geometry", "fwd_row_stride", "bwd_geometry",
     "bwd_dw_geometry", "bwd_partial_bytes",
     "depth_chunks",
     "gather_grouped_log_einsum_exp_cuda", "gather_grouped_log_einsum_exp_plain",
     "gather_grouped_log_einsum_exp_bwd_cuda",
     "gather_grouped_log_einsum_exp_bwd_plain", "gather_geometry",
-    "pack_gather_tables", "gather_tables_tensor", "gather_smem_layout",
-    "pick_gather_tile_b", "gather_bwd_geometry", "gather_bwd_partial_bytes",
+    "pack_gather_tables", "gather_tables_tensor", "gather_fwd_geometry",
+    "gather_fwd_plan", "gather_bwd_geometry", "gather_bwd_partial_bytes",
 ]
 
 
@@ -144,57 +148,107 @@ def group_geometry(ws: Sequence[torch.Tensor], x: torch.Tensor
     return g, l_out, k, [int(w.shape[1]) for w in ws]
 
 
-def _weight_floats(k: int, cells: Sequence[int], k_outs: Sequence[int],
-                   row_floats: int) -> int:
-    """Shared floats for staging weights beside ``row_floats`` of rows: one
-    whole depth's cells when they fit, else what is left, but at least one
-    weight row of K^2 floats (``depth_chunks`` stages through it)."""
-    whole = max(c * ko * k * k for c, ko in zip(cells, k_outs))
-    left = SMEM_LIMIT_BYTES // 4 - row_floats
-    return max(k * k, min(whole, left))
+def fwd_row_stride(k: int) -> int:
+    """Shared floats of one row in K3's row areas (``fwd_stride`` in
+    ``grouped_fwd.cu``): odd, and at least K + 1, float K holding the row's
+    clamped max."""
+    return (k + 1) | 1
 
 
-def depth_chunks(cells: int, k_out: int, k: int,
-                 w_floats: int) -> Tuple[int, int]:
-    """How a depth's ``cells`` weight cells, each (K_out, K, K), go through
-    ``w_floats`` of shared memory (``lee_chunks`` in ``lee_common.cuh``):
-    (cells a chunk, K_out a chunk) -- whole cells when one fits, else one
-    cell's K_out tile at a time."""
-    cell = k_out * k * k
-    if cell <= w_floats:
-        return min(cells, w_floats // cell), k_out
-    return 1, w_floats // (k * k)
+def depth_chunks(cells: int, k_out: int, k: int, w_floats: int,
+                 kt_tile: int = 1) -> Tuple[int, int]:
+    """How a depth's ``cells`` weight cells, each K_out weight rows of
+    ``row_stride(k)`` floats, go through ``w_floats`` of shared memory:
+    (cells a chunk, K_out a chunk) -- as many whole cells as fit, else one
+    cell's K_out rows at a time, a multiple of the register tile's
+    ``kt_tile`` outputs where at least that many fit (0 when not one weight
+    row fits)."""
+    row = lee.row_stride(k)
+    if k_out * row <= w_floats:
+        return min(cells, w_floats // (k_out * row)), k_out
+    kt = w_floats // row
+    if kt >= kt_tile:
+        kt -= kt % kt_tile
+    return 1, kt
 
 
-def smem_layout(g: int, k: int, k_outs: Sequence[int],
-                tile_b: int) -> Tuple[int, int, int, int]:
-    """(w_floats, a_floats, b_floats, total bytes) of one forward block's
-    shared memory (the layout in ``grouped_fwd_kernel``): weights staged a
-    depth, or a chunk of one (``depth_chunks``), at a time, two ping-pong
-    activation areas (the inputs and the odd depths' outputs in the first,
-    the even depths' in the second) and one clamped max per input row."""
-    cells = [2 ** (g - 1 - d) for d in range(g)]
-    a_floats = tile_b * max(
-        [2 ** g * k] + [cells[d] * k_outs[d] for d in range(1, g, 2)])
-    b_floats = tile_b * max(cells[d] * k_outs[d] for d in range(0, g, 2))
-    rows = a_floats + b_floats + tile_b * 2 ** g
-    w_floats = _weight_floats(k, cells, k_outs, rows)
-    return w_floats, a_floats, b_floats, 4 * (w_floats + rows)
+class FwdGeometry(NamedTuple):
+    """A K3 launch (``grouped_fwd.cu``): register tiles ti (every depth,
+    numbered as K1's ``FWD_TILES``) and tf (the last depth: ti, or
+    FWD_ONE_TILE for one output); tb rows a block; each depth's weight
+    chunk (cells, kt); the weight area's floats; the block's shared
+    bytes."""
+    ti: int
+    tf: int
+    tb: int
+    cells: Tuple[int, ...]
+    kt: Tuple[int, ...]
+    u_floats: int
+    smem_bytes: int
 
 
-def pick_tile_b(g: int, k: int, k_outs: Sequence[int]) -> int:
-    """Largest row tile whose forward block (``smem_layout``) fits in shared
-    memory with at least one weight row; raises when even one row of the
-    subtree and one K_out row of one weight cell do not fit."""
-    for tb in TILE_B_CHOICES:
-        if smem_layout(g, k, k_outs, tb)[3] <= SMEM_LIMIT_BYTES:
-            return tb
-    raise ValueError(
-        f"grouped_log_einsum_exp: one output cell's {g}-depth subtree at "
-        f"K={k}, K_out={list(k_outs)} needs {smem_layout(g, k, k_outs, 1)[3]} "
-        f"B of shared memory for a single row and one weight row; the card "
-        f"allows {SMEM_LIMIT_BYTES} B"
-    )
+def _fwd_tile_shape(t: int) -> Tuple[int, int]:
+    return (32, 1) if t == FWD_ONE_TILE else lee.tile_shape(lee.FWD_TILES[t])
+
+
+def fwd_items(geo: FwdGeometry, b: int) -> int:
+    """Work items of a K3 block's first chunk (cells, row subtiles of the
+    block's rows, K_out tiles): what the block's eight warps share."""
+    rows, kt = _fwd_tile_shape(geo.ti if len(geo.kt) > 1 else geo.tf)
+    return (geo.cells[0] * -(-min(geo.tb, b) // rows)
+            * -(-geo.kt[0] // kt))
+
+
+@functools.lru_cache(maxsize=1024)
+def fwd_geometry(g: int, k: int, k_outs: Tuple[int, ...], b: int,
+                 l_out: int) -> FwdGeometry:
+    """K3's launch geometry.  A block holds the rows of two depths at
+    ``fwd_row_stride(k)`` (the read one, 2^(G-d) slots of tb rows, and the
+    written one) and a weight area; each depth's weights go through it in
+    chunks (``depth_chunks``).  For each row tile (largest first, none
+    twice the batch) the register tile is the first of K1's order
+    (``_tile_order``: the 8- or 10-output tile, then the one-output one)
+    whose first chunk gives the block's warps FWD_MIN_ITEMS items; the last
+    depth takes the same tile, or FWD_ONE_TILE for one output.  Then the
+    largest row tile with enough items that still gives FWD_TARGET_BLOCKS
+    blocks, else the smallest of at least 32 rows (a register tile's rows:
+    a smaller tile would only restage the weights for fewer rows); tiles
+    under 32 rows only where 32 do not fit.  Every output
+    keeps lee_cell_sum's order whatever the tiles, so a row's result never
+    depends on the batch.  Raises when one row and one weight row do not
+    fit."""
+    kq, row = fwd_row_stride(k), lee.row_stride(k)
+    slots = 2 ** g + (2 ** (g - 1) if g > 1 else 0)
+    fits = []
+    for tb in FWD_TB_CHOICES:
+        if tb > 32 and tb >= 2 * b:
+            continue
+        cap = SMEM_LIMIT_BYTES // 4 - slots * tb * kq
+        options = []
+        for ti in lee._tile_order(k):
+            tf = FWD_ONE_TILE if k_outs[-1] == 1 else ti
+            chunks = [depth_chunks(2 ** (g - 1 - d), ko, k, cap,
+                                   _fwd_tile_shape(ti if d < g - 1 else tf)[1])
+                      for d, ko in enumerate(k_outs)]
+            if any(kt < 1 for _, kt in chunks):
+                continue
+            u = max(c * kt * row for c, kt in chunks)
+            geo = FwdGeometry(ti, tf, tb, tuple(c for c, _ in chunks),
+                              tuple(kt for _, kt in chunks), u,
+                              4 * (slots * tb * kq + u))
+            options.append((fwd_items(geo, b) >= FWD_MIN_ITEMS, geo))
+        if options:
+            fits.append(next((o for o in options if o[0]), options[-1]))
+    if not fits:
+        raise ValueError(
+            f"grouped_log_einsum_exp: one output cell's {g}-depth subtree at "
+            f"K={k}, K_out={list(k_outs)} needs "
+            f"{4 * (slots * kq + row)} B of shared memory for a single row "
+            f"and one weight row; the card allows {SMEM_LIMIT_BYTES} B")
+    good = [geo for ok, geo in fits if ok] or [geo for _, geo in fits]
+    good = [geo for geo in good if geo.tb >= 32] or good
+    return next((geo for geo in good
+                 if l_out * -(-b // geo.tb) >= FWD_TARGET_BLOCKS), good[-1])
 
 
 class BwdGeometry(NamedTuple):
@@ -323,6 +377,15 @@ def _check_run(ws, x, what: str):
     return g, l_out, k, k_outs
 
 
+@functools.lru_cache(maxsize=1024)
+def _fwd_args(g: int, k: int, k_outs: Tuple[int, ...], b: int, l_out: int):
+    """K3's launch constants, made once: its geometry and the addresses of
+    the K_outs and each depth's chunk as C arrays (kept alive here)."""
+    geo = fwd_geometry(g, k, k_outs, b, l_out)
+    arrs = [(ctypes.c_int * g)(*v) for v in (k_outs, geo.cells, geo.kt)]
+    return (geo, *[ctypes.addressof(a) for a in arrs], arrs)
+
+
 def grouped_log_einsum_exp_cuda(ws: Sequence[torch.Tensor],
                                 x: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel: ws per depth, input side first, depth ``d``
@@ -330,22 +393,19 @@ def grouped_log_einsum_exp_cuda(ws: Sequence[torch.Tensor],
     CUDA device.  Returns (B, L_out, K_out_final) float32."""
     g, l_out, k, k_outs = _check_run(ws, x, "grouped_log_einsum_exp")
     b = x.shape[0]
-    tile_b = pick_tile_b(g, k, k_outs)
-    if -(-b // tile_b) > MAX_GRID_Y:
+    geo, k_arr, cells, kts, _ = _fwd_args(g, k, tuple(k_outs), b, l_out)
+    if -(-b // geo.tb) > MAX_GRID_Y:
         raise ValueError(f"grouped_log_einsum_exp: batch {b} exceeds the grid")
-    w_floats, a_floats, b_floats, _ = smem_layout(g, k, k_outs, tile_b)
     out = torch.empty((b, l_out, k_outs[-1]), dtype=torch.float32,
                       device=x.device)
     w_ptrs = (ctypes.c_void_p * g)(*[w.data_ptr() for w in ws])
-    k_arr = (ctypes.c_int * g)(*k_outs)
     lib = build.load("grouped_fwd", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.grouped_fwd(
             ctypes.cast(w_ptrs, ctypes.c_void_p),
-            ctypes.cast(k_arr, ctypes.c_void_p), g,
-            x.data_ptr(), out.data_ptr(), b, l_out, k, tile_b, x.stride(0),
-            w_floats, a_floats, b_floats, stream,
+            k_arr, g, x.data_ptr(), out.data_ptr(), b, l_out, k, geo.tb,
+            x.stride(0), geo.ti, geo.tf, cells, kts, geo.u_floats, stream,
         )
     build.check(lib, err, "grouped_fwd")
     return out
@@ -439,19 +499,16 @@ def grouped_log_einsum_exp_bwd_cuda(ws: Sequence[torch.Tensor],
 # gather runs (Poon-Domingos): K5 forward, K6 backward
 # ---------------------------------------------------------------------------
 GATHER_MAX_DEPTHS = 16  # kGatherMaxDepths in gather_common.cuh
-# K5's row tiles are picked for about one block an SM (the H100 has 132)
-GATHER_TARGET_BLOCKS = 128
 _HEADER_INTS = 4  # D, r_in, R, Rc
 _DEPTH_INTS = 8  # L, M, C, base, left, right, child, vi
 
 _GATHER_SIGNATURES = {
     "gather_fwd": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # ws vs D n_mix
-        ctypes.c_void_p, ctypes.c_int,  # packed tables, their ints
-        ctypes.c_void_p, ctypes.c_void_p,  # x, out
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B K tile
-        ctypes.c_longlong,  # x batch stride
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # w floats, R, Rc
+        ctypes.c_void_p, ctypes.c_void_p,  # packed tables: device, host
+        ctypes.c_void_p, ctypes.c_longlong,  # x, its batch stride
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # out B K
+        ctypes.c_void_p,  # the depths' K1 geometry
         ctypes.c_void_p,  # stream
     ],
 }
@@ -470,6 +527,16 @@ _GATHER_BWD_SIGNATURES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _gather_shapes(tables, k: int):
+    """(each depth's weight shape, (depth, shape) of each mixing depth's
+    weights, new rows) a run's tables ask for at K."""
+    ws = tuple((len(left), k, k, k) for left in tables.left)
+    vs = tuple((t, (len(c), len(c[0]), k))
+               for t, c in enumerate(tables.mix_child) if c is not None)
+    return ws, vs, tables.num_new_rows
+
+
 def gather_geometry(tables, ws: Sequence[torch.Tensor],
                     vs: Sequence[torch.Tensor], x: torch.Tensor
                     ) -> Tuple[int, int]:
@@ -483,27 +550,22 @@ def gather_geometry(tables, ws: Sequence[torch.Tensor],
     if r_in != tables.num_in_rows:
         raise ValueError(f"gather input has {r_in} rows; tables expect "
                          f"{tables.num_in_rows}")
-    if len(ws) != tables.num_depths:
-        raise ValueError(f"{len(ws)} weight depths vs {tables.num_depths} "
+    want_ws, want_vs, r_new = _gather_shapes(tables, k)
+    if len(ws) != len(want_ws):
+        raise ValueError(f"{len(ws)} weight depths vs {len(want_ws)} "
                          "table depths")
-    for t, w in enumerate(ws):
-        want = (len(tables.left[t]), k, k, k)
+    for t, (w, want) in enumerate(zip(ws, want_ws)):
         if tuple(w.shape) != want:
             raise ValueError(f"gather depth {t} weights {tuple(w.shape)} != "
                              f"{want} (interior depths keep K_out == K)")
-    if len(vs) != tables.num_mix_depths:
-        raise ValueError(f"{len(vs)} mixing depths vs "
-                         f"{tables.num_mix_depths} in tables")
-    vi = 0
-    for t, child in enumerate(tables.mix_child):
-        if child is None:
-            continue
-        want = (len(child), len(child[0]), k)
-        if tuple(vs[vi].shape) != want:
+    if len(vs) != len(want_vs):
+        raise ValueError(f"{len(vs)} mixing depths vs {len(want_vs)} in "
+                         "tables")
+    for v, (t, want) in zip(vs, want_vs):
+        if tuple(v.shape) != want:
             raise ValueError(f"gather mix depth {t} weights "
-                             f"{tuple(vs[vi].shape)} != {want}")
-        vi += 1
-    return tables.num_new_rows, k
+                             f"{tuple(v.shape)} != {want}")
+    return r_new, k
 
 
 @functools.lru_cache(maxsize=None)
@@ -571,64 +633,42 @@ def gather_tables_tensor(tables, device: torch.device) -> torch.Tensor:
     return t
 
 
-def _gather_sizes(tables) -> Tuple[int, int, int, int, int]:
-    """(R, Rc, max cells of a depth, max M C of a mixing depth, table ints)."""
-    tab = pack_gather_tables(tables)
+def _gather_sizes(tables) -> Tuple[int, int, int]:
+    """(R rows in all, max cells of a depth, max M C of a mixing depth)."""
     l_max = max(len(l) for l in tables.left)
     mc_max = max([len(c) * len(c[0]) for c in tables.mix_child
                   if c is not None] + [0])
-    return int(tab[2]), int(tab[3]), l_max, mc_max, len(tab)
+    return tables.num_in_rows + tables.num_new_rows, l_max, mc_max
 
 
-def _balanced_weight_floats(k: int, cells: int, left: int) -> int:
-    """Floats of shared memory for staging the weights of a depth of
-    ``cells`` (K, K, K) cells when ``left`` floats are free: the whole
-    depth when it fits, else equal chunks of whole cells, else equal K_out
-    tiles of one cell (``lee_chunks`` cuts them from this size), each
-    weight row ``row_stride(k)`` floats."""
-    kk = lee.row_stride(k)
-    cell = k * kk
-    if cells * cell <= left:
-        return cells * cell
-    if cell <= left:
-        per = left // cell
-        n = -(-cells // per)
-        return -(-cells // n) * cell
-    kt_max = left // kk
-    if kt_max < 1:
-        return kk  # does not fit: the caller's total exceeds the limit
-    n = -(-k // kt_max)
-    return -(-k // n) * kk
+def gather_fwd_geometry(tables, k: int, b: int) -> List[Tuple[int, int]]:
+    """K5's K1 launches, depth by depth (``gather_fwd.cu``): (tile, nsub)
+    at the depth's pair (B, L_t, K, K), as the per-pair wrapper picks them
+    (and as K6's recompute does, so that both write the same bits)."""
+    return [tuple(lee._geometry(b, len(left), k, k)[:2])
+            for left in tables.left]
 
 
-def gather_smem_layout(tables, k: int, tile_b: int) -> Tuple[int, int]:
-    """(w_floats, total bytes) of one K5 block's shared memory (the layout
-    in ``gather_fwd.cu``): the weight staging area, the tile's row buffer in
-    the log domain (R rows of K a batch row), the stabilised copies and
-    maxes of the rows that may be children (Rc), and the packed tables."""
-    r_all, r_child, l_max, _, n_tab = _gather_sizes(tables)
-    fixed = tile_b * (r_all * k + r_child * (k + 1)) + n_tab
-    w_floats = _balanced_weight_floats(k, l_max, SMEM_LIMIT_BYTES // 4 - fixed)
-    return w_floats, 4 * (w_floats + fixed)
-
-
-def pick_gather_tile_b(tables, k: int, b: int) -> int:
-    """K5's row tile: the largest tile that fits in shared memory and still
-    gives ``GATHER_TARGET_BLOCKS`` blocks for a batch of ``b``, else the
-    smallest that fits.  A block's time hardly depends on its rows (it
-    stages every weight and runs one FMA chain an output), so one block an
-    SM is the fastest tile at einet_pd's B = 512.  Raises when one row's
-    buffer and one weight row do not fit."""
-    fits = [tb for tb in TILE_B_CHOICES
-            if gather_smem_layout(tables, k, tb)[1] <= SMEM_LIMIT_BYTES]
-    if not fits:
-        raise ValueError(
-            f"gather_grouped_log_einsum_exp: one row's buffer of "
-            f"{tables.num_in_rows + tables.num_new_rows} rows at K={k} and "
-            f"one weight row need {gather_smem_layout(tables, k, 1)[1]} B of "
-            f"shared memory; the card allows {SMEM_LIMIT_BYTES} B")
-    return next((tb for tb in fits if -(-b // tb) >= GATHER_TARGET_BLOCKS),
-                fits[-1])
+def gather_fwd_plan(tables, k: int, b: int) -> List[tuple]:
+    """K5's launches in order, as ``gather_fwd`` makes them from the packed
+    tables: per depth t, ("pair", t, left ids, right ids, first row, (tile,
+    nsub)) -- K1 on the depth's cells, cell l reading buffer rows left[l]
+    and right[l] (ids below r_in rows of x, the others new rows, id - r_in)
+    and writing new row first + l -- then, where the depth mixes, ("mix",
+    t, first mixing row, the depth's first row), the mixing of the depth's
+    einsum rows into new rows first, first + 1, ...  Rows are rows of the
+    new-row output (B, r_new, K)."""
+    tab = pack_gather_tables(tables)
+    r_in = int(tab[1])
+    plan = []
+    for t, geo in enumerate(gather_fwd_geometry(tables, k, b)):
+        n_l, m, _, base, left, right = (int(v) for v in tab[
+            _HEADER_INTS + _DEPTH_INTS * t: _HEADER_INTS + _DEPTH_INTS * t + 6])
+        plan.append(("pair", t, tab[left: left + n_l].tolist(),
+                     tab[right: right + n_l].tolist(), base - r_in, geo))
+        if m:
+            plan.append(("mix", t, base - r_in + n_l, base - r_in))
+    return plan
 
 
 def gather_bwd_geometry(tables, k: int, b: int
@@ -766,6 +806,16 @@ def _pointers(ts: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * max(1, len(ts)))(*[t.data_ptr() for t in ts])
 
 
+@functools.lru_cache(maxsize=1024)
+def _gather_fwd_args(tables, k: int, b: int):
+    """K5's launch constants for (tables, K, B), made once: the address of
+    the depths' K1 geometry as a C array (kept alive here), and that of the
+    host tables."""
+    geo = gather_fwd_geometry(tables, k, b)
+    arr = (ctypes.c_int * (2 * len(geo)))(*[v for g in geo for v in g])
+    return ctypes.addressof(arr), pack_gather_tables(tables).ctypes.data, arr
+
+
 def gather_grouped_log_einsum_exp_cuda(tables, ws: Sequence[torch.Tensor],
                                        vs: Sequence[torch.Tensor],
                                        x: torch.Tensor) -> torch.Tensor:
@@ -774,9 +824,7 @@ def gather_grouped_log_einsum_exp_cuda(tables, ws: Sequence[torch.Tensor],
     rows (B, r_new, K) float32."""
     k = _check_gather(tables, ws, vs, x, "gather_grouped_log_einsum_exp")
     b = x.shape[0]
-    tile_b = pick_gather_tile_b(tables, k, b)
-    w_floats, _ = gather_smem_layout(tables, k, tile_b)
-    r_all, r_child, _, _, n_tab = _gather_sizes(tables)
+    geo_arr, tab_h, _ = _gather_fwd_args(tables, k, b)
     dev = x.device
     tab = gather_tables_tensor(tables, dev)
     out = torch.empty((b, tables.num_new_rows, k), dtype=torch.float32,
@@ -788,8 +836,8 @@ def gather_grouped_log_einsum_exp_cuda(tables, ws: Sequence[torch.Tensor],
         err = lib.gather_fwd(
             ctypes.cast(w_ptrs, ctypes.c_void_p),
             ctypes.cast(v_ptrs, ctypes.c_void_p), len(ws), len(vs),
-            tab.data_ptr(), n_tab, x.data_ptr(), out.data_ptr(), b, k,
-            tile_b, x.stride(0), w_floats, r_all, r_child, stream,
+            tab.data_ptr(), tab_h, x.data_ptr(), x.stride(0),
+            out.data_ptr(), b, k, geo_arr, stream,
         )
     build.check(lib, err, "gather_fwd")
     return out
@@ -799,11 +847,13 @@ def gather_grouped_log_einsum_exp_bwd_cuda(tables,
                                            ws: Sequence[torch.Tensor],
                                            vs: Sequence[torch.Tensor],
                                            x: torch.Tensor,
-                                           g_out: torch.Tensor):
+                                           g_out: torch.Tensor,
+                                           keep_rows: bool = False):
     """Launch K6: ws, vs and x as in the forward, g_out (B, r_new, K)
     contiguous, all float32 on one CUDA device.  Returns (gws, gvs, gx) like
     ``gather_grouped_log_einsum_exp_bwd_plain``; gws and gvs are views of
-    one buffer."""
+    one buffer.  With ``keep_rows`` it also returns the new rows its
+    residual recompute wrote (B, r_new, K), which K5 must equal."""
     what = "gather_grouped_log_einsum_exp backward"
     k = _check_gather(tables, ws, vs, x, what)
     b = x.shape[0]
@@ -813,7 +863,7 @@ def gather_grouped_log_einsum_exp_bwd_cuda(tables,
             f"{what}: g_out {tuple(g_out.shape)} {g_out.dtype}, expected "
             f"contiguous ({b}, {tables.num_new_rows}, {k}) float32")
     geo = gather_bwd_geometry(tables, k, b)
-    r_all, _, l_max, mc_max, _ = _gather_sizes(tables)
+    r_all, l_max, mc_max = _gather_sizes(tables)
     sizes = [t.numel() for t in list(ws) + list(vs)]
     offs = [sum(sizes[:i]) for i in range(len(sizes))]
     dev = x.device
@@ -856,4 +906,7 @@ def gather_grouped_log_einsum_exp_bwd_cuda(tables,
     build.check(lib, err, "gather_bwd")
     views = [flat[o: o + n].view(t.shape)
              for o, n, t in zip(offs, sizes, list(ws) + list(vs))]
+    if keep_rows:
+        rows = scratch[:b * r_all * k].view(b, r_all, k)[:, x.shape[1]:]
+        return views[:len(ws)], views[len(ws):], gx, rows
     return views[:len(ws)], views[len(ws):], gx

@@ -349,3 +349,48 @@ def test_row_draw_depends_only_on_its_seed(sampler_pair):
     assert not torch.equal(alone, diff)
     with pytest.raises(ValueError, match="seeds"):
         port.conditional_sample_per_key([1], xt, evt)
+
+
+# Poon-Domingos sampling: the Gumbel draws at the interior mixing layers
+# (the ("mix", i) noise slices) against the reference's draws.  With these
+# params the mixing's children differ little, so 4096 draws a side cannot
+# tell a mixing that always takes its first child from the right one;
+# 16384 can (5 standard errors).
+PD_DRAWS = 16384
+
+
+@pytest.fixture(scope="module")
+def pd_sampler_pair():
+    ref = RefEiNet(ref_pd(4, 8, 2), num_sums=4, exponential_family=RefNormal())
+    port = EiNet(poon_domingos(4, 8, 2), num_sums=4, device="cpu")
+    params = _carry(ref, port, seed=7)
+    # mixing layers below the root, whose draws are the ("mix", i) slices
+    assert any(m.shape[0] > 0 for m in port.mixing[:-1])
+    return ref, params, port
+
+
+def test_pd_sample_matches_reference_statistically(pd_sampler_pair):
+    ref, params, port = pd_sampler_pair
+    n = PD_DRAWS
+    with torch.inference_mode():
+        got = port.sample(n, seeds=range(20_000, 20_000 + n)).numpy()
+    want = np.asarray(jax.jit(ref.sample, static_argnames=("num_samples",))(
+        params, jax.random.PRNGKey(5), num_samples=n))
+    assert got.shape == want.shape == (n, 32) and np.isfinite(got).all()
+    _moments_agree(got, want, np.arange(32))
+
+
+def test_pd_conditional_sample_matches_reference_statistically(
+        pd_sampler_pair):
+    ref, params, port = pd_sampler_pair
+    n = PD_DRAWS
+    rng = np.random.RandomState(12)
+    x1 = rng.randn(32).astype(np.float32)
+    ev1 = rng.rand(32) < 0.5
+    x, ev = np.tile(x1, (n, 1)), np.tile(ev1, (n, 1))
+    with torch.inference_mode():
+        got = port.conditional_sample_per_key(
+            list(range(n)), torch.from_numpy(x), torch.from_numpy(ev)).numpy()
+    want = _ref_decode(ref, params, x, ev, key=6, mode="sample")
+    np.testing.assert_array_equal(got[:, ev1], x[:, ev1])  # evidence unchanged
+    _moments_agree(got, want, np.flatnonzero(~ev1))

@@ -248,7 +248,12 @@ def test_staged_row_strides_match_the_cuda_source():
         src = (build.CSRC / name).read_text()
         assert "gather_stage_weights" not in src
         assert "gather_row_stride" not in src
-    assert "lee_stage_weights" in (build.CSRC / "gather_common.cuh").read_text()
+    # the gather run's kernels stage through K1's kernel, the canonical
+    # ones through the subtree's shared staging
+    for name in ("lee_fwd.cuh", "grouped_common.cuh"):
+        assert "lee_stage_weights" in (build.CSRC / name).read_text()
+    assert "lee_fwd_ids_run" in (build.CSRC / "gather_fwd.cu").read_text()
+    assert "return (K + 1) | 1;" in (build.CSRC / "grouped_fwd.cu").read_text()
 
 
 @pytest.mark.parametrize("b,cells,k,k_out,splits", [
@@ -280,25 +285,64 @@ def test_dw_columns_a_thread(k, want):
     assert jt == want
 
 
+def _fused_runs(name):
+    """(G, K, K_outs, L_out) of every fused run of an arch's plan."""
+    model = build_einet(get_config(name), device="meta")
+    runs = []
+    for seg in model.exec_plan:
+        if seg.kind == "fused":
+            ws = model.einsum[seg.start: seg.stop]
+            runs.append((len(ws), ws[0].shape[-1],
+                         tuple(int(w.shape[1]) for w in ws), ws[-1].shape[0]))
+    return runs
+
+
 def test_grouped_tile_and_shared_memory_rules():
-    # einet_rat's fused run [0, 4): 32-row tiles, a whole depth's 8,000
-    # weight floats at a time
-    tb = grouped.pick_tile_b(4, 10, [10, 10, 10, 1])
-    w_f, a_f, b_f, total = grouped.smem_layout(4, 10, [10, 10, 10, 1], tb)
-    assert tb == 32 and w_f == 8 * 10 * 100
-    assert a_f == 32 * 16 * 10 and b_f == 32 * 8 * 10
-    assert total <= log_einsum_exp.SMEM_LIMIT_BYTES
-    # a K=64 subtree (einet_rat_large's fused [0, 2)): 1 MB cells are staged
-    # a K_out tile at a time beside 32-row tiles
-    tb = grouped.pick_tile_b(2, 64, [64, 64])
-    w_f, _, _, total = grouped.smem_layout(2, 64, [64, 64], tb)
-    assert tb == 32 and total <= log_einsum_exp.SMEM_LIMIT_BYTES
-    assert w_f < 64 * 64 * 64 and w_f >= 64 * 64
-    cells, kt = grouped.depth_chunks(2, 64, 64, w_f)
-    assert cells == 1 and 1 <= kt < 64
+    lee = log_einsum_exp
+    # einet_rat's fused run [0, 4) at B = 2048: 64-row tiles (320 blocks),
+    # the 10-output register tile and the one-output tile for the root; a
+    # block holds the 16 input slots and 8 next-depth slots of 64 rows at
+    # fwd_row_stride(10) = 11 (a row's max in float 10) and a whole depth's
+    # weights, 8 cells of 10 rows at lee_row_stride(10) = 101
+    geo = grouped.fwd_geometry(4, 10, (10, 10, 10, 1), 2048, 10)
+    assert (geo.ti, geo.tf, geo.tb) == (2, grouped.FWD_ONE_TILE, 64)
+    assert geo.cells == (8, 4, 2, 1) and geo.kt == (10, 10, 10, 1)
+    assert geo.u_floats == 8 * 10 * 101
+    assert geo.smem_bytes == 4 * ((16 + 8) * 64 * 11 + 8 * 10 * 101)
+    assert 2 * (geo.smem_bytes + 1024) <= 228 * 1024  # two blocks an SM
+    assert grouped.fwd_items(geo, 2048) == 16
+    # einet_rat_large's K = 64 run [0, 2) at B = 64: the whole batch in one
+    # tile, so its 1.6 GB of weights are read once; 4 + 2 slots of 64 rows
+    # at 65 floats leave room for 8 weight rows of 4,097 floats of a 1 MB
+    # cell at a time, and the one-output tile gives the 8 warps one output
+    # row each
+    geo = grouped.fwd_geometry(2, 64, (64, 64), 64, 512)
+    assert (geo.ti, geo.tf, geo.tb) == (1, 1, 64)
+    assert geo.cells == (1, 1) and geo.kt == (8, 8)
+    assert geo.smem_bytes == 4 * (6 * 64 * 65 + 8 * 4097)
+    assert geo.smem_bytes <= lee.SMEM_LIMIT_BYTES
+    assert grouped.fwd_items(geo, 64) == grouped.FWD_MIN_ITEMS
+    # serve buckets take 32-row tiles, not smaller: a smaller tile would
+    # only restage the weights for fewer rows
+    for b in (1, 8, 64):
+        assert grouped.fwd_geometry(4, 10, (10, 10, 10, 1), b, 10).tb == 32
+    # every fused run of einet_rat and einet_rat_large, at every batch the
+    # paths use, fits, fills its warps and stages whole weight rows
+    for name in ("einet_rat", "einet_rat_large"):
+        for g, k, k_outs, l_out in _fused_runs(name):
+            for b in (1, 37, 64, 256, get_config(name).batch_size):
+                geo = grouped.fwd_geometry(g, k, k_outs, b, l_out)
+                assert geo.smem_bytes <= lee.SMEM_LIMIT_BYTES
+                assert grouped.fwd_items(geo, b) >= grouped.FWD_MIN_ITEMS
+                assert 32 <= geo.tb and -(-b // geo.tb) <= lee.MAX_GRID_Y
+                for d, ko in enumerate(k_outs):
+                    assert geo.cells[d] * geo.kt[d] * lee.row_stride(k) <= (
+                        geo.u_floats)
+                    assert geo.kt[d] == ko or geo.cells[d] == 1
     # refused only when one row and one weight row do not fit
     with pytest.raises(ValueError, match="single row"):
-        grouped.pick_tile_b(2, 240, [240, 240])
+        grouped.fwd_geometry(2, 240, (240, 240), 64, 2)
+    assert grouped.fwd_geometry(8, 64, (64,) * 8, 4, 2).tb == 1
 
 
 def test_grouped_backward_shared_memory_rules():
@@ -336,18 +380,6 @@ def test_grouped_backward_shared_memory_rules():
         grouped.bwd_geometry(2, 240, (240, 240), 64, 2)
 
 
-def _fused_runs(name):
-    """(G, K, K_outs, L_out) of every fused run of an arch's plan."""
-    model = build_einet(get_config(name), device="meta")
-    runs = []
-    for seg in model.exec_plan:
-        if seg.kind == "fused":
-            ws = model.einsum[seg.start: seg.stop]
-            runs.append((len(ws), ws[0].shape[-1],
-                         tuple(int(w.shape[1]) for w in ws), ws[-1].shape[0]))
-    return runs
-
-
 @pytest.mark.parametrize("name", ("einet_rat", "einet_rat_large"))
 def test_grouped_backward_blocks_fit_at_every_fused_run(name):
     runs = _fused_runs(name)
@@ -372,13 +404,15 @@ def test_grouped_backward_blocks_fit_at_every_fused_run(name):
         assert len(tiles) == 1
 
 
-@pytest.mark.parametrize("cells,k_out,k,w_floats,want", [
-    (8, 10, 10, 8000, (8, 10)),      # the whole depth
-    (8, 10, 10, 2500, (2, 10)),      # whole cells, two at a time
-    (2, 64, 64, 45056, (1, 11)),     # one cell's K_out tile
+@pytest.mark.parametrize("cells,k_out,k,w_floats,kt_tile,want", [
+    (8, 10, 10, 8080, 10, (8, 10)),    # the whole depth (rows of 101)
+    (8, 10, 10, 2500, 10, (2, 10)),    # whole cells, two at a time
+    (2, 64, 64, 45067, 1, (1, 11)),    # one cell's K_out rows (4,097 each)
+    (2, 64, 64, 45067, 8, (1, 8)),     # ... a multiple of the tile's 8
+    (2, 64, 64, 4096, 1, (1, 0)),      # not one weight row
 ])
-def test_depth_chunks(cells, k_out, k, w_floats, want):
-    assert grouped.depth_chunks(cells, k_out, k, w_floats) == want
+def test_depth_chunks(cells, k_out, k, w_floats, kt_tile, want):
+    assert grouped.depth_chunks(cells, k_out, k, w_floats, kt_tile) == want
 
 
 def test_group_geometry_rejects_non_canonical_runs():
@@ -763,21 +797,33 @@ def test_gather_geometry_rejects_bad_shapes():
 
 def test_gather_tile_and_shared_memory_rules():
     tables = build_einet(get_config("einet_pd"), device="meta").exec_plan[0].tables
-    limit = log_einsum_exp.SMEM_LIMIT_BYTES
-    # K5 at einet_pd's B = 512: 4-row tiles, 128 blocks
-    assert grouped.pick_gather_tile_b(tables, 40, 512) == 4
-    w_f, total = grouped.gather_smem_layout(tables, 40, 4)
-    assert total <= limit
-    # a K = 40 cell (256 KB) goes in two K_out tiles of 20 rows, each row
-    # padded to an odd stride against bank conflicts
-    assert log_einsum_exp.row_stride(40) == 1601 and w_f == 20 * 1601
-    assert total == 4 * (20 * 1601 + 4 * (13 * 40 + 7 * 41) + 42)
-    # small batches take the smallest tile; a tiny K stages a whole depth
-    assert grouped.pick_gather_tile_b(tables, 40, 37) == 1
-    w_f, _ = grouped.gather_smem_layout(tables, 4, 32)
-    assert w_f == 4 * 4 * 17
-    with pytest.raises(ValueError, match="shared"):
-        grouped.pick_gather_tile_b(tables, 240, 512)
+    lee = log_einsum_exp
+    # K5 at einet_pd's B = 512 and the serve bucket B = 64: K1 at each
+    # depth's pair (B, L_t, K, K) with the per-pair wrapper's geometry, the
+    # same as K6's recompute (so both write the same bits): depth 0's 3
+    # cells and depth 1's 4, then the mixing
+    for b in (512, 64):
+        geo = grouped.gather_fwd_geometry(tables, 40, b)
+        assert geo == [lee.launch_geometry(b, cells, 40, 40)[:2]
+                       for cells in (3, 4)]
+        bwd = grouped.gather_bwd_geometry(tables, 40, b)
+        assert geo == [g[:2] for g in bwd]
+    assert [step[0] for step in grouped.gather_fwd_plan(tables, 40, 512)] == [
+        "pair", "pair", "mix"]
+    # every PD arch: each depth's K1 block fits, at every batch
+    for name in ("einet_pd", "einet_pd_mnist", "einet_celeba"):
+        cfg = get_config(name)
+        model = build_einet(cfg, device="meta")
+        tabs, k = model.exec_plan[0].tables, model.K
+        for b in (1, 37, 64, cfg.batch_size):
+            for (tile, nsub), left in zip(
+                    grouped.gather_fwd_geometry(tabs, k, b), tabs.left):
+                rows, kt = lee.tile_shape(lee.FWD_TILES[tile])
+                assert lee.smem_bytes(k, kt, nsub * rows) <= (
+                    lee.SMEM_LIMIT_BYTES)
+                assert -(-b // (nsub * rows)) <= lee.MAX_GRID_Y
+    with pytest.raises(ValueError, match="room"):
+        grouped.gather_fwd_geometry(tables, 240, 512)
     # K6 launches K1 and K2 at each depth's pair (B, L_t, K, K), with the
     # per-pair wrappers' geometry: at B = 512 both depths' dW in 16 batch
     # splits, 28.7 MB of partials in all, an eighth of the 229 MB that one
@@ -794,6 +840,49 @@ def test_gather_tile_and_shared_memory_rules():
     part = grouped.gather_bwd_partial_bytes(tables, 40, 512)
     assert part == 4 * 16 * 7 * 40 ** 3 == 28_672_000
     assert part * 8 <= 128 * 4 * 7 * 40 ** 3
+
+
+def _pd_arch_tables(name):
+    model = build_einet(get_config(name), device="meta")
+    return model.exec_plan[0].tables, model.K
+
+
+@pytest.mark.parametrize("case", [("einet_pd",) + _pd_arch_tables("einet_pd")]
+                         + [(str(s), _pd_tables(*s), s[-1])
+                            for s in PD_SMOKE_SHAPES], ids=lambda c: c[0])
+def test_gather_forward_plan_is_the_plain_walk(case):
+    """K5's launches (per depth: the pair through its row ids into the new
+    rows, then the mixing), run with the plain per-pair op and
+    log_mix_exp, give gather_grouped_log_einsum_exp_plain's rows bit for
+    bit."""
+    _, tables, k = case
+    rng = np.random.RandomState(11)
+    ws, vs = (_torch(a) for a in _gather_params(rng, tables, k))
+    b = 6
+    x = torch.from_numpy(_x(rng, b, tables.num_in_rows, k))
+    r_in = tables.num_in_rows
+    out = torch.full((b, tables.num_new_rows, k), float("nan"))
+
+    def rows(ids):
+        return torch.stack([x[:, i] if i < r_in else out[:, i - r_in]
+                            for i in ids], 1)
+
+    vi = 0
+    for step in grouped.gather_fwd_plan(tables, k, b):
+        if step[0] == "pair":
+            _, t, left, right, first, _ = step
+            out[:, first: first + len(left)] = layers.log_einsum_exp(
+                ws[t], rows(left), rows(right))
+        else:
+            _, t, first, base = step
+            child = torch.tensor(tables.mix_child[t]) + base
+            out[:, first: first + len(tables.mix_child[t])] = (
+                layers.log_mix_exp(
+                    vs[vi], out[:, child],
+                    torch.tensor(tables.mix_mask[t], dtype=torch.float32)))
+            vi += 1
+    want = grouped.gather_grouped_log_einsum_exp_plain(tables, ws, vs, x)
+    assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("name", ("einet_pd", "einet_pd_mnist", "einet_celeba"))
@@ -864,3 +953,30 @@ def test_backward_sweep_and_dw_reads_hit_distinct_banks(k):
     # gin *= e: rows fastest over a 32-row tile
     for i in (0, k - 1):
         assert _banks([r * kp + i for r in range(32)])
+
+
+@pytest.mark.parametrize("k", [10, 40, 64])
+def test_forward_sweep_reads_hit_distinct_banks(k):
+    """A warp's loads in K3's sweep, by the kernel's address arithmetic
+    (grouped_fwd.cu fwd_depth): weight rows lee_row_stride apart, row areas
+    fwd_row_stride apart, for every register tile, with the lanes past the
+    chunk's outputs or the tile's rows reading the last valid one."""
+    lee = log_einsum_exp
+    kkp, kq = lee.row_stride(k), grouped.fwd_row_stride(k)
+    assert kq % 2 == 1 and kq > k
+    tiles = list(lee.FWD_TILES) + [(1, 1, 1)]
+    for r_, ko, nkg in tiles:
+        nrg = 32 // nkg
+        lanes = [(lane % nkg, lane // nkg) for lane in range(32)]
+        for kn in (nkg * ko, 3, 1):  # a full K_out tile, ragged chunks
+            for nb in (nrg * r_, 5, 1):  # a full row subtile, ragged tiles
+                for i in (0, k - 1):
+                    for j in (0, 1, k - 1):
+                        for u in range(ko):
+                            w = [min(kg + u * nkg, kn - 1) * kkp + i * k + j
+                                 for kg, _ in lanes]
+                            assert _banks(w), (k, nkg, kn, i, j, u)
+                    for v in range(r_):
+                        rows = [min(rg + v * nrg, nb - 1) for _, rg in lanes]
+                        assert _banks([r * kq + i for r in rows])  # el
+                        assert _banks([r * kq + k for r in rows])  # maxes
