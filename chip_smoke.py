@@ -37,8 +37,8 @@
    version and a yardstick (K5: the per-depth torch.einsum chain plus
    log_mix_exp; K6: autograd through the einsum chain plus log_mix_exp),
    K5 (at B = 512 and at the serve bucket B = 64) beside the per-layer K1
-   launches and log_mix_exp at its pairs, K6 beside the per-layer K2
-   launches, and the device time of each CUDA kernel inside one K6, K4, K5
+   launches and log_mix_exp at its pairs, K6 (at B = 512, beside the
+   per-layer K2 launches, and at B = 64, the hard mixture step's rows), and the device time of each CUDA kernel inside one K6, K4, K5
    and K3 call (torch.profiler); prints K5's and K6's per-depth geometry
    and K6's partial bytes.
 5. Serve phase: builds einet_rat at full width on the card (seed 0), serves
@@ -69,7 +69,23 @@
    beside their plain versions, yardsticks and per-layer chains, then
    joint_ll at B = 256 through its plan (3 K3 + 1 K1 launches) against its
    per-layer forward (7 K1 launches), both timed.
-10. Prints the launch counts of every main path (each kernel must have run
+10. Mixture of EiNets (§4.2): einet_celeba x 8 components (seed 0) on the
+   procedural CelebA stand-in (to_domain "normal").  k-means (C = 8) on
+   the card, whose partition must equal a second card run's and the CPU
+   port's; 10 hard stochastic EM steps at 64 rows a component (launches a
+   step asserted: K5 8, K6 8, K1 8, K2 8; step 0 bit for bit 8
+   single-model stochastic_em_update calls of a separate einet_celeba);
+   the soft E-step at B = 512 twice bitwise and against the CPU plain path
+   (statistics rtol 1e-4, atol 1e-6 B, n_weight included); 10 soft
+   stochastic EM steps (same launches), timed whole and by stage; full
+   soft EM 3 steps on one batch (monotone); mixture_joint_ll at B = 512
+   (K5 8, K1 8) against the CPU (rtol 1e-5, atol 1e-4); and 256 requests
+   over all ten mixture kinds through ServeEngine(max_batch=64): req/s
+   after a warm pass, parity with direct one-request calls (LL and
+   responsibility within 1e-5, sampling and MPE identical), responsibility
+   rows summing to 1 within 1e-6, and mixture_mpe rows alone equal to
+   theirs in a batch of 64 bit for bit.
+11. Prints the launch counts of every main path (each kernel must have run
    on them) and the shapes (B, L, K_out, K) K1 and K2 were launched at
    there (counted by wrapping the ops' kernels, whose launch counters stay
    as they are); times K1 and K2 at each of those shapes (and K1 at
@@ -286,11 +302,17 @@ def main() -> int:
         dw_geometry, dw_partial_bytes, dw_splits, launch_geometry,
         log_einsum_exp_bwd_cuda, log_einsum_exp_bwd_plain,
         log_einsum_exp_cuda, log_einsum_exp_plain)
-    from repro_torch.launch.cells import build_einet
+    from repro_torch.data import load_image_dataset, to_domain
+    from repro_torch.data.datasets import array_loader
+    from repro_torch.launch.cells import build_einet, build_mixture
     from repro_torch.launch.train import (
         batch_at, synthetic_pd_data, synthetic_rat_data)
+    from repro_torch.mixture import (
+        EiNetMixture, MixtureTrainConfig, blend_mixture_params, kmeans,
+        make_mixture_em_step, mixture_em_statistics, mixture_m_step,
+        prepare_mixture_training)
     from repro_torch.serve import (
-        ServeEngine, direct_call, mixed_requests, parity)
+        ServeEngine, direct_call, mixed_requests, mixture_requests, parity)
     from repro_torch.train import TrainConfig, make_em_step
 
     card = smi_line()
@@ -799,20 +821,36 @@ def main() -> int:
             if b_row == b_pd:
                 k6_chain = chain
         k5_row = k5_rows[0]
-        k6_row = {
-            "shape": k5_row["shape"],
-            "ms": time_ms(lambda: gather_grouped_log_einsum_exp_bwd_cuda(
-                pd_tab, pd_ws, pd_vs, pd_leaf, pd_g)),
-            "plain_ms": time_ms(lambda: gather_grouped_log_einsum_exp_bwd_plain(
-                pd_tab, pd_ws, pd_vs, pd_leaf, pd_g)),
-            "library_ms": time_ms(autograd_yardstick(
-                lambda x, *wv: einsum_gather(pd_tab, wv[:2], wv[2:], x),
-                (pd_leaf, *pd_ws, *pd_vs), pd_g)),
-            "bytes": 4 * (2 * pd_leaf.numel() + pd_g.numel() + 2 * n_w),
-            "flops": sum(b_pd * len(l) * (6 * pd.K ** 3 + 4 * pd.K ** 2)
-                         for l in pd_tab.left),
-            "chain_ms": k6_chain,
-        }
+        # K6 at B = 512 and at B = 64, the hard mixture step's rows a
+        # component (K5 and K6 also held against their plain versions there)
+        k6_rows = []
+        for k5r, b_row in zip(k5_rows, (b_pd, 64)):
+            x_row, g_row = pd_leaf[:b_row], pd_g[:b_row].contiguous()
+            if b_row != b_pd:
+                what = f"einet_pd gather[0,2) B={b_row}"
+                k5_err = max(k5_err, check_k5(pd_tab, pd_ws, pd_vs, x_row,
+                                              f"K5 {what}"))
+                errs, e = check_k6(pd_tab, pd_ws, pd_vs, x_row, g_row,
+                                   f"K6 {what}")
+                k6_w_errs += errs
+                k6_x_errs.append(e)
+            k6_rows.append({
+                "shape": k5r["shape"],
+                "ms": time_ms(lambda x_row=x_row, g_row=g_row:
+                              gather_grouped_log_einsum_exp_bwd_cuda(
+                                  pd_tab, pd_ws, pd_vs, x_row, g_row)),
+                "plain_ms": time_ms(lambda x_row=x_row, g_row=g_row:
+                                    gather_grouped_log_einsum_exp_bwd_plain(
+                                        pd_tab, pd_ws, pd_vs, x_row, g_row)),
+                "library_ms": time_ms(autograd_yardstick(
+                    lambda x, *wv: einsum_gather(pd_tab, wv[:2], wv[2:], x),
+                    (x_row, *pd_ws, *pd_vs), g_row)),
+                "bytes": 4 * (2 * x_row.numel() + g_row.numel() + 2 * n_w),
+                "flops": sum(b_row * len(l) * (6 * pd.K ** 3 + 4 * pd.K ** 2)
+                             for l in pd_tab.left),
+            })
+        k6_row = k6_rows[0]
+        k6_row["chain_ms"] = k6_chain
         # K6's gx: a row alone against the same row in a batch of 512
         k6_alone = (0, 1, 3, 37, 200, b_pd - 1)
         x = rand_x(b_pd, pd_tab.num_in_rows, pd.K)
@@ -1390,6 +1428,387 @@ def main() -> int:
           f"{(ll_plan - ll_layer).abs().max().item():.3e}; model built in "
           f"{big_build_s:.1f} s [{card}]")
 
+    # ---------------------------------------------- mixture phase (§4.2)
+    # einet_celeba x 8: one shared structure, parameters stacked on a
+    # component axis, trained on the procedural CelebA stand-in
+    n_mix = 8
+    mix_cfg = get_config("einet_celeba")
+    t0 = time.perf_counter()
+    mix = build_mixture(mix_cfg, n_mix, device=dev, seed=0)
+    mix_build_s = time.perf_counter() - t0
+    celeba = load_image_dataset("celeba", source="procedural")
+    mix_data, _ = to_domain(celeba.train_x, "normal")
+    mix_kinds = [(s.start, s.stop, s.kind) for s in mix.component.exec_plan]
+    if mix_kinds != [(0, 2, "gather"), (2, 3, "layer")]:
+        raise AssertionError(f"einet_celeba plan is {mix_kinds}")
+    # k-means inside the hard-EM setup on the card, again on the card, and
+    # on the CPU: one partition
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mix_loader, km = prepare_mixture_training(mix, mix_data, seed=0,
+                                              global_batch=512)
+    torch.cuda.synchronize()
+    km_s = time.perf_counter() - t0
+    km_card2 = kmeans(mix_data, n_mix, device=dev)
+    t0 = time.perf_counter()
+    km_cpu = kmeans(mix_data, n_mix, device="cpu")
+    km_cpu_s = time.perf_counter() - t0
+    if not (np.array_equal(km.assignments, km_card2.assignments)
+            and np.array_equal(km.centers, km_card2.centers)):
+        raise AssertionError("k-means: two card runs differ")
+    if not np.array_equal(km.assignments, km_cpu.assignments):
+        raise AssertionError(
+            f"k-means: card and CPU partitions differ in "
+            f"{int((km.assignments != km_cpu.assignments).sum())} rows")
+    km_center_diff = float(np.abs(km.centers - km_cpu.centers).max())
+    print(f"k-means einet_celeba x{n_mix} on {len(mix_data)} procedural "
+          f"CelebA rows (D={mix_data.shape[1]}): counts "
+          f"{km.counts.tolist()}, inertia {km.inertia:.6f}; the partition "
+          f"equals a second card run's (centres bit for bit) and the CPU's "
+          f"(centres max |diff| {km_center_diff:.3e}); card {km_s:.3f} s "
+          f"with the mixture's init, CPU {km_cpu_s:.3f} s; mixture of "
+          f"{mix.num_params()} parameters built in {mix_build_s:.2f} s "
+          f"[{card}]")
+
+    def mixture_run(mcfg, steps, batches, want, first=None):
+        """``steps`` mixture EM steps with the launch counters set to 0
+        just before and read just after; launches a step asserted against
+        ``want``; ``first`` sees the parameters after step 0."""
+        step = make_mixture_em_step(mix, mcfg)
+        xs = [batches(i) for i in range(steps)]
+        torch.cuda.synchronize()
+        reset(ops)
+        lls, times = [], []
+        for i, x in enumerate(xs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lls.append(step(x))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0 and first is not None:
+                first()
+        got = counts_of(ops)
+        shapes = collections.Counter(SHAPES)
+        if any(got[k] != want.get(k, 0) * steps for k in got):
+            raise AssertionError(
+                f"mixture {mcfg.assign} {mcfg.mode} EM: launches {got} in "
+                f"{steps} steps, expected {want} a step")
+        if not all(np.isfinite(lls)):
+            raise AssertionError(f"mixture EM: LL {lls}")
+        return {"lls": lls, "median_ms": sorted(times)[len(times) // 2] * 1e3,
+                "counts": got, "shapes": shapes}
+
+    mix_want = {k: n_mix for k in (
+        "gather_grouped_log_einsum_exp", "gather_grouped_log_einsum_exp_bwd",
+        "log_einsum_exp", "log_einsum_exp_bwd")}
+    # hard EM's first step, bit for bit, against 8 single-model steps of a
+    # separate einet_celeba on the same batches
+    x_hard0 = torch.from_numpy(mix_loader.batch_at(0)["x"]).to(dev)
+    single = build_einet(mix_cfg, device=dev, seed=0)
+    want_first = []
+    for c in range(n_mix):
+        em.load_params(single, mix.component_params(c))
+        want_first.append(em.stochastic_em_update(single, x_hard0[c])[0])
+    del single
+    got_first = []
+    hard = mixture_run(
+        MixtureTrainConfig(assign="hard"), 10,
+        lambda i: torch.from_numpy(mix_loader.batch_at(i)["x"]).to(dev),
+        mix_want, first=lambda: got_first.extend(
+            {k: (v.clone() if torch.is_tensor(v) else [t.clone() for t in v])
+             for k, v in mix.component_params(c).items()}
+            for c in range(n_mix)))
+    for c in range(n_mix):
+        if not all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                flat_stats(got_first[c]), flat_stats(want_first[c]))):
+            raise AssertionError(f"hard mixture EM step 0, component {c}: "
+                                 "differs from the single-model step")
+    # the hard step at its own shape (B = 64 rows a component, einet_celeba's
+    # tables, each component's weights): every component's E-step
+    # statistics on the card against the CPU plain path, and K5 and K6 on
+    # its leaf rows against their plain versions (K1 and K2 are held at
+    # every shape the main paths launch them at, in the report below)
+    mix_cpu = EiNetMixture(
+        EiNet(mix.component.graph, num_sums=mix.component.K,
+              num_classes=mix.component.num_classes,
+              exponential_family=mix.component.ef, device="cpu"), n_mix)
+
+    def mix_to_cpu():
+        mix_cpu.load_state_dict({k: v.cpu()
+                                 for k, v in mix.state_dict().items()})
+
+    mix_to_cpu()
+    b_hard = x_hard0.shape[1]
+    hard_stat_atol = 1e-6 * b_hard
+    hard_stats, hard_d_cpu = [], [0.0, 0.0]
+    for c in range(n_mix):
+        with mix.bound(c) as net:
+            hard_stats.append(em.em_statistics(net, x_hard0[c]))
+        with mix_cpu.bound(c) as net:
+            d = compare_stats(hard_stats[c],
+                              em.em_statistics(net, x_hard0[c].cpu()),
+                              f"hard E-step einet_celeba component {c} "
+                              f"B={b_hard} card vs CPU", 1e-4, hard_stat_atol)
+        hard_d_cpu = [max(a, b) for a, b in zip(hard_d_cpu, d)]
+    mix_tab = mix.component.exec_plan[0].tables
+    hard_k5_err, hard_k6_w, hard_k6_x = 0.0, [], []
+    with torch.no_grad():
+        for c in range(n_mix):
+            with mix.bound(c) as net:
+                lr = net._leaf_rows(net.leaf_log_prob(x_hard0[c], None))
+                ws_ = [net.einsum[t].detach() for t in range(2)]
+                vs_ = [net.mixing[t].detach() for t in range(2)
+                       if net.pair_specs[t].mix_global is not None]
+            what = f"einet_celeba component {c} gather[0,2) B={b_hard}"
+            hard_k5_err = max(hard_k5_err,
+                              check_k5(mix_tab, ws_, vs_, lr, f"K5 {what}"))
+            g = rand_g(b_hard, mix_tab.num_new_rows, mix.component.K)
+            errs, e = check_k6(mix_tab, ws_, vs_, lr, g, f"K6 {what}")
+            hard_k6_w += errs
+            hard_k6_x.append(e)
+    k6_w_errs += hard_k6_w
+    k6_x_errs += hard_k6_x
+    torch.cuda.synchronize()
+    k5_err = max(k5_err, hard_k5_err)
+    print(f"hard E-step einet_celeba x{n_mix} at B={b_hard} a component: "
+          f"card vs CPU plain statistics max |diff| {hard_d_cpu[0]:.3e} (at "
+          f"most {hard_d_cpu[1]:.3e} of a block's max; rtol 1e-4, atol "
+          f"{hard_stat_atol:.1e}) for every component; K5 and K6 on each "
+          f"component's weights and leaf rows agree with their plain versions "
+          f"(two calls bitwise; K5 max |diff| {hard_k5_err:.3e}, K6 gx max "
+          f"|diff| {worst(hard_k6_x, 'abs'):.3e}, dW and dV max |diff| / "
+          f"max|want| {worst(hard_k6_w, 'rel'):.3e}) [{card}]")
+    # where a hard step spends its time: per component, the leaf rows, the
+    # E-step (leaf rows included) and the M-step with its blend
+
+    def hard_stage(stage):
+        def run():
+            for c in range(n_mix):
+                with mix.bound(c) as net:
+                    if stage == "leaf":
+                        with torch.no_grad():
+                            net._leaf_rows(net.leaf_log_prob(x_hard0[c], None))
+                    elif stage == "estep":
+                        em.em_statistics(net, x_hard0[c])
+                    else:
+                        em.blend_params(net, em.params_of(net), em.m_step(
+                            net, hard_stats[c], em_cfg), em_cfg.step_size)
+        return time_ms(run, iters=5, warmup=1)
+
+    hard_stages = {
+        f"leaf rows ({n_mix} components)": hard_stage("leaf"),
+        f"em_statistics ({n_mix} components, leaf rows included)":
+            hard_stage("estep"),
+        f"M-step + blend ({n_mix} components)": hard_stage("mstep"),
+    }
+    del got_first, want_first, x_hard0, hard_stats
+    print(f"hard stochastic EM einet_celeba x{n_mix}, {mix_loader.per_host} "
+          f"rows a component, 10 steps: median {hard['median_ms']:.3f} "
+          f"ms/step, mean LL first {hard['lls'][0]:.4f}, last "
+          f"{hard['lls'][-1]:.4f}, launches a step " + ", ".join(
+              f"{k} {v // 10}" for k, v in hard["counts"].items() if v)
+          + f"; step 0 bit for bit {n_mix} single-model stochastic_em_update "
+          f"calls [{card}]")
+    print("hard step stages: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in hard_stages.items()) + f" [{card}]")
+
+    # the soft E-step: twice bitwise, and against the CPU plain path
+    b_mix = 512
+    soft_loader = array_loader(mix_data, b_mix)
+    x_soft = torch.from_numpy(soft_loader.batch_at(0)["x"]).to(dev)
+    reset(ops)
+    mix_stats = mixture_em_statistics(mix, x_soft)
+    torch.cuda.synchronize()
+    mix_estep_counts = counts_of(ops)
+    if any(mix_estep_counts[k] != mix_want.get(k, 0)
+           for k in mix_estep_counts):
+        raise AssertionError(f"soft E-step launches {mix_estep_counts}")
+    if not all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            flat_stats(mix_stats),
+            flat_stats(mixture_em_statistics(mix, x_soft)))):
+        raise AssertionError("soft mixture E-step: two calls differ")
+    mix_to_cpu()
+    t0 = time.perf_counter()
+    mix_stats_cpu = mixture_em_statistics(mix_cpu, x_soft.cpu())
+    mix_cpu_estep_s = time.perf_counter() - t0
+    mix_stat_atol = 1e-6 * b_mix
+    mix_d_cpu = compare_stats(mix_stats, mix_stats_cpu,
+                              f"soft E-step einet_celeba x{n_mix} card vs "
+                              "CPU", 1e-4, mix_stat_atol)
+    print(f"soft E-step einet_celeba x{n_mix} B={b_mix} (K5 + K1 + K6 + K2 "
+          f"{n_mix} each, bitwise equal over two calls) vs CPU plain: "
+          f"statistics max |diff| {mix_d_cpu[0]:.3e} (at most "
+          f"{mix_d_cpu[1]:.3e} of a block's max; rtol 1e-4, atol "
+          f"{mix_stat_atol:.1e}; n_weight {mix_stats['n_weight'].sum():.3f} "
+          f"= B); CPU E-step {mix_cpu_estep_s:.2f} s [{card}]")
+    del mix_stats_cpu
+    soft = mixture_run(
+        MixtureTrainConfig(assign="soft"), 10,
+        lambda i: torch.from_numpy(soft_loader.batch_at(i)["x"]).to(dev),
+        mix_want)
+
+    def mix_leaf_rows():
+        with torch.no_grad():
+            for c in range(n_mix):
+                with mix.bound(c) as net:
+                    net._leaf_rows(net.leaf_log_prob(x_soft, None))
+
+    stats_now = mixture_em_statistics(mix, x_soft)
+    mix_stages = {
+        f"leaf rows ({n_mix} components)": time_ms(mix_leaf_rows, iters=5,
+                                                   warmup=1),
+        "mixture_em_statistics (leaf rows, forward, grad, leaf statistics)":
+            time_ms(lambda: mixture_em_statistics(mix, x_soft), iters=5,
+                    warmup=1),
+        "M-step + blend": time_ms(lambda: blend_mixture_params(
+            mix, mixture_m_step(mix, stats_now, em_cfg),
+            em_cfg.step_size), iters=5, warmup=1),
+    }
+    del stats_now
+    print(f"soft stochastic EM einet_celeba x{n_mix} B={b_mix}, 10 steps: "
+          f"median {soft['median_ms']:.3f} ms/step, mean LL first "
+          f"{soft['lls'][0]:.4f}, last {soft['lls'][-1]:.4f}, launches a "
+          f"step " + ", ".join(f"{k} {v // 10}" for k, v in
+                               soft["counts"].items() if v) + f" [{card}]")
+    print("soft step stages: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in mix_stages.items()) + f" [{card}]")
+
+    def busy_line(what, fn, wall_ms):
+        """The device time of every CUDA kernel ``fn`` launches
+        (torch.profiler, 3 calls) against its wall time: the idle share."""
+        parts = kernel_parts(fn, calls=3)
+        busy = sum(us for _, _, us in parts) / 1e3
+        print(f"{what}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+              f"(idle share {1 - busy / wall_ms:.3f}), "
+              f"{sum(n for _, n, _ in parts):.0f} CUDA kernel launches a "
+              f"call; largest " + ", ".join(
+                  f"{name} {n:.0f}x {us:.1f} us" for name, n, us in parts[:4])
+              + f" [{card}]")
+
+    busy_line(f"soft E-step einet_celeba x{n_mix} B={b_mix}",
+              lambda: mixture_em_statistics(mix, x_soft),
+              mix_stages["mixture_em_statistics (leaf rows, forward, grad, "
+                         "leaf statistics)"])
+    mix_full = mixture_run(MixtureTrainConfig(assign="soft", mode="full"), 3,
+                           lambda i: x_soft, mix_want)
+    with torch.inference_mode():
+        mix_full["lls"].append(mix.log_likelihood(x_soft).mean().item())
+    for a, b in zip(mix_full["lls"], mix_full["lls"][1:]):
+        if b < a - 1e-5 * abs(a):
+            raise AssertionError(f"full soft mixture EM lowered the batch "
+                                 f"LL: {mix_full['lls']}")
+    print(f"full soft EM einet_celeba x{n_mix} B={b_mix}, 3 steps on one "
+          f"batch: mean LL " + " -> ".join(
+              f"{v:.4f}" for v in mix_full["lls"])
+          + f" (non-decreasing) [{card}]")
+
+    # mixture_joint_ll at B = 512, against the CPU plain path
+    mix_to_cpu()
+    with torch.inference_mode():
+        reset(ops)
+        mix_ll = mix.log_likelihood(x_soft)
+        torch.cuda.synchronize()
+        mix_ll_counts = counts_of(ops)
+        mix_ll_shapes = collections.Counter(SHAPES)
+        if (mix_ll_counts["gather_grouped_log_einsum_exp"],
+                mix_ll_counts["log_einsum_exp"]) != (n_mix, n_mix) or any(
+                v for k, v in mix_ll_counts.items() if k.endswith("_bwd")):
+            raise AssertionError(f"mixture_joint_ll launches {mix_ll_counts}")
+        mix_ll_cpu = mix_cpu.log_likelihood(x_soft.cpu())
+        if not bool(torch.isfinite(mix_ll).all()) or not torch.allclose(
+                mix_ll.cpu(), mix_ll_cpu, rtol=1e-5, atol=1e-4):
+            raise AssertionError(
+                f"mixture_joint_ll card vs CPU: max |diff| "
+                f"{(mix_ll.cpu() - mix_ll_cpu).abs().max().item():.3e}")
+        mix_ll_ms = time_ms(lambda: mix.log_likelihood(x_soft), iters=10)
+        busy_line(f"mixture_joint_ll einet_celeba x{n_mix} B={b_mix}",
+                  lambda: mix.log_likelihood(x_soft), mix_ll_ms)
+    print(f"mixture_joint_ll einet_celeba x{n_mix} B={b_mix}: "
+          f"{mix_ll_ms:.4f} ms a batch, launches " + ", ".join(
+              f"{k} {v}" for k, v in mix_ll_counts.items() if v)
+          + f"; card vs CPU plain max |diff| "
+          f"{(mix_ll.cpu() - mix_ll_cpu).abs().max().item():.3e} (rtol "
+          f"1e-5, atol 1e-4) [{card}]")
+    del mix_cpu, mix_ll_cpu
+
+    # serving: 256 requests over all ten mixture kinds
+    mix_reqs = mixture_requests(mix, 256, seed=0)
+    mix_engine = ServeEngine(mix, max_batch=64)
+    reset(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mix_served = mix_engine.run(mix_reqs)
+    torch.cuda.synchronize()
+    mix_serve_s = time.perf_counter() - t0
+    mix_serve_counts = counts_of(ops)
+    mix_serve_shapes = collections.Counter(SHAPES)
+    if (mix_serve_counts["gather_grouped_log_einsum_exp"] == 0
+            or mix_serve_counts["log_einsum_exp"] == 0
+            or any(v for k, v in mix_serve_counts.items()
+                   if k.endswith("_bwd") or k.startswith("grouped"))):
+        raise AssertionError(f"mixture serve path launches {mix_serve_counts}")
+    mix_steady = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mix_engine.run(mix_reqs)
+        torch.cuda.synchronize()
+        mix_steady.append(time.perf_counter() - t0)
+    call = direct_call(mix)
+    mix_par = parity(mix_reqs, mix_served,
+                     {r.req_id: call(r) for r in mix_reqs},
+                     mix.value_kinds)
+    resp_err = 0.0
+    for r in mix_reqs:
+        v = np.asarray(mix_served[r.req_id].value)
+        if r.kind == "mixture_responsibility":
+            want_shape = (n_mix,)
+            resp_err = max(resp_err, abs(float(v.sum()) - 1.0))
+        elif r.kind.endswith(("sample", "mpe")):
+            want_shape = (mix.num_vars,)
+        else:
+            want_shape = ()
+        if v.shape != want_shape or not np.isfinite(v).all():
+            raise AssertionError(f"mixture request {r.req_id} ({r.kind}): "
+                                 f"{v.shape}")
+        if r.kind in ("mixture_conditional_sample", "mixture_mpe",
+                      "mixture_component_sample", "mixture_component_mpe") \
+                and not np.array_equal(v[r.evidence_mask],
+                                       r.x[r.evidence_mask]):
+            raise AssertionError(f"mixture request {r.req_id}: evidence "
+                                 "changed")
+    if mix_par["ll_max_abs_diff"] > 1e-5 or mix_par["sample_mismatches"]:
+        raise AssertionError(f"mixture engine/direct parity violated: "
+                             f"{mix_par}")
+    if resp_err > 1e-6:
+        raise AssertionError(f"responsibility rows sum to 1 within "
+                             f"{resp_err:.3e}")
+    with torch.inference_mode():
+        x64 = torch.from_numpy(np.stack([r.x for r in mix_reqs[:64]])).to(dev)
+        ev64 = torch.from_numpy(
+            np.stack([r.evidence_mask for r in mix_reqs[:64]])).to(dev)
+        seeds64 = [r.seed for r in mix_reqs[:64]]
+        mpe64 = mix.conditional_sample_per_key(seeds64, x64, ev64,
+                                               mode="argmax")
+        for b in (0, 37, 63):
+            alone = mix.conditional_sample_per_key(
+                seeds64[b: b + 1], x64[b: b + 1], ev64[b: b + 1],
+                mode="argmax")
+            if not torch.equal(alone[0], mpe64[b]):
+                raise AssertionError(f"mixture_mpe row {b} alone differs "
+                                     "from the same row in a batch of 64")
+    # all the requests of the steady passes over all their time
+    mix_qps = len(mix_reqs) * len(mix_steady) / sum(mix_steady)
+    print(f"mixture serve einet_celeba x{n_mix}: {len(mix_reqs)} requests "
+          f"over all ten kinds, parity with direct one-request calls: LL and "
+          f"responsibility max |diff| {mix_par['ll_max_abs_diff']:.3e}, "
+          f"sampling/decode mismatches {mix_par['sample_mismatches']}; "
+          f"responsibility rows sum to 1 within {resp_err:.1e}; mixture_mpe "
+          f"rows alone equal theirs in a batch of 64 bit for bit [{card}]")
+    mix_engine_steps = mix_engine.stats["steps"] // 3
+    del mix_engine, mix_served, mix_stats
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- report
     # the main paths: serving, and training in both plans (full EM
     # included), of einet_rat and of einet_pd
@@ -1401,7 +1820,12 @@ def main() -> int:
              "einet_pd full EM": pd_full["counts"],
              "einet_pd stochastic EM planned": pd_train["planned"]["counts"],
              "einet_pd stochastic EM per-layer":
-                 pd_train["per-layer"]["counts"]}
+                 pd_train["per-layer"]["counts"],
+             "einet_celeba x8 mixture hard EM": hard["counts"],
+             "einet_celeba x8 mixture soft EM": soft["counts"],
+             "einet_celeba x8 mixture full soft EM": mix_full["counts"],
+             "einet_celeba x8 mixture_joint_ll": mix_ll_counts,
+             "einet_celeba x8 mixture serve": mix_serve_counts}
     for name, c in paths.items():
         print(f"launches on the {name} path: " + ", ".join(
             f"{k} {v}" for k, v in c.items()) + f" [{card}]")
@@ -1410,12 +1834,15 @@ def main() -> int:
         raise AssertionError(f"a kernel never ran on the main paths: {counts}")
     # K1 and K2 at every shape the main paths launched them at (einet_pd's
     # pairs also at its largest serve bucket, B = 64), each row with the
-    # launches at its shape, on fresh inputs made from the seed
+    # launches at its shape, on fresh inputs made from the seed, held
+    # against the plain version at that shape (K2 also over two calls)
     path_shapes = collections.Counter()
     for sh in (serve_shapes, full["shapes"], train["fused"]["shapes"],
                train["per-layer"]["shapes"], pd_serve_shapes,
                pd_full["shapes"], pd_train["planned"]["shapes"],
-               pd_train["per-layer"]["shapes"]):
+               pd_train["per-layer"]["shapes"], hard["shapes"],
+               soft["shapes"], mix_full["shapes"], mix_ll_shapes,
+               mix_serve_shapes):
         path_shapes.update(sh)
     for (name, *shape), n in sorted(path_shapes.items()):
         print(f"{name} launches at (B, L, K_out, K) = {tuple(shape)} on the "
@@ -1436,8 +1863,11 @@ def main() -> int:
             x = torch.from_numpy((rng.randn(b, 2 * l_cells, k) * 4 - 20)
                                  .astype(np.float32)).to(dev)
             l, r = x[:, :l_cells], x[:, l_cells:]
+            what = f"B={b} L={l_cells} K={k} K_out={k_out}"
             if backward:
                 g = rand_g(b, l_cells, k_out)
+                err = max(e["abs"] for e in check_k2(w, l, r, g,
+                                                     f"K2 {what}"))
                 ms = time_ms(lambda: log_einsum_exp_bwd_cuda(w, l, r, g))
                 plain_ms = time_ms(lambda: log_einsum_exp_bwd_plain(w, l, r, g))
                 lib_ms = time_ms(autograd_yardstick(einsum_pair, (w, l, r), g))
@@ -1453,6 +1883,8 @@ def main() -> int:
                 print(f"K1 B={b} L={l_cells} K={k} K_out={k_out}: (tile, "
                       f"subtiles, rows, K_out tile) "
                       f"{launch_geometry(b, l_cells, k, k_out)} [{card}]")
+                err = assert_close(log_einsum_exp_cuda(w, l, r),
+                                   log_einsum_exp_plain(w, l, r), f"K1 {what}")
                 el, er = frame(l, r)
                 ms = time_ms(lambda: log_einsum_exp_cuda(w, l, r))
                 plain_ms = time_ms(lambda: log_einsum_exp_plain(w, l, r))
@@ -1462,7 +1894,7 @@ def main() -> int:
                                + b * l_cells * k_out)
                 flops = 2 * b * l_cells * k_out * k * k
             b_ms, b_by = bound(n_bytes, flops)
-            rows.append({"shape": f"B={b} L={l_cells} K={k} K_out={k_out}",
+            rows.append({"shape": what, "max_abs_err": err,
                          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": b_ms, "bound_by": b_by, "launches": n,
                          "bytes": n_bytes, "flops": flops})
@@ -1472,12 +1904,21 @@ def main() -> int:
     with torch.no_grad():
         k1_rows = pair_rows("log_einsum_exp", backward=False)
         k2_rows = pair_rows("log_einsum_exp_bwd", backward=True)
+    k1_err = max([k1_err] + [r["max_abs_err"] for r in k1_rows])
+    print(f"K1 and K2 agree with their plain versions at each of the "
+          f"{len(k1_rows)} and {len(k2_rows)} (B, L, K_out, K) shapes the "
+          f"main paths launched them at (K1 max |diff| "
+          f"{max(r['max_abs_err'] for r in k1_rows):.3e}, K2 "
+          f"{max(r['max_abs_err'] for r in k2_rows):.3e}; K2 bitwise over two "
+          f"calls) [{card}]")
     for r in [k3_row, k3_big_row] + k5_rows:
         r["library_ms"] = None
     for r in (k3_row, k4_row, k5_row, k6_row):
         r["launches"] = None  # all of the op's launches (report)
-    k5_rows[1]["launches"] = 0  # the serve bucket's time, beside B = 512
-    for r in [k3_row, k3_big_row, k4_row, k4_big_row, k6_row] + k5_rows:
+    # the B = 64 rows' times stand beside B = 512's, whose row carries all
+    # of the kernel's launches
+    k5_rows[1]["launches"] = k6_rows[1]["launches"] = 0
+    for r in [k3_row, k3_big_row, k4_row, k4_big_row] + k5_rows + k6_rows:
         r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"])
     kernel_json = []
 
@@ -1512,7 +1953,8 @@ def main() -> int:
             "library_ms": None if None in lib else sum(lib),
             "rows": [{k: r[k] for k in (
                 "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "launches", "chain_ms") if k in r} for r in rows],
+                "bound_by", "launches", "chain_ms", "max_abs_err")
+                if k in r} for r in rows],
         })
 
     csrc = "src/repro_torch/kernels/csrc/"
@@ -1521,7 +1963,8 @@ def main() -> int:
            k1_rows, k1_err, "einsum yardstick")
     report("log_einsum_exp_bwd", csrc + "log_einsum_exp_bwd.cu",
            "src/repro/kernels/log_einsum_exp.py:224", "log_einsum_exp_bwd",
-           k2_rows, max(worst(k2_x_errs, "abs"), worst(k2_w_errs, "abs")),
+           k2_rows, max([worst(k2_x_errs, "abs"), worst(k2_w_errs, "abs")]
+                        + [r["max_abs_err"] for r in k2_rows]),
            "autograd einsum yardstick")
     report("grouped_fwd", csrc + "grouped_fwd.cu",
            "src/repro/kernels/grouped.py:305", "grouped_log_einsum_exp",
@@ -1536,7 +1979,7 @@ def main() -> int:
            k5_rows, k5_err, "einsum chain + mixing")
     report("gather_bwd", csrc + "gather_bwd.cu",
            "src/repro/kernels/grouped.py:780",
-           "gather_grouped_log_einsum_exp_bwd", [k6_row],
+           "gather_grouped_log_einsum_exp_bwd", k6_rows,
            max(worst(k6_x_errs, "abs"), worst(k6_w_errs, "abs")),
            "autograd einsum-chain + mixing yardstick")
     # rule 2's ranking: the worst loss factor to the yardstick, then the
@@ -1544,7 +1987,7 @@ def main() -> int:
     rank = []
     for kj, rows in zip(kernel_json, (k1_rows, k2_rows, [k3_row, k3_big_row],
                                       [k4_row, k4_big_row], k5_rows,
-                                      [k6_row])):
+                                      k6_rows)):
         factor = max(r["ms"] / (r["library_ms"] if r["library_ms"] is not None
                                 else r["einsum_chain_ms"])
                      for r in rows if r["launches"] or len(rows) == 1)
@@ -1559,7 +2002,8 @@ def main() -> int:
           "on fresh inputs; K3, K4: einet_rat's fused [0,4) at "
           f"B={b_full}, and both also einet_rat_large's K=64 fused [0,2) at "
           f"B=64, off the main paths; K5, K6: einet_pd's gather[0,2) at "
-          f"B={b_pd}, K5 also at the serve bucket B=64), and its ms, "
+          f"B={b_pd}, and at B=64, the serve bucket and the hard mixture "
+          f"step's rows a component), and its ms, "
           "plain_ms, library_ms and bound_ms are the "
           "sums over its rows launched on the main paths; chain_ms is the "
           "per-layer plan's launches at the same pairs (K3, K5: K1, K5 plus "
@@ -1584,6 +2028,16 @@ def main() -> int:
           f"({b_pd / pd_ll_ms * 1e3:.0f} rows/s) [{card}]")
     print("einet_pd joint_ll stages: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in pd_stages.items()) + f" [{card}]")
+    print(f"mixture serve einet_celeba x{n_mix}: {len(mix_reqs)} requests "
+          f"over all ten kinds, first pass {mix_serve_s:.3f} s, steady "
+          f"passes " + ", ".join(f"{t:.3f}" for t in mix_steady)
+          + f" s ({mix_qps:.1f} req/s over all {len(mix_steady)} passes), "
+          f"{mix_engine_steps} engine steps a pass [{card}]")
+    print(f"mixture einet_celeba x{n_mix}: k-means {km_s:.3f} s on the card "
+          f"(CPU {km_cpu_s:.3f} s), hard EM {hard['median_ms']:.3f} ms/step "
+          f"({mix_loader.per_host} rows a component), soft EM "
+          f"{soft['median_ms']:.3f} ms/step (B={b_mix}), mixture_joint_ll "
+          f"{mix_ll_ms:.4f} ms (B={b_mix}) [{card}]")
     print(json.dumps({"kernels": kernel_json}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

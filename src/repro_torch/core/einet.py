@@ -599,17 +599,19 @@ class EiNet(nn.Module):
         return joint - ev
 
     # --------------------------------------------------------------- sampling
-    def row_noise(self, seeds: Sequence[int]) -> torch.Tensor:
-        """(B, noise_size) uniforms: row b's whole vector drawn at once from
-        its own ``torch.Generator`` seeded with ``seeds[b]`` on the model's
-        device, so it depends on that seed alone."""
+    def row_noise(self, seeds: Sequence[int], lead: int = 0) -> torch.Tensor:
+        """(B, lead + noise_size) uniforms: row b's whole vector drawn at once
+        from its own ``torch.Generator`` seeded with ``seeds[b]`` on the
+        model's device, so it depends on that seed alone.  ``lead`` floats
+        come first, for a choice made before this model's pass (a mixture's
+        component)."""
         dev = self.device
+        size = int(lead) + self.noise_size
         rows = []
         for seed in seeds:
             g = torch.Generator(device=dev).manual_seed(int(seed))
-            rows.append(torch.rand(self.noise_size, generator=g, device=dev))
-        u = torch.stack(rows) if rows else torch.empty(
-            (0, self.noise_size), device=dev)
+            rows.append(torch.rand(size, generator=g, device=dev))
+        u = torch.stack(rows) if rows else torch.empty((0, size), device=dev)
         return torch.clamp(u, _U_MIN, 1.0 - _U_MIN)
 
     def _noise_slice(self, noise: torch.Tensor, key) -> torch.Tensor:

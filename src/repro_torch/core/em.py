@@ -46,7 +46,8 @@ class EMConfig:
 
 def params_of(model: EiNet) -> Dict[str, Any]:
     """The module's parameters in the reference's dict layout (detached
-    views, not copies)."""
+    views, not copies).  An ``EiNetMixture`` has the same names with a
+    leading component axis, so this also gives its stacked components."""
     return {
         "phi": model.phi.detach(),
         "einsum": [w.detach() for w in model.einsum],
@@ -57,7 +58,8 @@ def params_of(model: EiNet) -> Dict[str, Any]:
 
 @torch.no_grad()
 def load_params(model: EiNet, params: Dict[str, Any]) -> None:
-    """Copy a parameter dict into the module's parameters, in place."""
+    """Copy a parameter dict into the module's parameters (or a mixture's
+    stacked components), in place."""
     model.phi.copy_(params["phi"])
     for p, new in zip(model.einsum, params["einsum"]):
         p.copy_(new)
@@ -81,6 +83,18 @@ def leaf_scatter(model: EiNet, s_phi_pairs: torch.Tensor,
     s_den = s_den_pairs.new_zeros((d * r, k)).index_copy_(
         0, flat, s_den_pairs).reshape(d, r, k).transpose(1, 2)
     return s_phi, s_den
+
+
+@torch.no_grad()
+def leaf_statistics(model: EiNet, t: torch.Tensor, g_leaf: torch.Tensor):
+    """Leaf statistics from the leaf-row posteriors ``g_leaf`` (B,
+    num_leaves, K) and the sufficient statistics ``t`` (B, D, |T|) of the
+    batch: s_phi (D, K, R, |T|) = sum_x p_L(x) T(x) and s_den (D, K, R) =
+    sum_x p_L(x), each leaf's posterior fanned out to its scope."""
+    g_pairs = g_leaf[:, model.leaf_pair_leaf, :]  # (B, P, K)
+    t_pairs = t[:, model.leaf_pair_var, :]  # (B, P, |T|)
+    s_phi_pairs = torch.einsum("bpk,bpt->pkt", g_pairs, t_pairs)
+    return leaf_scatter(model, s_phi_pairs, g_pairs.sum(0))
 
 
 def em_statistics(model: EiNet, x: torch.Tensor) -> Dict[str, Any]:
@@ -120,13 +134,8 @@ def em_statistics(model: EiNet, x: torch.Tensor) -> Dict[str, Any]:
         n_einsum = [w.detach() * g for w, g in zip(einsum_w, g_einsum)]
         n_mixing = [v.detach() * (torch.zeros_like(v) if g is None else g)
                     for v, g in zip(mixing_v, g_mixing)]
-        # leaf statistics: the leaf-row posteriors fanned out to (d, k, r)
-        t = model.ef.sufficient_statistics(x)  # (B, D, |T|)
-        g_pairs = g_leaf[:, model.leaf_pair_leaf, :]  # (B, P, K)
-        t_pairs = t[:, model.leaf_pair_var, :]  # (B, P, |T|)
-        s_phi_pairs = torch.einsum("bpk,bpt->pkt", g_pairs, t_pairs)
-        s_den_pairs = g_pairs.sum(0)
-        s_phi, s_den = leaf_scatter(model, s_phi_pairs, s_den_pairs)
+        s_phi, s_den = leaf_statistics(
+            model, model.ef.sufficient_statistics(x), g_leaf)
     return {
         "n_einsum": n_einsum,
         "n_mixing": n_mixing,

@@ -6,6 +6,7 @@ from repro_torch.configs import EinetConfig
 from repro_torch.core import Normal, poon_domingos, random_binary_trees
 from repro_torch.core.einet import EiNet
 from repro_torch.core.exponential_family import make_exponential_family
+from repro_torch.mixture.model import EiNetMixture
 
 
 def build_einet(cfg: EinetConfig, device=None, seed: int = 0,
@@ -33,3 +34,13 @@ def build_einet(cfg: EinetConfig, device=None, seed: int = 0,
     return EiNet(graph, num_sums=cfg.num_sums, num_classes=cfg.num_classes,
                  exponential_family=ef, grouped=grouped, device=device,
                  seed=seed)
+
+
+def build_mixture(cfg: EinetConfig, num_components: int, device=None,
+                  seed: int = 0, grouped: bool = True) -> EiNetMixture:
+    """A mixture of ``num_components`` of the config's EiNets (the §4.2
+    model) over one shared structure, parameters initialised from ``seed``,
+    on ``device`` (CUDA unless ``device="cpu"``)."""
+    return EiNetMixture(build_einet(cfg, device=device, seed=seed,
+                                    grouped=grouped),
+                        num_components, seed=seed)

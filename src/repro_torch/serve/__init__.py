@@ -1,6 +1,6 @@
 """Batched exact-inference serving for Einsum Networks: ``ServeEngine``
 coalesces heterogeneous requests (likelihoods, marginals, conditionals,
-sampling, MPE) into padded per-kind micro-batches."""
+sampling, MPE; a mixture's kinds too) into padded per-kind micro-batches."""
 
 from repro_torch.serve.engine import Request, Result, ServeEngine
 from repro_torch.serve.queue import RequestQueue, SlotManager
@@ -8,6 +8,7 @@ from repro_torch.serve.workload import (
     DEFAULT_MIX,
     direct_call,
     mixed_requests,
+    mixture_requests,
     parity,
 )
 
@@ -20,5 +21,6 @@ __all__ = [
     "DEFAULT_MIX",
     "direct_call",
     "mixed_requests",
+    "mixture_requests",
     "parity",
 ]

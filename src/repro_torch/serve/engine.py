@@ -58,7 +58,8 @@ class Result:
 
 
 class ServeEngine:
-    """Batched exact-inference serving engine over one EiNet."""
+    """Batched exact-inference serving engine over one EiNet, or one
+    ``EiNetMixture`` (its ``query_kinds`` and ``component_kinds``)."""
 
     def __init__(
         self,

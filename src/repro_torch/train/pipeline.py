@@ -44,18 +44,24 @@ class TrainConfig:
     num_microbatches: int = 1
 
 
+def split_microbatches(x: torch.Tensor, num_microbatches: int):
+    """``x`` as ``num_microbatches`` equal pieces along its first axis, in
+    order; raises when the batch does not divide."""
+    b = x.shape[0]
+    if b % num_microbatches:
+        raise ValueError(
+            f"batch {b} not divisible into {num_microbatches} microbatches")
+    return x.split(b // num_microbatches)
+
+
 def microbatched_em_statistics(model: EiNet, x: torch.Tensor,
                                num_microbatches: int = 1) -> Dict[str, Any]:
     """E-step statistics for ``x``, summed over ``num_microbatches`` equal
     pieces in order (the same totals as one call, to float32 rounding)."""
     if num_microbatches == 1:
         return em_statistics(model, x)
-    b = x.shape[0]
-    if b % num_microbatches:
-        raise ValueError(
-            f"batch {b} not divisible into {num_microbatches} microbatches")
     acc = zeros_like_statistics(model)
-    for xb in x.split(b // num_microbatches):
+    for xb in split_microbatches(x, num_microbatches):
         acc = accumulate_statistics(acc, em_statistics(model, xb))
     return acc
 
