@@ -85,7 +85,26 @@
    responsibility within 1e-5, sampling and MPE identical), responsibility
    rows summing to 1 within 1e-6, and mixture_mpe rows alone equal to
    theirs in a batch of 64 bit for bit.
-11. Prints the launch counts of every main path (each kernel must have run
+11. Eval phase: the image-evaluation workbench (repro_torch.eval.run_eval)
+   end to end, twice on the procedural stand-ins: one EiNet at einet_pd's
+   structure and width (svhn geometry, K = 40, 80 EM steps at batch 128)
+   and the mixture einet_celeba x 8 (k-means, 20 hard EM steps at 64 rows
+   a component).  Each trains, streams 256 test rows through
+   ServeEngine(max_batch=32) for joint and marginal bits per dim, inpaints
+   8 images under the four Fig. 4 masks and draws 16 samples.  Gates:
+   parity_mismatches_total == 0 (engine against direct one-row calls, bit
+   for bit), launches a training step (K5, K6, K1, K2 one each a
+   component) and a joint_ll engine batch (K5, K1 one each a component),
+   the single EiNet's joint and marginal LLs on the card against the CPU
+   plain path (rtol 1e-5, atol 1e-4), the train LL rising, finite bits
+   per dim, and metrics.json plus valid PNG grids of the expected size.
+   Prints bits per dim, engine rows/s, inpainting req/s and MSEs, warm-up
+   seconds, serve p50/p95/p99 from repro_torch.obs and wall seconds.  Then
+   holds K5 and K6 against their plain versions (two calls bitwise) at
+   every (tables, B) the two runs launched them at (counted by wrapping
+   the ops' kernels): the training batches (B = 128, and 64 a component),
+   every engine bucket (1 to 32) and the direct calls.
+12. Prints the launch counts of every main path (each kernel must have run
    on them) and the shapes (B, L, K_out, K) K1 and K2 were launched at
    there (counted by wrapping the ops' kernels, whose launch counters stay
    as they are); times K1 and K2 at each of those shapes (and K1 at
@@ -120,9 +139,13 @@ import collections
 import dataclasses
 import json
 import os
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -271,9 +294,288 @@ def record_shapes(op):
     op.kernel = run
 
 
+# (op name, B, id of the tables) -> launches of K5 and K6 since the last
+# reset, filled by record_gather_shapes; TABLES holds each id's tables
+GATHER_SHAPES = collections.Counter()
+TABLES = {}
+
+
+def record_gather_shapes(op):
+    """Wrap a gather run's op (K5 or K6) so that each launch also counts
+    its batch and tables in GATHER_SHAPES (the launch counter is left as
+    it is)."""
+    kernel = op.kernel
+
+    def run(tables, ws_, vs_, x, *rest, **kw):
+        TABLES.setdefault(id(tables), tables)
+        GATHER_SHAPES[(op.name, x.shape[0], id(tables))] += 1
+        return kernel(tables, ws_, vs_, x, *rest, **kw)
+    op.kernel = run
+
+
 def reset(ops):
     ops.reset_counts()
     SHAPES.clear()
+    GATHER_SHAPES.clear()
+
+
+# the eval phase's two workbench runs (EvalConfig keywords; the rest is
+# EvalConfig's default: 256 eval rows with parity on 64, 8 inpainting images
+# under the four masks, 16 samples, max_batch 32): one EiNet at einet_pd's
+# structure and width (32x32x3, Delta=8, K=40, 80 EM steps at batch 128),
+# and the §4.2 mixture einet_celeba x 8 (hard EM cut from 80 steps to 20)
+EVAL_RUNS = {
+    "einet_pd K=40": dict(dataset="svhn", source="procedural", num_sums=40),
+    "einet_celeba x8": dict(dataset="celeba", source="procedural",
+                            num_sums=40, mixture=8, batch=512, steps=20),
+}
+
+
+def png_check(path: str, width: int, height: int, channels: int) -> None:
+    """A PNG the workbench wrote: signature, IHDR (8-bit grey or RGB of
+    ``width`` x ``height``), every chunk's CRC, and image data that inflates
+    to one filter byte and ``width * channels`` bytes a scanline."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG signature")
+    pos, chunks, idat = 8, [], b""
+    while pos < len(data):
+        n, = struct.unpack(">I", data[pos: pos + 4])
+        kind, body = data[pos + 4: pos + 8], data[pos + 8: pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n: pos + 12 + n])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"{path}: bad CRC in {kind!r}")
+        chunks.append(kind)
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    color = 0 if channels == 1 else 2
+    if chunks[0] != b"IHDR" or chunks[-1] != b"IEND" or \
+            ihdr != (width, height, 8, color, 0, 0, 0):
+        raise AssertionError(f"{path}: chunks {chunks}, IHDR {ihdr}; "
+                             f"expected {width}x{height}, colour {color}")
+    if len(zlib.decompress(idat)) != height * (1 + width * channels):
+        raise AssertionError(f"{path}: image data of the wrong size")
+
+
+def grid_size(n: int, columns: int, h: int, w: int, pad: int = 2):
+    """(width, height) of ``save_image_grid``'s canvas for n tiles."""
+    cols = max(1, min(columns, n))
+    rows = -(-n // cols)
+    return cols * (w + pad) + pad, rows * (h + pad) + pad
+
+
+def eval_phase(card: str, dev) -> dict:
+    """Each ``EVAL_RUNS`` workbench run end to end on ``dev`` (the launch
+    counters set to 0 just before ``run_eval`` and read just after), its
+    gates, and its figures printed.  The launches of its parts are read by
+    wrapping the workbench's trainers and the engine's batch execution for
+    the run; returns each run's launch counts, K1/K2 shapes and K5/K6
+    (B, tables)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import em
+    from repro_torch.data import to_domain
+    from repro_torch.eval import workbench
+    from repro_torch.eval.masks import make_mask
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cells import build_einet
+    from repro_torch.serve import ServeEngine
+
+    k5, k6 = "gather_grouped_log_einsum_exp", "gather_grouped_log_einsum_exp_bwd"
+    k1, k2 = "log_einsum_exp", "log_einsum_exp_bwd"
+    parts = collections.defaultdict(list)  # part -> launches of each call
+    trained = {}
+
+    def since(before):
+        after = counts_of(ops)
+        return {k: after[k] - before[k] for k in after}
+
+    def counting_trainer(fn):
+        def run(model, *args):
+            before = counts_of(ops)
+            out = fn(model, *args)
+            parts["train"].append(since(before))
+            trained["model"] = model
+            return out
+        return run
+
+    orig = (workbench._train, workbench._train_mixture, ServeEngine._execute)
+
+    def execute(self, kind, component, reqs):
+        before = counts_of(ops)
+        out = orig[2](self, kind, component, reqs)
+        parts[kind].append(since(before))
+        return out
+
+    def exactly(got, want, what):
+        want = {k: want.get(k, 0) for k in got}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    workbench._train = counting_trainer(orig[0])
+    workbench._train_mixture = counting_trainer(orig[1])
+    ServeEngine._execute = execute
+    runs = {}
+    try:
+        for name, kw in EVAL_RUNS.items():
+            parts.clear()
+            trained.clear()
+            cfg = workbench.EvalConfig(device=str(dev), out_dir=out_dir, **kw)
+            n_c = max(1, cfg.mixture)
+            prefix = "mixture_" if cfg.mixture >= 2 else ""
+            obs.METRICS.reset()
+            obs.reset()
+            obs.configure(trace=True)
+            torch.cuda.synchronize()
+            reset(ops)
+            rec = workbench.run_eval(cfg)
+            torch.cuda.synchronize()
+            counts, shapes = counts_of(ops), collections.Counter(SHAPES)
+            gather_shapes = collections.Counter(GATHER_SHAPES)
+            obs.configure(trace=False)
+            with open(obs.export_trace(os.path.join(out_dir, "trace.json"))
+                      ) as f:
+                spans = collections.Counter()
+                for e in json.load(f)["traceEvents"]:
+                    if e["ph"] == "X":
+                        spans[e["name"]] += e["dur"] / 1e6
+            what = f"eval {name}"
+            # -- gates
+            if rec["parity_mismatches_total"] != 0:
+                raise AssertionError(
+                    f"{what}: {rec['parity_mismatches_total']} engine results "
+                    "differ from the direct one-row calls (bitwise)")
+            steps = rec["train_steps"]
+            if steps != cfg.steps or len(parts["train"]) != 1:
+                raise AssertionError(f"{what}: {steps} EM steps")
+            exactly(parts["train"][0], {k: n_c * steps for k in
+                                        (k5, k6, k1, k2)},
+                    f"{what}: {steps} EM steps")
+            ll_batches = parts[prefix + "joint_ll"]
+            if not ll_batches:
+                raise AssertionError(f"{what}: no engine joint_ll batch")
+            for got in ll_batches:
+                exactly(got, {k5: n_c, k1: n_c},
+                        f"{what}: an engine {prefix}joint_ll batch")
+            if not rec["train_ll_last"] > rec["train_ll_first"]:
+                raise AssertionError(
+                    f"{what}: train LL {rec['train_ll_first']} -> "
+                    f"{rec['train_ll_last']}")
+            bpds = (rec["bpd_joint"]["bpd"], rec["bpd_marginal"]["bpd"])
+            if not all(np.isfinite(bpds)):
+                raise AssertionError(f"{what}: bits per dim {bpds}")
+            h, w, c = rec["height"], rec["width"], rec["channels"]
+            run_dir = os.path.join(out_dir, rec["run_name"])
+            if not os.path.isfile(os.path.join(run_dir, "metrics.json")):
+                raise AssertionError(f"{what}: no metrics.json")
+            png_check(os.path.join(run_dir, "samples.png"),
+                      *grid_size(cfg.num_samples, 8, h, w), c)
+            for mk in cfg.mask_kinds:
+                png_check(os.path.join(run_dir, f"inpaint_{mk}.png"),
+                          *grid_size(4 * cfg.inpaint_rows, cfg.inpaint_rows,
+                                     h, w), c)
+            # -- the single EiNet's LLs on the card against the CPU plain
+            # path, with the trained parameters copied across
+            cpu_line = ""
+            if n_c == 1:
+                model = trained["model"]
+                data = workbench.resolve_dataset(cfg)
+                spec = data.spec
+                test_x, _ = to_domain(data.test_x, cfg.family)
+                x64 = torch.from_numpy(test_x[:64]).to(dev)
+                ev = make_mask(cfg.marginal_mask, h, w, c, seed=cfg.seed)
+                ev64 = torch.from_numpy(np.repeat(ev[None], 64, 0)).to(dev)
+                cpu = build_einet(workbench.pd_config_for(cfg, spec),
+                                  device="cpu", seed=cfg.seed)
+                em.load_params(cpu, em.params_of(model))
+                diffs = []
+                with torch.inference_mode():
+                    for kind, m in (("joint", None), ("marginal", ev64)):
+                        got = model.log_likelihood(x64, m).cpu()
+                        want = cpu.log_likelihood(
+                            x64.cpu(), None if m is None else m.cpu())
+                        if not bool(torch.isfinite(got).all()) or \
+                                not torch.allclose(got, want, rtol=1e-5,
+                                                   atol=1e-4):
+                            raise AssertionError(
+                                f"{what}: {kind} LL card vs CPU max |diff| "
+                                f"{(got - want).abs().max().item():.3e}")
+                        diffs.append((got - want).abs().max().item())
+                del cpu
+                cpu_line = (f"; joint and marginal LL of 64 eval rows on the "
+                            f"card vs the CPU plain path max |diff| "
+                            f"{diffs[0]:.3e} and {diffs[1]:.3e} (rtol 1e-5, "
+                            f"atol 1e-4)")
+            # -- figures
+            bj, bm, inp = rec["bpd_joint"], rec["bpd_marginal"], \
+                rec["inpainting"]
+            req = obs.METRICS.sum_histogram("serve.request.seconds")
+            lat = {q: obs.percentile_from_counts(req, q) * 1e3
+                   for q in (50, 95, 99)}
+            step_ms = obs.percentile_from_counts(
+                obs.METRICS.sum_histogram("train.step.seconds"), 50) * 1e3
+            n_par = (bj["parity_rows"] + min(cfg.eval_rows, 64)
+                     + inp["parity_rows"] + cfg.num_samples)
+            print(f"{what}: {rec['dataset']} ({rec['dataset_source']}) "
+                  f"{h}x{w}x{c}, {rec['num_params']} parameters, "
+                  f"{steps} EM steps (launches a step " + ", ".join(
+                      f"{k} {v // steps}" for k, v in
+                      parts["train"][0].items() if v)
+                  + f"), train LL {rec['train_ll_first']:.4f} -> "
+                  f"{rec['train_ll_last']:.4f}"
+                  + (f", k-means clusters {rec['cluster_sizes']}"
+                     if rec["cluster_sizes"] else "")
+                  + f"; {len(ll_batches)} engine {prefix}joint_ll batches, "
+                  f"launches each " + ", ".join(
+                      f"{k} {v}" for k, v in ll_batches[0].items() if v)
+                  + f"; parity mismatches 0 of {n_par} requests held bit "
+                  f"for bit against direct one-row calls{cpu_line} [{card}]")
+            print(f"{what}: bpd joint {bj['bpd']:.6f} ({bj['num_rows']} rows, "
+                  f"mean LL {bj['mean_ll']:.4f}), marginal ({bm['mask']}, "
+                  f"{bm['evidence_dims']} dims) {bm['bpd']:.6f}; engine "
+                  f"{bj['engine_rows_per_s']:.1f} rows/s (joint_ll, "
+                  f"{bj['engine_seconds']:.4f} s), warm-up "
+                  f"{bj['warmup_seconds']:.4f} s (joint_ll kind, "
+                  f"{rec['engine_programs']} (kind, bucket) keys in all); "
+                  f"wall {rec['wall_seconds']:.3f} s [{card}]")
+            print(f"{what}: inpainting {inp['requests_per_s']:.1f} req/s "
+                  f"({inp['num_requests']} requests); " + "; ".join(
+                      f"{mk} sample MSE {m['conditional_sample_mse']:.6f}, "
+                      f"MPE {m['mpe_mse']:.6f}, mean-fill "
+                      f"{m['mean_fill_mse']:.6f}"
+                      for mk, m in inp["per_mask"].items())
+                  + f" [{card}]")
+            busy = spans["train.step"] + spans["serve.warmup"] + \
+                spans["serve.step"]
+            print(f"{what}: time by obs span: train.step "
+                  f"{spans['train.step']:.3f} s, serve.warmup "
+                  f"{spans['serve.warmup']:.3f} s, serve.step (every engine "
+                  f"batch) {spans['serve.step']:.3f} s (eval.ll_stream "
+                  f"{spans['eval.ll_stream']:.3f} s, eval.inpaint "
+                  f"{spans['eval.inpaint']:.3f} s of it); the rest of the "
+                  f"{rec['wall_seconds']:.3f} s wall (the direct one-row "
+                  f"parity calls, k-means, data, artifacts) "
+                  f"{rec['wall_seconds'] - busy:.3f} s [{card}]")
+            print(f"{what}: serve latency (repro_torch.obs, {sum(req)} "
+                  f"requests, queue wait included) p50 {lat[50]:.3f} ms, p95 "
+                  f"{lat[95]:.3f} ms, p99 {lat[99]:.3f} ms; [obs] "
+                  f"{obs.format_summary()} [{card}]")
+            runs[name] = {"counts": counts, "shapes": shapes,
+                          "gather_shapes": gather_shapes, "record": rec,
+                          "latency_ms": lat, "step_ms": step_ms}
+            trained.clear()
+            torch.cuda.empty_cache()
+    finally:
+        workbench._train, workbench._train_mixture, ServeEngine._execute = orig
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return runs
 
 
 def main() -> int:
@@ -335,6 +637,8 @@ def main() -> int:
 
     record_shapes(ops.log_einsum_exp)
     record_shapes(ops.log_einsum_exp_bwd)
+    record_gather_shapes(ops.gather_grouped_log_einsum_exp)
+    record_gather_shapes(ops.gather_grouped_log_einsum_exp_bwd)
 
     # ------------------------------------------------ forward kernel phase
     cfg = get_config("einet_rat")
@@ -1809,6 +2113,57 @@ def main() -> int:
     del mix_engine, mix_served, mix_stats
     torch.cuda.empty_cache()
 
+    # ----------------------------------------------------------- eval phase
+    # the image-evaluation workbench end to end (repro_torch.eval): training,
+    # bits per dim, Fig. 4 inpainting and sample grids, every query through
+    # the engine and held bit for bit against direct one-row calls
+    evals = eval_phase(card, dev)
+    # K5 and K6 at every (tables, B) the eval runs launched them at (the
+    # training batches, every engine bucket, the direct calls), on fresh
+    # inputs made from the seed, held against their plain versions; the
+    # launches counted above are untouched
+    eval_gather = collections.Counter()
+    for run in evals.values():
+        for (op_name, b, tid), n in run["gather_shapes"].items():
+            eval_gather[(op_name, b, TABLES[tid])] += n
+    k5_name = ops.gather_grouped_log_einsum_exp.name
+    k6_name = ops.gather_grouped_log_einsum_exp_bwd.name
+    eval_k5_err, eval_k6_w, eval_k6_x, held = 0.0, [], [], []
+    with torch.no_grad():
+        for (op_name, b, tables), n in eval_gather.items():
+            if op_name != k5_name:
+                continue
+            k = tables.k
+            ws_, vs_ = rand_wv(tables, k)
+            # the special rows (masked, -inf, saturated) from B = 8 up
+            x = rand_x(b, tables.num_in_rows, k) if b >= 8 else \
+                rand_x(b + 4, tables.num_in_rows, k)[4:]
+            what = (f"eval cells={[len(l) for l in tables.left]} K={k} "
+                    f"B={b}")
+            eval_k5_err = max(eval_k5_err,
+                              check_k5(tables, ws_, vs_, x, f"K5 {what}"))
+            n6 = eval_gather.get((k6_name, b, tables), 0)
+            if n6:
+                errs, e = check_k6(tables, ws_, vs_, x,
+                                   rand_g(b, tables.num_new_rows, k),
+                                   f"K6 {what}")
+                eval_k6_w += errs
+                eval_k6_x.append(e)
+            held.append(f"B={b} K={k} (K5 {n}, K6 {n6} launches)")
+    k5_keys, k6_keys = ({(b, t) for op_name, b, t in eval_gather
+                         if op_name == name} for name in (k5_name, k6_name))
+    if not k6_keys or k6_keys - k5_keys:
+        raise AssertionError(f"eval: K6 held at {len(k6_keys & k5_keys)} "
+                             f"of its {len(k6_keys)} (tables, B)")
+    k5_err = max(k5_err, eval_k5_err)
+    k6_w_errs += eval_k6_w
+    k6_x_errs += eval_k6_x
+    print(f"eval K5 and K6 against their plain versions at every (tables, "
+          f"B) the eval runs launched them at: " + "; ".join(held)
+          + f" (two calls bitwise; K5 max |diff| {eval_k5_err:.3e}, K6 gx "
+          f"max |diff| {worst(eval_k6_x, 'abs'):.3e}, gw max |diff| "
+          f"{worst(eval_k6_w, 'abs'):.3e}) [{card}]")
+
     # ------------------------------------------------------------- report
     # the main paths: serving, and training in both plans (full EM
     # included), of einet_rat and of einet_pd
@@ -1825,7 +2180,9 @@ def main() -> int:
              "einet_celeba x8 mixture soft EM": soft["counts"],
              "einet_celeba x8 mixture full soft EM": mix_full["counts"],
              "einet_celeba x8 mixture_joint_ll": mix_ll_counts,
-             "einet_celeba x8 mixture serve": mix_serve_counts}
+             "einet_celeba x8 mixture serve": mix_serve_counts,
+             **{f"eval {name}": run["counts"]
+                for name, run in evals.items()}}
     for name, c in paths.items():
         print(f"launches on the {name} path: " + ", ".join(
             f"{k} {v}" for k, v in c.items()) + f" [{card}]")
@@ -1842,7 +2199,7 @@ def main() -> int:
                pd_full["shapes"], pd_train["planned"]["shapes"],
                pd_train["per-layer"]["shapes"], hard["shapes"],
                soft["shapes"], mix_full["shapes"], mix_ll_shapes,
-               mix_serve_shapes):
+               mix_serve_shapes, *(run["shapes"] for run in evals.values())):
         path_shapes.update(sh)
     for (name, *shape), n in sorted(path_shapes.items()):
         print(f"{name} launches at (B, L, K_out, K) = {tuple(shape)} on the "
@@ -2038,6 +2395,16 @@ def main() -> int:
           f"({mix_loader.per_host} rows a component), soft EM "
           f"{soft['median_ms']:.3f} ms/step (B={b_mix}), mixture_joint_ll "
           f"{mix_ll_ms:.4f} ms (B={b_mix}) [{card}]")
+    for name, run in evals.items():
+        rec = run["record"]
+        print(f"eval {name}: bpd joint {rec['bpd_joint']['bpd']:.6f}, "
+              f"marginal {rec['bpd_marginal']['bpd']:.6f}; engine "
+              f"{rec['bpd_joint']['engine_rows_per_s']:.1f} rows/s; EM step "
+              f"p50 {run['step_ms']:.1f} ms; "
+              f"inpainting {rec['inpainting']['requests_per_s']:.1f} req/s; "
+              f"serve p50/p95/p99 " + "/".join(
+                  f"{v:.3f}" for v in run["latency_ms"].values())
+              + f" ms; wall {rec['wall_seconds']:.3f} s [{card}]")
     print(json.dumps({"kernels": kernel_json}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

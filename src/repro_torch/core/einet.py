@@ -380,6 +380,9 @@ class EiNet(nn.Module):
         return self.class_prior.device
 
     # ------------------------------------------------------------- parameters
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
         """Random initialisation (the reference's ``init`` distribution),

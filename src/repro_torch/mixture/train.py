@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.em import (
     EMConfig,
     accumulate_statistics,
@@ -389,14 +390,21 @@ def fit_mixture(
 ) -> List[float]:
     """Run the mixture step over an iterable of batches (dicts with an "x"
     key, or arrays / tensors), updating ``mix`` in place.  Returns the
-    per-step mean LLs."""
+    per-step mean LLs.  Steps are timed into ``train.step.seconds`` and
+    their rows (all components') counted in ``train.examples.count``, as
+    ``repro_torch.train.fit`` does."""
     step = make_mixture_em_step(mix, cfg)
     lls: List[float] = []
     for i, batch in enumerate(batches):
         if num_steps is not None and i >= num_steps:
             break
-        x = batch["x"] if isinstance(batch, dict) else batch
-        lls.append(step(torch.as_tensor(x, device=mix.device)))
+        x = torch.as_tensor(batch["x"] if isinstance(batch, dict) else batch,
+                            device=mix.device)
+        with obs.timed("train.step", metric="train.step.seconds"):
+            lls.append(step(x))
+        obs.METRICS.counter("train.examples.count").inc(
+            x.shape[:-1].numel())
+        obs.METRICS.gauge("train.ll.last").set(lls[-1])
         if on_step is not None:
             on_step(i, lls[-1])
     return lls

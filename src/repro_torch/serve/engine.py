@@ -14,17 +14,27 @@ under ``torch.inference_mode()``.
     neighbours or of the bucket size.
   * Per-request determinism: a request with ``seed`` samples exactly as a
     direct ``model.conditional_sample_per_key([seed], ...)`` call.
+
+Eager PyTorch compiles nothing, so the reference's per-(kind, bucket)
+program cache has no counterpart: ``warmup`` runs one query per (kind,
+bucket[, component]) on filler rows instead, which pays the one-time costs
+(kernel build and load, allocator growth, library handles) outside a timed
+drain, and ``num_programs`` counts the keys warmed or run.  The engine
+records the reference's serve metrics (``repro_torch.obs``): queue depth,
+per-request queue wait and end-to-end latency, coalesce and execute times.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.einet import QUERY_KINDS
+from repro_torch.obs import METRICS
 from repro_torch.serve.queue import RequestQueue, SlotManager
 
 LL_KINDS = ("joint_ll", "marginal_ll", "conditional_ll")
@@ -55,6 +65,34 @@ class Result:
     req_id: int
     kind: str
     value: np.ndarray  # () log-likelihood, or (D,) sample / decode
+
+
+def assemble_batch(model, reqs: Sequence[Request],
+                   bucket: int) -> Dict[str, Any]:
+    """The ``model.query`` batch of ``bucket`` rows for ``reqs``, on the
+    model's device: each request's fields in its row (zeros for a missing
+    ``x``, empty masks for missing ones), filler rows (zeros, empty masks,
+    seed 0) after them."""
+    d = model.num_vars
+    x = np.zeros((bucket, d), np.float32)
+    ev = np.zeros((bucket, d), bool)
+    qm = np.zeros((bucket, d), bool)
+    seeds = [0] * bucket
+    for i, r in enumerate(reqs):
+        if r.x is not None:
+            x[i] = r.x
+        if r.evidence_mask is not None:
+            ev[i] = r.evidence_mask
+        if r.query_mask is not None:
+            qm[i] = r.query_mask
+        seeds[i] = int(r.seed)
+    dev = model.device
+    return {
+        "x": torch.from_numpy(x).to(dev),
+        "evidence_mask": torch.from_numpy(ev).to(dev),
+        "query_mask": torch.from_numpy(qm).to(dev),
+        "seeds": seeds,
+    }
 
 
 class ServeEngine:
@@ -89,9 +127,23 @@ class ServeEngine:
         self.queue = RequestQueue(key_fn=lambda r: (r.kind, r.component))
         self.slots = SlotManager(max_batch)
         self.stats = {"steps": 0, "requests": 0, "padded_rows": 0}
+        # (kind, bucket[, component]) keys warmed or run
+        self._programs: Set[tuple] = set()
+        # req_id -> enqueue clock, for the queue-wait and end-to-end
+        # latency metrics (popped in _execute)
+        self._submit_t: Dict[int, float] = {}
 
     # ----------------------------------------------------------- submission
     def submit(self, request: Request) -> None:
+        self._enqueue(request)
+        METRICS.gauge("serve.queue.depth").set(len(self.queue))
+
+    def submit_many(self, requests: Sequence[Request]) -> None:
+        for r in requests:
+            self._enqueue(r)
+        METRICS.gauge("serve.queue.depth").set(len(self.queue))
+
+    def _enqueue(self, request: Request) -> None:
         if request.kind not in self.query_kinds:
             raise ValueError(
                 f"unknown query kind {request.kind!r}; one of "
@@ -111,53 +163,91 @@ class ServeEngine:
                 f"(got {request.component!r})"
             )
         self.queue.submit(request)
+        self._submit_t[request.req_id] = obs.now()
 
-    def submit_many(self, requests: Sequence[Request]) -> None:
-        for r in requests:
-            self.submit(r)
+    # ------------------------------------------------------------- warm-up
+    @property
+    def num_programs(self) -> int:
+        """Distinct (kind, bucket[, component]) keys warmed or run."""
+        return len(self._programs)
+
+    def warmup(
+        self,
+        kinds: Optional[Sequence[str]] = None,
+        buckets: Optional[Sequence[int]] = None,
+        components: Optional[Sequence[int]] = None,
+    ) -> float:
+        """Run one query on filler rows per (kind, bucket) of a cross
+        product; returns the seconds it took, results copied to the host
+        (so the device has finished).  Component-pinned kinds run once per
+        component (all of them by default; pass ``components`` to
+        narrow)."""
+        with obs.timed("serve.warmup") as t:
+            for kind in kinds or self.query_kinds:
+                if kind in self.component_kinds:
+                    comps: Sequence[Optional[int]] = (
+                        components if components is not None
+                        else range(getattr(self.model, "num_components", 0))
+                    )
+                else:
+                    comps = (None,)
+                for c in comps:
+                    for bucket in buckets or self.buckets:
+                        self._query(kind, c,
+                                    assemble_batch(self.model, [], bucket)).cpu()
+                        self._programs.add(self._key(kind, bucket, c))
+        return t.seconds
 
     # ------------------------------------------------------------ execution
+    @staticmethod
+    def _key(kind: str, bucket: int, component: Optional[int]) -> tuple:
+        return (kind, bucket) if component is None else (kind, bucket,
+                                                        int(component))
+
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
             if n <= b:
                 return b
         return self.buckets[-1]
 
-    def _assemble(self, reqs: List[Request], bucket: int) -> Dict[str, Any]:
-        d = self.model.num_vars
-        x = np.zeros((bucket, d), np.float32)
-        ev = np.zeros((bucket, d), bool)
-        qm = np.zeros((bucket, d), bool)
-        seeds = [0] * bucket
-        for i, r in enumerate(reqs):
-            if r.x is not None:
-                x[i] = r.x
-            if r.evidence_mask is not None:
-                ev[i] = r.evidence_mask
-            if r.query_mask is not None:
-                qm[i] = r.query_mask
-            seeds[i] = int(r.seed)
-        dev = self.model.device
-        return {
-            "x": torch.from_numpy(x).to(dev),
-            "evidence_mask": torch.from_numpy(ev).to(dev),
-            "query_mask": torch.from_numpy(qm).to(dev),
-            "seeds": seeds,
-        }
+    def _query(self, kind: str, component: Optional[int],
+               batch: Dict[str, Any]) -> torch.Tensor:
+        with torch.inference_mode():
+            if component is None:
+                return self.model.query(batch, kind)
+            return self.model.query(batch, kind, component=int(component))
 
     def _execute(self, kind: str, component: Optional[int],
                  reqs: List[Request]) -> List[Result]:
         bucket = self._bucket_for(len(reqs))
-        batch = self._assemble(reqs, bucket)
-        with torch.inference_mode():
-            if component is None:
-                out = self.model.query(batch, kind)
-            else:
-                out = self.model.query(batch, kind, component=int(component))
-        out = out.cpu().numpy()[: len(reqs)]
+        t_pop = obs.now()
+        wait_hist = METRICS.histogram("serve.queue_wait.seconds", kind=kind)
+        for r in reqs:
+            t_sub = self._submit_t.get(r.req_id)
+            if t_sub is not None:
+                wait_hist.record(t_pop - t_sub)
+        with obs.timed("serve.coalesce", metric="serve.coalesce.seconds",
+                       kind=kind, bucket=bucket):
+            batch = assemble_batch(self.model, reqs, bucket)
+        # .cpu() waits for the device, so the execute time covers the work
+        with obs.timed("serve.execute", metric="serve.execute.seconds",
+                       kind=kind, bucket=bucket):
+            out = self._query(kind, component, batch).cpu().numpy()
+        out = out[: len(reqs)]
+        self._programs.add(self._key(kind, bucket, component))
         self.stats["padded_rows"] += bucket - len(reqs)
         self.stats["requests"] += len(reqs)
-        return [Result(r.req_id, kind, out[i]) for i, r in enumerate(reqs)]
+        t_done = obs.now()
+        req_hist = METRICS.histogram(
+            "serve.request.seconds", kind=kind, bucket=bucket
+        )
+        results = []
+        for i, r in enumerate(reqs):
+            t_sub = self._submit_t.pop(r.req_id, None)
+            if t_sub is not None:
+                req_hist.record(t_done - t_sub)
+            results.append(Result(r.req_id, kind, out[i]))
+        return results
 
     def step(self) -> List[Result]:
         """One scheduling step: serve the oldest pending request's coalescing
@@ -172,9 +262,11 @@ class ServeEngine:
         if limit == 0:
             return []
         reqs = self.queue.pop_kind(group, limit)
+        METRICS.gauge("serve.queue.depth").set(len(self.queue))
         leases = [self.slots.acquire() for _ in reqs]
         try:
-            results = self._execute(kind, component, reqs)
+            with obs.span("serve.step", kind=kind, n=len(reqs)):
+                results = self._execute(kind, component, reqs)
         finally:
             for s in leases:
                 if s is not None:

@@ -15,6 +15,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.einet import EiNet
 from repro_torch.core.em import (
     EMConfig,
@@ -108,15 +109,24 @@ def make_em_step(model: EiNet,
 def fit(model: EiNet, batches: Iterable[Any], cfg: TrainConfig = TrainConfig(),
         num_steps: Optional[int] = None,
         on_step: Optional[Callable[[int, float], None]] = None) -> List[float]:
-    """Run the step over an iterable of (B, D) tensors (or dicts with an
-    "x" key), updating ``model`` in place.  Returns the per-step mean LLs."""
+    """Run the step over an iterable of (B, D) tensors or arrays (or dicts
+    with an "x" key), each moved to the model's device, updating ``model``
+    in place.  Returns the per-step mean LLs.
+    Each step is timed into ``train.step.seconds``; ``train.examples.count``
+    counts its rows and ``train.ll.last`` holds its LL."""
     step = make_em_step(model, cfg)
     lls: List[float] = []
     for i, batch in enumerate(batches):
         if num_steps is not None and i >= num_steps:
             break
-        x = batch["x"] if isinstance(batch, dict) else batch
-        lls.append(step(x))
+        x = torch.as_tensor(batch["x"] if isinstance(batch, dict) else batch,
+                            device=model.device)
+        # the step returns a float, so it has finished on the device when
+        # the timed region closes
+        with obs.timed("train.step", metric="train.step.seconds"):
+            lls.append(step(x))
+        obs.METRICS.counter("train.examples.count").inc(int(x.shape[0]))
+        obs.METRICS.gauge("train.ll.last").set(lls[-1])
         if on_step is not None:
             on_step(i, lls[-1])
     return lls
