@@ -42,9 +42,11 @@
    and K3 call (torch.profiler); prints K5's and K6's per-depth geometry
    and K6's partial bytes.
 5. Serve phase: builds einet_rat at full width on the card (seed 0), serves
-   the 256-request mixed stream through ServeEngine(max_batch=64) with the
-   kernel launch counters reset just before, checks every result against
-   direct one-request calls (LL within 1e-5, sampling/decode identical) and
+   the 256-request mixed stream through ServeEngine(max_batch=64) (each
+   batch a replay of a captured CUDA graph) with the kernel launch
+   counters reset just before, checks every result against eager
+   one-request calls (legacy_call: LL within 1e-5, sampling/decode
+   identical) and
    a few LLs against the CPU plain path, then times joint_ll on one
    2048-row batch, whole and stage by stage.
 6. E-step phase: one em_statistics and one em_update on the first 2048 rows
@@ -57,7 +59,7 @@
    launches per step asserted (fused: K3 1, K4 1; per layer: K1 4, K2 4).
 8. einet_pd (the paper's SVHN config at full width, seed 0, B = 512, the
    reference's mixture-image data): the serve phase as in 5 (K5 and K1
-   launched, engine against direct, a few LLs against the CPU), joint_ll
+   launched, engine against eager calls, a few LLs against the CPU), joint_ll
    through the plan (K5 1, K1 1) against the per-layer forward (K1 3),
    timed whole and by stage; the E-step as in 6 on the card planned (K5 +
    K6 + K1 + K2), twice and bitwise equal, against the CPU plain path and
@@ -81,7 +83,7 @@
    soft EM 3 steps on one batch (monotone); mixture_joint_ll at B = 512
    (K5 8, K1 8) against the CPU (rtol 1e-5, atol 1e-4); and 256 requests
    over all ten mixture kinds through ServeEngine(max_batch=64): req/s
-   after a warm pass, parity with direct one-request calls (LL and
+   after a warm pass, parity with eager one-request calls (LL and
    responsibility within 1e-5, sampling and MPE identical), responsibility
    rows summing to 1 within 1e-6, and mixture_mpe rows alone equal to
    theirs in a batch of 64 bit for bit.
@@ -94,7 +96,11 @@
    8 images under the four Fig. 4 masks and draws 16 samples.  Gates:
    parity_mismatches_total == 0 (engine against direct one-row calls, bit
    for bit), launches a training step (K5, K6, K1, K2 one each a
-   component) and a joint_ll engine batch (K5, K1 one each a component),
+   component), no wrapper launch in a joint_ll engine batch but the one
+   that captures its program (K5, K1 twice each a component: the warm-up
+   run and the capture), and one replay of each joint_ll program against
+   an eager call on its batch (torch.profiler: the same bits and CUDA
+   kernels, the eager call's ops launching K5, K1 once each a component),
    the single EiNet's joint and marginal LLs on the card against the CPU
    plain path (rtol 1e-5, atol 1e-4), the train LL rising, finite bits
    per dim, and metrics.json plus valid PNG grids of the expected size.
@@ -104,7 +110,34 @@
    every (tables, B) the two runs launched them at (counted by wrapping
    the ops' kernels): the training batches (B = 128, and 64 a component),
    every engine bucket (1 to 32) and the direct calls.
-12. Prints the launch counts of every main path (each kernel must have run
+12. Graph-serving phase: serve.run_benchmark (256 requests, max_batch 64,
+   reps 3, a fresh program registry) on einet_rat, einet_pd and einet_celeba
+   x 8 (all six kinds, and the ten mixture kinds), each batch and each
+   direct request a replay of a captured CUDA graph, the eager one-request
+   path the legacy baseline; the launch counters set to 0 just before each
+   run and read just after (they count the wrappers' calls: warm-up runs
+   and captures, no replay).  Gates: the report's parity against the
+   direct and the legacy paths (LL within 1e-5 relative, sampling/decode
+   identical); every kind served by graphs; (a) every captured program's
+   output equals an eager model.query on the same assembled batch bit for
+   bit, and (d) one replay runs the same CUDA kernels, by name and number,
+   as that eager call (both under torch.profiler), whose ops launch K5 1,
+   K1 1 at einet_pd joint_ll; (b) every program replayed in reverse
+   capture order with the outputs kept on the card until all have
+   replayed, then each equal to eager (the shared memory pool); (c) after
+   one in-place EM step (no recapture, outputs moved) and after
+   class_prior is replaced (exactly one recapture a program), programs
+   equal eager on the new weights; (e) row_noise on the card equals the
+   CPU's bit for bit for seeds 0, 1, 2^31, 2^63 - 1 at lead 0 and 8.
+   Prints the report (warm-up and capture seconds, engine req/s, per-kind
+   p50/p95/p99, program-cache counts, direct and legacy req/s and the two
+   speedups), the programs and their memory pool, each program's kernels
+   a replay and replays, the mixture's per-component sampling step, and
+   the device's busy share over one steady pass (torch.profiler).  Then
+   times K5 (einet_pd's gather run) and K1 (its root pair) at the serve
+   buckets B = 1..64, one launch at a time and replayed from a graph,
+   beside their bounds.
+13. Prints the launch counts of every main path (each kernel must have run
    on them) and the shapes (B, L, K_out, K) K1 and K2 were launched at
    there (counted by wrapping the ops' kernels, whose launch counters stay
    as they are); times K1 and K2 at each of those shapes (and K1 at
@@ -386,10 +419,15 @@ def eval_phase(card: str, dev) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch.cells import build_einet
     from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import assemble_batch
 
     k5, k6 = "gather_grouped_log_einsum_exp", "gather_grouped_log_einsum_exp_bwd"
     k1, k2 = "log_einsum_exp", "log_einsum_exp_bwd"
-    parts = collections.defaultdict(list)  # part -> launches of each call
+    # part -> (launches, captured a program) of each call
+    parts = collections.defaultdict(list)
+    # engine joint_ll key -> (model, program, the requests of its first
+    # batch, component)
+    programs = {}
     trained = {}
 
     def since(before):
@@ -400,7 +438,7 @@ def eval_phase(card: str, dev) -> dict:
         def run(model, *args):
             before = counts_of(ops)
             out = fn(model, *args)
-            parts["train"].append(since(before))
+            parts["train"].append((since(before), False))
             trained["model"] = model
             return out
         return run
@@ -409,8 +447,14 @@ def eval_phase(card: str, dev) -> dict:
 
     def execute(self, kind, component, reqs):
         before = counts_of(ops)
+        compiles = self.registry.stats["compiles"]
         out = orig[2](self, kind, component, reqs)
-        parts[kind].append(since(before))
+        parts[kind].append((since(before),
+                            self.registry.stats["compiles"] > compiles))
+        if kind.endswith("joint_ll"):
+            key = self._key(kind, self._bucket_for(len(reqs)), component)
+            programs.setdefault(key, (self.model, self._programs[key], reqs,
+                                      component))
         return out
 
     def exactly(got, want, what):
@@ -426,6 +470,7 @@ def eval_phase(card: str, dev) -> dict:
     try:
         for name, kw in EVAL_RUNS.items():
             parts.clear()
+            programs.clear()
             trained.clear()
             cfg = workbench.EvalConfig(device=str(dev), out_dir=out_dir, **kw)
             n_c = max(1, cfg.mixture)
@@ -455,15 +500,32 @@ def eval_phase(card: str, dev) -> dict:
             steps = rec["train_steps"]
             if steps != cfg.steps or len(parts["train"]) != 1:
                 raise AssertionError(f"{what}: {steps} EM steps")
-            exactly(parts["train"][0], {k: n_c * steps for k in
-                                        (k5, k6, k1, k2)},
+            exactly(parts["train"][0][0], {k: n_c * steps for k in
+                                           (k5, k6, k1, k2)},
                     f"{what}: {steps} EM steps")
+            # an engine joint_ll batch replays its program's graph: no
+            # wrapper runs, except in the batch that captures the program
+            # (its warm-up run and its capture, K5 and K1 once each a
+            # component in each)
             ll_batches = parts[prefix + "joint_ll"]
             if not ll_batches:
                 raise AssertionError(f"{what}: no engine joint_ll batch")
-            for got in ll_batches:
+            for got, captured in ll_batches:
+                n = 2 * n_c if captured else 0
+                exactly(got, {k5: n, k1: n},
+                        f"{what}: an engine {prefix}joint_ll batch"
+                        + (" (capture)" if captured else ""))
+            # what a replay runs: one replay of each joint_ll program
+            # against an eager call on its first batch (profiled): the same
+            # bits and kernels, the eager call's ops launching K5 and K1
+            # once each a component
+            ll_kernels = {}
+            for key, (m, prog, rs, comp) in programs.items():
+                got, ll_kernels[key], _ = replay_against_eager(
+                    m, prog, assemble_batch(m, rs, key[1]), key[0], comp,
+                    f"{what}: engine program {key}")
                 exactly(got, {k5: n_c, k1: n_c},
-                        f"{what}: an engine {prefix}joint_ll batch")
+                        f"{what}: the eager call of program {key}")
             if not rec["train_ll_last"] > rec["train_ll_first"]:
                 raise AssertionError(
                     f"{what}: train LL {rec['train_ll_first']} -> "
@@ -527,15 +589,18 @@ def eval_phase(card: str, dev) -> dict:
                   f"{h}x{w}x{c}, {rec['num_params']} parameters, "
                   f"{steps} EM steps (launches a step " + ", ".join(
                       f"{k} {v // steps}" for k, v in
-                      parts["train"][0].items() if v)
+                      parts["train"][0][0].items() if v)
                   + f"), train LL {rec['train_ll_first']:.4f} -> "
                   f"{rec['train_ll_last']:.4f}"
                   + (f", k-means clusters {rec['cluster_sizes']}"
                      if rec["cluster_sizes"] else "")
-                  + f"; {len(ll_batches)} engine {prefix}joint_ll batches, "
-                  f"launches each " + ", ".join(
-                      f"{k} {v}" for k, v in ll_batches[0].items() if v)
-                  + f"; parity mismatches 0 of {n_par} requests held bit "
+                  + f"; {len(ll_batches)} engine {prefix}joint_ll batches "
+                  f"({sum(c for _, c in ll_batches)} captures), one replay "
+                  f"of each of its {len(programs)} programs runs the "
+                  f"kernels of an eager call launching {k5} {n_c}, {k1} "
+                  f"{n_c} (" + ", ".join(
+                      f"{sum(v.values())}" for v in ll_kernels.values())
+                  + f" CUDA kernels); parity mismatches 0 of {n_par} requests held bit "
                   f"for bit against direct one-row calls{cpu_line} [{card}]")
             print(f"{what}: bpd joint {bj['bpd']:.6f} ({bj['num_rows']} rows, "
                   f"mean LL {bj['mean_ll']:.4f}), marginal ({bm['mask']}, "
@@ -571,11 +636,458 @@ def eval_phase(card: str, dev) -> dict:
                           "gather_shapes": gather_shapes, "record": rec,
                           "latency_ms": lat, "step_ms": step_ms}
             trained.clear()
+            programs.clear()
             torch.cuda.empty_cache()
     finally:
         workbench._train, workbench._train_mixture, ServeEngine._execute = orig
         shutil.rmtree(out_dir, ignore_errors=True)
     return runs
+
+
+def bits_equal(a, b) -> bool:
+    """Two float32 tensors equal bit for bit (NaN payloads included)."""
+    import torch
+
+    return (a.shape == b.shape and a.dtype == b.dtype == torch.float32
+            and torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def device_busy_share(fn) -> float:
+    """Share of one call of ``fn`` (which ends with results on the host)
+    during which the card ran kernels or copies: the summed device time of
+    the CUDA events torch.profiler records, over the call's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    return busy_us / 1e6 / wall
+
+
+# marker kernels that fence a profiled window (device_kernels): in a long
+# process torch.profiler can drop the first kernels of a session (5 and 8
+# of 825 in one run) and can report kernels that ran before it, so the
+# kernels counted are those between the last leading and the first
+# trailing marker, and each window must show markers on both sides
+FENCE_KERNELS = 64
+_FENCE = {}
+
+
+def _fence() -> str:
+    """Launch FENCE_KERNELS in-place XORs of a one-byte tensor; returns
+    the name their kernel records under (found once, by profiling them:
+    the name that shows FENCE_KERNELS times)."""
+    import torch
+
+    first = "t" not in _FENCE
+    if first:
+        _FENCE["t"] = torch.zeros(1, dtype=torch.int8, device="cuda")
+        torch.cuda.synchronize()
+    for _ in range(FENCE_KERNELS):
+        _FENCE["t"].bitwise_xor_(_FENCE["t"])
+    if first:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _fence()
+            torch.cuda.synchronize()
+        names = collections.Counter(e.name for e in prof.events()
+                                    if e.device_type == DeviceType.CUDA)
+        if not names:
+            raise AssertionError("torch.profiler recorded no CUDA kernel")
+        _FENCE["name"] = names.most_common(1)[0][0]
+    return _FENCE.get("name", "")
+
+
+# profiled windows that lost a side's markers and were taken again
+FENCE_RETRIES = collections.Counter()
+
+
+def device_kernels(fn, tries: int = 3):
+    """The CUDA kernels that one call of ``fn`` runs on the card, by name,
+    as torch.profiler records them (copies and memsets left out; a CUDA
+    graph's replay shows each of its kernel nodes), and ``fn``'s result.
+    The call runs between two fences of marker kernels, 5 ms apart from
+    each, in a session that waits 20 ms after it starts and before it
+    ends; the kernels counted are those that start after the leading
+    markers end and before the trailing ones start.  A window without
+    markers on both sides is taken again, up to ``tries`` times in all,
+    then raises."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fence = _fence()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            _fence()
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+            out = fn()
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+            _fence()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not e.name.startswith(("Memcpy", "Memset"))),
+                    key=lambda e: e.time_range.start)
+        marks = [e for e in ev if e.name == fence]
+        # the call lies in the widest gap between two consecutive markers,
+        # at least the 5 ms waits wide
+        gaps = [(marks[i + 1].time_range.start - marks[i].time_range.end, i)
+                for i in range(len(marks) - 1)]
+        gap, i = max(gaps) if gaps else (0, 0)
+        if gap >= 5e3:  # us
+            if i + 1 > FENCE_KERNELS or len(marks) - i - 1 > FENCE_KERNELS:
+                raise AssertionError(
+                    f"a profiled window's markers split {i + 1} / "
+                    f"{len(marks) - i - 1}: the call ran markers")
+            lo, hi = marks[i].time_range.end, marks[i + 1].time_range.start
+            ran = collections.Counter(e.name for e in ev if e.name != fence
+                                      and lo <= e.time_range.start < hi)
+            return ran, out
+        first = ev.index(marks[0]) if marks else len(ev)
+        FENCE_RETRIES[f"{len(marks)} markers, {first} other kernels before "
+                      f"them, {len(ev) - len(marks) - first} after"] += 1
+    raise AssertionError(f"{tries} profiled windows in turn lost the markers "
+                         f"on one side of their call: {dict(FENCE_RETRIES)}")
+
+
+def replay_against_eager(model, prog, batch, kind, comp, what):
+    """One call of ``prog`` (a captured graph: copy in, replay, copy out)
+    against one eager ``model.query`` on the same ``batch``, both under
+    torch.profiler: the outputs must be equal bit for bit and the replay
+    must run the same kernels, by name and number, as the eager call (a
+    dropped or repeated node fails).  Returns the eager call's op launches
+    (its wrappers' counts), the kernels a replay runs and the eager output
+    on the host."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import run_query
+
+    replayed, got = device_kernels(lambda: prog(batch))
+    before = counts_of(ops)
+    ran, want = device_kernels(lambda: run_query(model, batch, kind, comp))
+    op_launches = {k: v - before[k] for k, v in counts_of(ops).items()
+                   if v != before[k]}
+    want = want.cpu()
+    if not bits_equal(got.cpu(), want):
+        raise AssertionError(f"{what}: the program's output differs from "
+                             "eager model.query")
+    if replayed != ran or not replayed:
+        diff = {k: (replayed[k], ran[k]) for k in set(replayed) | set(ran)
+                if replayed[k] != ran[k]}
+        raise AssertionError(f"{what}: one replay runs {sum(replayed.values())}"
+                             f" kernels, one eager call {sum(ran.values())}; "
+                             f"(replay, eager) by name where they differ: "
+                             f"{diff}")
+    return op_launches, replayed, want
+
+
+def mixture_sampling_path(mix, batch) -> dict:
+    """The mixture's per-component sampling step on one batch
+    (``_sample_components``: every component over all rows, each row
+    keeping its choice), eagerly: its kernel launches and host ms
+    (synchronised), for sampling and for MPE.  Its bits equal those of the
+    grouped sampling it replaced (tests/test_torch_mixture.py)."""
+    import torch
+
+    from repro_torch.core.layers import NEG_INF
+    from repro_torch.kernels import ops
+
+    x, ev = batch["x"], batch["evidence_mask"]
+    out = {}
+    with torch.inference_mode():
+        for mode in ("sample", "argmax"):
+            noise = None if mode == "argmax" else mix.component.row_noise(
+                batch["seeds"], lead=mix.num_components)
+            logits = torch.clamp(mix._log_weights()[None]
+                                 + mix.component_log_likelihoods(x, ev),
+                                 min=NEG_INF)
+            choice = mix._choose(logits, noise)
+            torch.cuda.synchronize()
+            before = counts_of(ops)
+            t0 = time.perf_counter()
+            mix._sample_components(choice, x, ev, noise, mode)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            out[mode] = {"ms": ms, "launches": {
+                k: v - before[k] for k, v in counts_of(ops).items()
+                if v != before[k]},
+                "components": int(torch.unique(choice).numel())}
+    return out
+
+
+# the graph-serving phase's streams: 256 requests, max_batch 64
+GRAPH_REQUESTS = 256
+GRAPH_MAX_BATCH = 64
+ROW_NOISE_SEEDS = (0, 1, 2 ** 31, 2 ** 63 - 1)
+
+
+def graph_phase(card: str, dev, models: dict) -> dict:
+    """Serving through captured CUDA graphs at full width.  ``models`` maps
+    a name to (model, requests, in-place EM step, its batch).  For each:
+    ``serve.run_benchmark`` (256 requests, max_batch 64, a fresh registry;
+    the launch counters set to 0 just before and read just after; they
+    count the wrappers' calls, so the warm-up runs and captures, and no
+    replay), its parity against the direct and the eager paths, then the
+    gates: (a) every captured program's output equals an eager
+    ``model.query`` on the same assembled batch bit for bit, and (d) one
+    replay runs the same CUDA kernels, by name and number, as that eager
+    call (both profiled); (b) every program replayed in reverse capture
+    order, each output kept on the card while the others replay, then
+    each equal to eager; (c) the same after one in-place EM step (no
+    recapture) and after one parameter tensor is replaced (exactly one
+    recapture a program).  And (e): ``row_noise`` on the card equals the
+    CPU's bit for bit.  Returns each model's figures and launch counts."""
+    import types
+
+    import torch
+    from torch import nn
+
+    from repro_torch import compile as compile_lib
+    from repro_torch.core.einet import EiNet
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine, format_report, run_benchmark
+    from repro_torch.serve.engine import assemble_batch, run_query
+
+    # (e) counter-based noise: the same bits on the card and the CPU
+    for name, (model, *_rest) in models.items():
+        if not isinstance(model, EiNet):
+            continue
+        cpu = types.SimpleNamespace(device=torch.device("cpu"),
+                                    noise_size=model.noise_size)
+        for lead in (0, 8):
+            got = model.row_noise(list(ROW_NOISE_SEEDS), lead=lead).cpu()
+            want = EiNet.row_noise(cpu, list(ROW_NOISE_SEEDS), lead=lead)
+            if not bits_equal(got, want):
+                raise AssertionError(f"{name}: row_noise on the card differs "
+                                     f"from the CPU's (lead {lead})")
+    print(f"row_noise (Philox4x32-10) on the card equals the CPU's bit for "
+          f"bit for seeds {list(ROW_NOISE_SEEDS)}, lead 0 and 8 [{card}]")
+
+    def parse(key):
+        """(kind, bucket, component) of an engine or a direct key."""
+        if key[0] == "direct":
+            return key[1], 1, (key[2] if len(key) > 2 else None)
+        return key[0], key[1], (key[2] if len(key) > 2 else None)
+
+    out = {}
+    for name, (model, reqs, em_step, x_em) in models.items():
+        reg = compile_lib.ProgramRegistry()
+        torch.cuda.synchronize()
+        reset(ops)
+        t0 = time.perf_counter()
+        rep = run_benchmark(model, reqs, max_batch=GRAPH_MAX_BATCH, reps=3,
+                            registry=reg)
+        bench_s = time.perf_counter() - t0
+        counts, shapes = counts_of(ops), collections.Counter(SHAPES)
+        gather_shapes = collections.Counter(GATHER_SHAPES)
+        print(f"graph serve {name}:\n" + format_report(rep) + f" [{card}]")
+        for what, pre in (("direct (per-request graphs)", ""),
+                          ("legacy (eager)", "legacy_")):
+            print(f"graph serve {name} parity against {what}: LL max|diff| "
+                  f"{rep[pre + 'll_max_abs_diff']:.3e} (relative "
+                  f"{rep[pre + 'll_max_rel_diff']:.3e}), sampling/decode "
+                  f"mismatches {rep[pre + 'sample_mismatches']} [{card}]")
+            if rep[pre + "ll_max_rel_diff"] > 1e-5 or \
+                    rep[pre + "sample_mismatches"]:
+                raise AssertionError(f"{name}: engine (graphs) against "
+                                     f"{what}: {rep}")
+        table = reg.table(model)
+        keys = list(table)
+        replays = {k: p.replays for k, p in table.items()
+                   if p.kind == "graph"}
+        kinds = {parse(k)[0] for k in keys}
+        if kinds != set(model.query_kinds) or len(replays) != len(keys):
+            raise AssertionError(f"{name}: programs {keys} are not graphs "
+                                 f"of every kind {model.query_kinds}")
+        pool_mb = reg.pool_bytes(model) / 2 ** 20
+        t_gates = time.perf_counter()
+        batches, eager = {}, {}
+        # (a) and (d): each program against an eager query on its batch
+        launch_rows, kernel_rows = {}, {}
+        for key in keys:
+            kind, bucket, comp = parse(key)
+            rs = [r for r in reqs if r.kind == kind
+                  and r.component == comp][:bucket]
+            batch = batches[key] = assemble_batch(model, rs, bucket)
+            launch_rows[key], kernel_rows[key], eager[key] = \
+                replay_against_eager(model, table[key], batch, kind, comp,
+                                     f"{name} {key}")
+        # (b) every program in reverse capture order, the outputs kept on
+        # the card until all have replayed
+        kept = {key: table[key](batches[key]) for key in reversed(keys)}
+        for key, got in kept.items():
+            if not bits_equal(got.cpu(), eager[key]):
+                raise AssertionError(f"{name} {key}: differs from eager "
+                                     "after the reverse-order replays")
+        del kept
+        # (c) weights written in place, then a replaced tensor
+        compiles0 = reg.stats["compiles"]
+        em_step(x_em)
+        moved = 0
+        for key in keys:
+            kind, _, comp = parse(key)
+            got = table[key](batches[key]).cpu()
+            want = run_query(model, batches[key], kind, comp).cpu()
+            if not bits_equal(got, want):
+                raise AssertionError(f"{name} {key}: after an in-place EM "
+                                     "step the program differs from eager")
+            moved += not bits_equal(want, eager[key])
+        if reg.stats["compiles"] != compiles0 or not moved:
+            raise AssertionError(f"{name}: an in-place EM step recaptured "
+                                 f"or changed no output ({moved} moved)")
+        model.class_prior = nn.Parameter(model.class_prior.detach().clone())
+        t_re = time.perf_counter()
+        for key in keys:
+            kind, _, comp = parse(key)
+            before = reg.stats["compiles"]
+            got = table[key](batches[key]).cpu()
+            again = table[key](batches[key]).cpu()
+            want = run_query(model, batches[key], kind, comp).cpu()
+            if reg.stats["compiles"] - before != 1:
+                raise AssertionError(
+                    f"{name} {key}: a replaced tensor cost "
+                    f"{reg.stats['compiles'] - before} recaptures")
+            if not (bits_equal(got, want) and bits_equal(again, want)):
+                raise AssertionError(f"{name} {key}: after a recapture the "
+                                     "program differs from eager")
+        recapture_s = time.perf_counter() - t_re
+        gates_s = time.perf_counter() - t_gates
+        # the device's busy share over one steady engine pass (the
+        # registry's programs, already captured)
+        engine = ServeEngine(model, max_batch=GRAPH_MAX_BATCH, registry=reg)
+        engine.run(reqs)
+        busy = device_busy_share(lambda: engine.run(reqs))
+        n_eng = sum(1 for k in keys if k[0] != "direct")
+        print(f"graph serve {name}: {len(keys)} programs ({n_eng} engine "
+              f"(kind, bucket[, component]) keys, {len(keys) - n_eng} "
+              f"direct), capture {rep['compile_s']:.3f} s in the engine's "
+              f"warm-up pass, pool {pool_mb:.1f} MiB; gates (a) programs "
+              f"equal eager bit for bit, (b) also in reverse capture order, "
+              f"(c) after an in-place EM step (0 recaptures, {moved} of "
+              f"{len(keys)} outputs changed) and a replaced "
+              f"class_prior (1 recapture each, {recapture_s:.3f} s for all), "
+              f"(d) one replay runs the same kernels as eager "
+              f"(torch.profiler); engine "
+              f"{rep['engine_qps']:.1f} req/s, direct (per-request graphs) "
+              f"{rep['direct_qps']:.1f}, legacy (eager) {rep['legacy_qps']:.1f}"
+              f" ({rep['speedup']:.2f}x, {rep['speedup_vs_jitted']:.2f}x); "
+              f"device busy {busy:.3f} of a steady pass (idle "
+              f"{1 - busy:.3f}); run_benchmark {bench_s:.3f} s, gates "
+              f"(a)-(d) {gates_s:.3f} s [{card}]")
+        print(f"graph serve {name}, each program: (CUDA kernels one replay "
+              f"runs, equal to one eager call's; replays in run_benchmark) "
+              + "; ".join(f"{k} {sum(kernel_rows[k].values())}/{replays[k]}"
+                          for k in keys) + f" [{card}]")
+        for key in keys:
+            if key[0] == "joint_ll" or key[0] == "mixture_joint_ll":
+                print(f"graph serve {name} {key}: one replay runs the "
+                      f"kernels of an eager call whose ops launch "
+                      f"{launch_rows[key]}")
+        sampling = None
+        if hasattr(model, "num_components"):
+            key = max((k for k in keys if k[0] == "mixture_conditional_sample"),
+                      key=lambda k: k[1])
+            sampling = mixture_sampling_path(model, batches[key])
+            for mode, v in sampling.items():
+                print(f"graph serve {name} per-component sampling ({mode}) at "
+                      f"B={key[1]}, {v['components']} components chosen, "
+                      f"every component over all rows: {v['ms']:.3f} ms "
+                      f"eager, launches {v['launches']} [{card}]")
+        out[name] = {"report": rep, "counts": counts, "shapes": shapes,
+                     "gather_shapes": gather_shapes, "programs": len(keys),
+                     "pool_mb": pool_mb, "busy": busy,
+                     "launch_rows": launch_rows, "kernel_rows": kernel_rows,
+                     "replays": replays, "seconds": bench_s,
+                     "sampling": sampling}
+        del engine, table, batches, eager
+        torch.cuda.empty_cache()
+    return out
+
+
+def graph_time_ms(fn, launches: int = 20, reps: int = 20) -> float:
+    """Device ms a call of ``fn`` takes replayed from a CUDA graph that
+    holds ``launches`` calls of it (no host cost between them)."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return time_ms(graph.replay, iters=reps) / launches
+
+
+def serve_bucket_times(card: str, dev, pd) -> list:
+    """K5 at einet_pd's gather run and K1 at its root pair, at every serve
+    bucket B = 1..64, on fresh inputs from the seed: launched one at a time
+    (CUDA events around 20 calls, the wrapper's host cost included) and
+    replayed from a CUDA graph of 20 launches (device time alone), each
+    beside its bound.  The launch counters are untouched (the wrappers'
+    kernels are called directly)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.grouped import gather_grouped_log_einsum_exp_cuda
+    from repro_torch.kernels.log_einsum_exp import log_einsum_exp_cuda
+
+    rng = np.random.RandomState(0)
+    seg = pd.exec_plan[0]
+    tab = seg.tables
+    span = range(seg.start, seg.stop)
+    ws = [pd.einsum[t].detach() for t in span]
+    vs = [pd.mixing[t].detach() for t in span
+          if pd.pair_specs[t].mix_global is not None]
+    w1 = pd.einsum[pd.exec_plan[1].start].detach()
+    cells, k_out = w1.shape[0], w1.shape[1]
+    k = pd.K
+    n_w = sum(w.numel() for w in ws) + sum(v.numel() for v in vs)
+    rows = []
+    with torch.no_grad():
+        for b in (1, 2, 4, 8, 16, 32, 64):
+            x = torch.from_numpy((rng.randn(b, tab.num_in_rows, k) * 4 - 20)
+                                 .astype(np.float32)).to(dev)
+            lr = torch.from_numpy((rng.randn(b, 2 * cells, k) * 4 - 20)
+                                  .astype(np.float32)).to(dev)
+            cases = (
+                ("K5", lambda x=x: gather_grouped_log_einsum_exp_cuda(
+                    tab, ws, vs, x),
+                 4 * (x.numel() + n_w + b * tab.num_new_rows * k),
+                 sum(2 * b * len(l) * k ** 3 for l in tab.left)),
+                ("K1", lambda lr=lr: log_einsum_exp_cuda(
+                    w1, lr[:, :cells], lr[:, cells:]),
+                 4 * (2 * b * cells * k + w1.numel() + b * cells * k_out),
+                 2 * b * cells * k_out * k * k),
+            )
+            for name, fn, n_bytes, flops in cases:
+                b_ms, b_by = bound(n_bytes, flops)
+                rows.append({"kernel": name, "B": b, "eager_ms": time_ms(fn),
+                             "graph_ms": graph_time_ms(fn), "bound_ms": b_ms,
+                             "bound_by": b_by})
+    for r in rows:
+        print(f"serve bucket {r['kernel']} einet_pd B={r['B']}: one at a "
+              f"time {r['eager_ms']:.4f} ms, in a graph {r['graph_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}) [{card}]")
+    return rows
 
 
 def main() -> int:
@@ -613,8 +1125,9 @@ def main() -> int:
         EiNetMixture, MixtureTrainConfig, blend_mixture_params, kmeans,
         make_mixture_em_step, mixture_em_statistics, mixture_m_step,
         prepare_mixture_training)
+    from repro_torch import compile as compile_lib
     from repro_torch.serve import (
-        ServeEngine, direct_call, mixed_requests, mixture_requests, parity)
+        ServeEngine, legacy_call, mixed_requests, mixture_requests, parity)
     from repro_torch.train import TrainConfig, make_em_step
 
     card = smi_line()
@@ -1232,7 +1745,7 @@ def main() -> int:
         engine.run(reqs)
         torch.cuda.synchronize()
         steady.append(time.perf_counter() - t0)
-    call = direct_call(model)
+    call = legacy_call(model)
     direct = {r.req_id: call(r) for r in reqs}
     par = parity(reqs, served, direct)
     print(f"serve parity: LL max|engine - direct| {par['ll_max_abs_diff']:.3e}"
@@ -1448,7 +1961,7 @@ def main() -> int:
         pd_engine.run(pd_reqs)
         torch.cuda.synchronize()
         pd_steady.append(time.perf_counter() - t0)
-    call = direct_call(pd)
+    call = legacy_call(pd)
     pd_par = parity(pd_reqs, pd_served, {r.req_id: call(r) for r in pd_reqs})
     print(f"einet_pd serve parity: LL max|engine - direct| "
           f"{pd_par['ll_max_abs_diff']:.3e}, sampling/decode mismatches "
@@ -2058,7 +2571,7 @@ def main() -> int:
         mix_engine.run(mix_reqs)
         torch.cuda.synchronize()
         mix_steady.append(time.perf_counter() - t0)
-    call = direct_call(mix)
+    call = legacy_call(mix)
     mix_par = parity(mix_reqs, mix_served,
                      {r.req_id: call(r) for r in mix_reqs},
                      mix.value_kinds)
@@ -2164,6 +2677,36 @@ def main() -> int:
           f"max |diff| {worst(eval_k6_x, 'abs'):.3e}, gw max |diff| "
           f"{worst(eval_k6_w, 'abs'):.3e}) [{card}]")
 
+    # ------------------------------------------------ graph-serving phase
+    # run_benchmark on each full-width model through captured CUDA graphs,
+    # with the program gates (a)-(e); one in-place EM step a model
+    t_graph = time.perf_counter()
+    graphs = graph_phase(card, dev, {
+        "einet_rat": (model, mixed_requests(model.num_vars, GRAPH_REQUESTS,
+                                            seed=0),
+                      make_em_step(model, TrainConfig()), x_full[:256]),
+        "einet_pd": (pd, mixed_requests(pd.num_vars, GRAPH_REQUESTS, seed=0),
+                     make_em_step(pd, TrainConfig()), pd_xb[:128]),
+        f"einet_celeba x{n_mix}": (
+            mix, mixture_requests(mix, GRAPH_REQUESTS, seed=0),
+            make_mixture_em_step(mix, MixtureTrainConfig(assign="soft")),
+            torch.from_numpy(mix_data[:128]).to(dev)),
+    })
+    graph_s = time.perf_counter() - t_graph
+    pd_joint = graphs["einet_pd"]["launch_rows"]
+    # (d) at einet_pd joint_ll: a replay runs the kernels of an eager call
+    # whose ops launch K5 once and K1 once
+    for key, got in pd_joint.items():
+        if "joint_ll" in key[:2] and got != {
+                "gather_grouped_log_einsum_exp": 1, "log_einsum_exp": 1}:
+            raise AssertionError(f"einet_pd joint_ll {key}: a replay runs "
+                                 f"the kernels of an eager call launching "
+                                 f"{got}, expected K5 1, K1 1")
+    bucket_rows = serve_bucket_times(card, dev, pd)
+    print(f"graph-serving phase: {graph_s:.3f} s; profiled windows taken "
+          f"again (a side's markers lost): {sum(FENCE_RETRIES.values())} "
+          f"{dict(FENCE_RETRIES)} [{card}]")
+
     # ------------------------------------------------------------- report
     # the main paths: serving, and training in both plans (full EM
     # included), of einet_rat and of einet_pd
@@ -2181,6 +2724,8 @@ def main() -> int:
              "einet_celeba x8 mixture full soft EM": mix_full["counts"],
              "einet_celeba x8 mixture_joint_ll": mix_ll_counts,
              "einet_celeba x8 mixture serve": mix_serve_counts,
+             **{f"graph serve {name}": g["counts"]
+                for name, g in graphs.items()},
              **{f"eval {name}": run["counts"]
                 for name, run in evals.items()}}
     for name, c in paths.items():
@@ -2199,7 +2744,8 @@ def main() -> int:
                pd_full["shapes"], pd_train["planned"]["shapes"],
                pd_train["per-layer"]["shapes"], hard["shapes"],
                soft["shapes"], mix_full["shapes"], mix_ll_shapes,
-               mix_serve_shapes, *(run["shapes"] for run in evals.values())):
+               mix_serve_shapes, *(g["shapes"] for g in graphs.values()),
+               *(run["shapes"] for run in evals.values())):
         path_shapes.update(sh)
     for (name, *shape), n in sorted(path_shapes.items()):
         print(f"{name} launches at (B, L, K_out, K) = {tuple(shape)} on the "

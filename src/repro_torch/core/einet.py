@@ -18,9 +18,11 @@ autodiff EM (``repro_torch.core.em``) on the card, for every plan.
 
 Also implemented: exact marginalization (evidence masks), ancestral and
 conditional sampling (the induced-tree top-down pass used for inpainting),
-and MPE-style argmax decoding.  Sampling noise is explicit: each row draws
-its whole noise vector, of a fixed length per model, from its own seeded
-``torch.Generator``, so a row's draw depends only on (seed, x, evidence).
+and MPE-style argmax decoding.  Sampling noise is explicit: each row's
+whole noise vector, of a fixed length per model, is counter-based Philox
+uniforms keyed by that row's seed (``core.philox``), so a row's draw
+depends only on (seed, x, evidence), the CPU and the card draw the same
+bits, and a captured CUDA graph takes the seeds as a device tensor.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core import philox
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import region_graph as rg_lib
 from repro_torch.core.exponential_family import ExponentialFamily, Normal
@@ -54,9 +57,19 @@ QUERY_KINDS = (
     "mpe",
 )
 
-# sampling uniforms are kept inside [2^-24, 1 - 2^-24] (torch.rand's grid
+# sampling uniforms are kept inside [2^-24, 1 - 2^-24] (the 2^-24 grid
 # without 0), so Gumbel and inverse-CDF transforms stay finite
 _U_MIN = 2.0 ** -24
+
+
+def seed_tensor(seeds, device) -> torch.Tensor:
+    """Per-row seeds as the (B,) int64 tensor on ``device`` that the
+    sampling paths take: a tensor is moved (and cast), a sequence of ints
+    converted."""
+    if isinstance(seeds, torch.Tensor):
+        return seeds.to(device=device, dtype=torch.int64)
+    return torch.tensor([int(s) for s in seeds], dtype=torch.int64,
+                        device=device)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -602,19 +615,15 @@ class EiNet(nn.Module):
         return joint - ev
 
     # --------------------------------------------------------------- sampling
-    def row_noise(self, seeds: Sequence[int], lead: int = 0) -> torch.Tensor:
-        """(B, lead + noise_size) uniforms: row b's whole vector drawn at once
-        from its own ``torch.Generator`` seeded with ``seeds[b]`` on the
-        model's device, so it depends on that seed alone.  ``lead`` floats
-        come first, for a choice made before this model's pass (a mixture's
-        component)."""
-        dev = self.device
-        size = int(lead) + self.noise_size
-        rows = []
-        for seed in seeds:
-            g = torch.Generator(device=dev).manual_seed(int(seed))
-            rows.append(torch.rand(size, generator=g, device=dev))
-        u = torch.stack(rows) if rows else torch.empty((0, size), device=dev)
+    def row_noise(self, seeds, lead: int = 0) -> torch.Tensor:
+        """(B, lead + noise_size) uniforms in [_U_MIN, 1 - _U_MIN]: row b
+        is Philox4x32-10 keyed by ``seeds[b]`` (``core.philox.uniforms``),
+        so it depends on that seed alone and is the same on every device.
+        ``seeds`` is a (B,) int64 tensor or a sequence of ints.  ``lead``
+        floats come first, for a choice made before this model's pass (a
+        mixture's component)."""
+        seeds = seed_tensor(seeds, self.device)
+        u = philox.uniforms(seeds, int(lead) + self.noise_size)
         return torch.clamp(u, _U_MIN, 1.0 - _U_MIN)
 
     def _noise_slice(self, noise: torch.Tensor, key) -> torch.Tensor:
@@ -634,7 +643,8 @@ class EiNet(nn.Module):
                mode: str = "sample") -> torch.Tensor:
         """Unconditional ancestral sampling: (num_samples, D).  Row b draws
         with ``seeds[b]`` (default: b)."""
-        seeds = list(range(num_samples)) if seeds is None else list(seeds)
+        seeds = seed_tensor(range(num_samples) if seeds is None else seeds,
+                            self.device)
         if len(seeds) != num_samples:
             raise ValueError(f"{len(seeds)} seeds for {num_samples} samples")
         x = torch.zeros((num_samples, self.num_vars), device=self.device)
@@ -644,14 +654,16 @@ class EiNet(nn.Module):
 
     def conditional_sample_per_key(
         self,
-        seeds: Sequence[int],
+        seeds,
         x: torch.Tensor,
         evidence_mask: torch.Tensor,
         mode: str = "sample",
     ) -> torch.Tensor:
-        """Row-independent conditional sampling: one seed per batch row.
-        Every row's draw is a function of its own (seed, x, evidence), so
-        results do not depend on how requests are coalesced into batches."""
+        """Row-independent conditional sampling: one seed per batch row (a
+        (B,) int64 tensor or a sequence of ints).  Every row's draw is a
+        function of its own (seed, x, evidence), so results do not depend
+        on how requests are coalesced into batches."""
+        seeds = seed_tensor(seeds, x.device)
         if len(seeds) != x.shape[0]:
             raise ValueError(f"{len(seeds)} seeds for {x.shape[0]} rows")
         noise = self.row_noise(seeds) if mode == "sample" else None
@@ -770,9 +782,9 @@ class EiNet(nn.Module):
         run under ``torch.inference_mode()``.
 
         ``batch`` carries "x" (B, D) float32, "evidence_mask" /
-        "query_mask" (B, D) bool tensors on the model's device, and "seeds"
-        (B,) ints, one per row; each kind ignores the fields it does not
-        need.
+        "query_mask" (B, D) bool and "seeds" (B,) int64 tensors on the
+        model's device (a sequence of ints is also taken for "seeds"); each
+        kind ignores the fields it does not need.
 
         Kinds: "joint_ll" -> (B,) log p(x); "marginal_ll" -> (B,) log p(x_e);
         "conditional_ll" -> (B,) log p(x_q | x_e); "sample" -> (B, D)

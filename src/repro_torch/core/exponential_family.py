@@ -186,6 +186,11 @@ class Binomial(ExponentialFamily):
         object.__setattr__(self, "name", "binomial")
         object.__setattr__(self, "n_trials", int(n_trials))
         object.__setattr__(self, "min_p", float(min_p))
+        # log N! once, in float32 on the CPU, kept as a Python float: no
+        # device tensor is built a call (a host copy would break a CUDA
+        # graph's capture), and the value is the float32 lgamma's
+        object.__setattr__(self, "log_n_factorial", float(torch.lgamma(
+            torch.tensor(float(n_trials + 1), dtype=torch.float32))))
 
     @property
     def num_stats(self) -> int:
@@ -201,7 +206,7 @@ class Binomial(ExponentialFamily):
     def log_h(self, x):
         n = self.n_trials
         return (
-            torch.lgamma(torch.tensor(float(n + 1), device=x.device))
+            self.log_n_factorial
             - torch.lgamma(x + 1.0)
             - torch.lgamma(n - x + 1.0)
         )

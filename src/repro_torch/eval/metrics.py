@@ -27,7 +27,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.serve import Request, ServeEngine
-from repro_torch.serve.engine import assemble_batch
+from repro_torch.serve.engine import assemble_batch, run_query
 
 LN2 = float(np.log(2.0))
 
@@ -64,17 +64,15 @@ class EngineLLResult:
 
 
 def direct_query(model, req: Request) -> np.ndarray:
-    """Direct (engine-free) result for one request: ``model.query`` on a
-    one-row batch built as the engine builds its batches, so any difference
-    is the batching's and the gate can be bitwise.  (``serve.direct_call``,
-    the serve CLI's oracle, goes through the EiNet's own methods instead and
-    holds LLs to 1e-5.)  A mixture's component-pinned kinds pass the
-    request's component."""
-    batch = assemble_batch(model, [req], 1)
-    if req.component is None:
-        out = model.query(batch, req.kind)
-    else:
-        out = model.query(batch, req.kind, component=int(req.component))
+    """Direct (engine-free) result for one request: an eager
+    ``model.query`` on a one-row batch built as the engine builds its
+    batches, so any difference is the batching's (and, on the card, the
+    engine's CUDA graphs') and the gate can be bitwise.
+    (``serve.legacy_call`` goes through the EiNet's own methods instead;
+    ``serve.direct_call`` replays a bucket-1 graph.)  A mixture's
+    component-pinned kinds pass the request's component."""
+    out = run_query(model, assemble_batch(model, [req], 1), req.kind,
+                    req.component)
     return out.cpu().numpy()[0]
 
 

@@ -26,19 +26,20 @@ mixture level, plus component responsibilities and component-pinned
 sampling, decoding and LL (the ``component_kinds``, which the serving
 engine folds into its coalescing key).  Sampling picks each row's component
 first (by Gumbel-max from that row's own noise, or argmax for MPE), then
-runs each chosen component once over its rows; the kernels' row
-independence makes a row's answer independent of its group.
+runs every component over all rows and keeps each row's chosen one: static
+shapes, so every kind captures into a CUDA graph; the kernels' row
+independence makes a row's answer independent of its batch.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
 
-from repro_torch.core.einet import EiNet
+from repro_torch.core.einet import EiNet, seed_tensor
 from repro_torch.core.em import params_of
 from repro_torch.core.layers import NEG_INF, gumbel, log_mix_exp
 
@@ -247,17 +248,19 @@ class EiNetMixture(nn.Module):
         noise: Optional[torch.Tensor],
         mode: str,
     ) -> torch.Tensor:
-        """Each row's draw from its chosen component: the rows that chose c
-        run through component c together (``noise`` holds each row's
-        component uniforms first, then the component's own)."""
-        c_n = self.num_components
-        out = torch.empty_like(x)
-        for c in torch.unique(choice).tolist():
-            rows = torch.nonzero(choice == c)[:, 0]
-            sub_noise = None if noise is None else noise[rows, c_n:]
+        """Each row's draw from its chosen component: component c = 0, 1,
+        ... in turn samples all B rows (``noise`` holds each row's
+        component uniforms first, then the component's own), and row b
+        keeps component ``choice[b]``'s.  Shapes are static (no host sync,
+        so the path captures into a CUDA graph); every op computes a row
+        alone, so a row's bits are those of a pass over its rows only."""
+        sub_noise = None if noise is None else noise[:, self.num_components:]
+        out = torch.zeros_like(x)
+        for c in range(self.num_components):
             with self.bound(c) as net:
-                out[rows] = net.conditional_sample(
-                    x[rows], evidence_mask[rows], sub_noise, mode=mode)
+                draw = net.conditional_sample(x, evidence_mask, sub_noise,
+                                              mode=mode)
+            out = torch.where((choice == c)[:, None], draw, out)
         return out
 
     def _choose(self, logits: torch.Tensor,
@@ -271,7 +274,7 @@ class EiNetMixture(nn.Module):
 
     def conditional_sample_per_key(
         self,
-        seeds: Sequence[int],
+        seeds,
         x: torch.Tensor,
         evidence_mask: torch.Tensor,
         mode: str = "sample",
@@ -286,6 +289,7 @@ class EiNetMixture(nn.Module):
         """
         if mode not in ("sample", "argmax"):
             raise ValueError(f"mode {mode!r}; expected 'sample' or 'argmax'")
+        seeds = seed_tensor(seeds, x.device)
         if len(seeds) != x.shape[0]:
             raise ValueError(f"{len(seeds)} seeds for {x.shape[0]} rows")
         noise = None
@@ -297,11 +301,12 @@ class EiNetMixture(nn.Module):
         choice = self._choose(logits, noise)
         return self._sample_components(choice, x, evidence_mask, noise, mode)
 
-    def sample_per_key(self, seeds: Sequence[int]) -> torch.Tensor:
+    def sample_per_key(self, seeds) -> torch.Tensor:
         """Unconditional per-seed sampling: (B, D).  With no evidence every
         component's evidence marginal is exactly 1 (normalized circuits),
         so the component posterior IS the mixture weights: the component is
         drawn from them directly, with no forward passes over C."""
+        seeds = seed_tensor(seeds, self.device)
         b = len(seeds)
         noise = self.component.row_noise(seeds, lead=self.num_components)
         logits = torch.clamp(self._log_weights(), min=NEG_INF)
@@ -313,7 +318,7 @@ class EiNetMixture(nn.Module):
 
     def component_conditional_sample_per_key(
         self,
-        seeds: Sequence[int],
+        seeds,
         x: torch.Tensor,
         evidence_mask: torch.Tensor,
         component: int,

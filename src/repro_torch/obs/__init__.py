@@ -1,22 +1,32 @@
 """``repro_torch.obs``: dependency-free tracing and metrics for the port.
 
-Two parts (see the submodule docstrings):
+Three parts (see the submodule docstrings):
 
   * :mod:`repro_torch.obs.trace`   -- nestable ``span(...)`` context
     managers, ``timed`` regions, Chrome/Perfetto ``trace_event`` export;
   * :mod:`repro_torch.obs.metrics` -- counters / gauges / log-bucket
-    histograms with ``percentile(q)``.
+    histograms with ``percentile(q)``, snapshot-able to plain JSON;
+  * :mod:`repro_torch.obs.events`  -- the compile-event hook fed by
+    ``repro_torch.compile.ProgramRegistry`` (the one source of program
+    counts).
 
 Instrumented subsystems tag spans and metrics as ``subsystem.verb.unit``:
 ``serve.request.seconds{kind,bucket}``, ``serve.queue_wait.seconds{kind}``,
-``serve.coalesce.seconds``, ``serve.execute.seconds``, ``train.step.
-seconds``, ``eval.inpaint.seconds{mask}``.  The eval CLI accepts ``--trace
-out.json`` and prints one ``[obs]`` summary line at exit
+``serve.coalesce.seconds``, ``serve.execute.seconds``,
+``compile.cache.misses{kind}``, ``train.step.seconds``,
+``eval.inpaint.seconds{mask}``.  The eval and serve CLIs accept ``--trace
+out.json`` and print one ``[obs]`` summary line at exit
 (:func:`format_summary`).
 
 Stdlib only: every module of the port may import ``repro_torch.obs``.
 """
 
+from repro_torch.obs.events import (
+    cache_event,
+    compile_event,
+    on_compile,
+    remove_compile_listener,
+)
 from repro_torch.obs.metrics import (
     METRICS,
     Counter,
@@ -41,9 +51,11 @@ from repro_torch.obs.trace import (
 
 __all__ = [
     "METRICS", "Counter", "Gauge", "Histogram", "MetricsRegistry",
-    "Span", "Timed", "cli_begin", "cli_end", "configure", "dropped_events",
-    "event", "export_trace", "format_summary", "now", "num_events",
-    "percentile_from_counts", "reset", "span", "summary", "timed",
+    "Span", "Timed", "cache_event", "cli_begin", "cli_end",
+    "compile_event", "configure", "dropped_events", "event",
+    "export_trace", "format_summary", "now", "num_events", "on_compile",
+    "percentile_from_counts", "remove_compile_listener", "reset", "span",
+    "summary", "timed",
 ]
 
 
@@ -51,6 +63,16 @@ def summary() -> dict:
     """Compact cross-subsystem rollup of the metrics registry (the data
     behind the ``[obs]`` exit line)."""
     out: dict = {}
+    compiles = sum(
+        m.value for _, m in METRICS.find("compile.cache.misses")
+    )
+    if compiles:
+        out["compiles"] = int(compiles)
+        out["compile_seconds"] = round(sum(
+            m.value for _, m in METRICS.find("compile.programs.seconds")
+        ), 3)
+        hits = sum(m.value for _, m in METRICS.find("compile.cache.hits"))
+        out["cache_hits"] = int(hits)
     req = METRICS.sum_histogram("serve.request.seconds")
     n_req = sum(req)
     if n_req:
@@ -76,7 +98,8 @@ def summary() -> dict:
 
 
 def format_summary() -> str:
-    """The ``[obs]`` exit line: human-readable one-liner of :func:`summary`."""
+    """The ``[obs]`` exit line: human-readable one-liner of :func:`summary`
+    (serve and train first, then the program counts)."""
     s = summary()
     parts = []
     if "serve_requests" in s:
@@ -92,6 +115,11 @@ def format_summary() -> str:
             f"train: {s['train_steps']} steps, "
             f"p50 {s['train_step_ms_p50']:.0f} ms/step{ex}"
         )
+    if "compiles" in s:
+        parts.append(
+            f"compile: {s['compiles']} programs "
+            f"({s['compile_seconds']:.2f} s, {s['cache_hits']} cache hits)"
+        )
     if "trace_events" in s:
         t = f"trace: {s['trace_events']} events"
         if "trace_dropped" in s:
@@ -106,9 +134,21 @@ def cli_begin(trace_path=None) -> None:
         configure(trace=True)
 
 
-def cli_end(trace_path=None) -> None:
-    """Launch-CLI epilogue: print the ``[obs]`` line; export the trace."""
+def cli_end(trace_path=None, metrics_path=None) -> None:
+    """Launch-CLI epilogue: print the ``[obs]`` line; export the trace and
+    (with ``--metrics out.json``) the metrics snapshot."""
     print(f"[obs] {format_summary()}")
     if trace_path:
         path = export_trace(trace_path)
         print(f"[obs] trace: {num_events()} events -> {path}")
+    if metrics_path:
+        import json
+        import os
+
+        d = os.path.dirname(metrics_path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        snap = METRICS.snapshot()
+        with open(metrics_path, "w") as f:
+            json.dump(snap, f, indent=1)
+        print(f"[obs] metrics: {len(snap)} series -> {metrics_path}")

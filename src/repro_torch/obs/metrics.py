@@ -88,34 +88,53 @@ class Counter:
     def value(self) -> float:
         return self._value
 
+    def snapshot(self) -> float:
+        v = self._value
+        return int(v) if float(v).is_integer() else v
+
 
 class Gauge:
-    """Last-write-wins instantaneous value (queue depth, last LL)."""
+    """Last-write-wins instantaneous value (queue depth, last LL), with a
+    high-watermark: a bursty gauge such as ``serve.queue.depth`` has
+    drained to ~0 by the time anyone reads it, so :attr:`max` keeps the
+    largest value ever set."""
 
-    __slots__ = ("_lock", "_value")
+    __slots__ = ("_lock", "_value", "_max")
 
     def __init__(self):
         self._lock = threading.Lock()
         self._value = 0.0
+        self._max = -math.inf
 
     def set(self, value: float) -> None:
         with self._lock:
             self._value = float(value)
+            if self._value > self._max:
+                self._max = self._value
 
     @property
     def value(self) -> float:
         return self._value
 
+    @property
+    def max(self) -> float:
+        """High-watermark of every ``set`` (0.0 before the first)."""
+        return self._max if self._max != -math.inf else 0.0
+
+    def snapshot(self) -> Dict[str, float]:
+        return {"value": self._value, "max": self.max}
+
 
 class Histogram:
     """Fixed-bucket log-scale histogram with percentile readout."""
 
-    __slots__ = ("_lock", "_counts", "count", "vmin", "vmax")
+    __slots__ = ("_lock", "_counts", "count", "total", "vmin", "vmax")
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counts = [0] * NUM_BUCKETS
         self.count = 0
+        self.total = 0.0
         self.vmin = math.inf
         self.vmax = -math.inf
 
@@ -125,6 +144,7 @@ class Histogram:
         with self._lock:
             self._counts[idx] += 1
             self.count += 1
+            self.total += value
             if value < self.vmin:
                 self.vmin = value
             if value > self.vmax:
@@ -149,6 +169,22 @@ class Histogram:
         if self.count:
             v = min(max(v, self.vmin), self.vmax)
         return v
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0
+
+    def snapshot(self) -> Dict[str, float]:
+        return {
+            "count": self.count,
+            "sum": self.total,
+            "min": self.vmin if self.count else 0.0,
+            "max": self.vmax if self.count else 0.0,
+            "mean": self.mean,
+            "p50": self.percentile(50),
+            "p95": self.percentile(95),
+            "p99": self.percentile(99),
+        }
 
 
 _LabelKey = Tuple[str, Tuple[Tuple[str, Any], ...]]
@@ -226,6 +262,14 @@ class MetricsRegistry:
     def value(self, name: str, default: float = 0.0, **labels: Any) -> float:
         m = self._metrics.get(_key(name, labels))
         return m.value if m is not None else default
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The whole registry as one flat JSON-able dict keyed by
+        ``name{label=value,...}`` (the ``--metrics out.json`` file)."""
+        with self._lock:
+            items = list(self._metrics.items())
+        return {_fullname(k): m.snapshot() for k, m in sorted(
+            items, key=lambda kv: _fullname(kv[0]))}
 
     def reset(self) -> None:
         with self._lock:

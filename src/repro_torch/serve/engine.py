@@ -3,35 +3,42 @@
 Heterogeneous requests (joint LL, marginal LL, conditional LL,
 conditional/unconditional sampling, MPE decode) enter one FIFO, are
 coalesced into micro-batches per (kind, component), padded up to a
-power-of-two *batch bucket*, and executed by one eager ``model.query`` call
-under ``torch.inference_mode()``.
+power-of-two *batch bucket*, and executed through a program cache keyed
+by ``(kind, bucket[, component])`` (``repro_torch.compile``): on the card
+each program is a CUDA graph of the whole ``model.query`` call, captured
+once on static input buffers and replayed a batch, so the number of graphs
+is bounded by kinds x buckets (x components) whatever the traffic, and a
+steady-state batch pays no host-side launch cost; on the CPU a program is
+the eager ``model.query`` call.
 
   * Bucket padding uses filler rows (zeros, empty masks, seed 0) that are
     sliced off before results are returned.  LL kinds are row-independent;
     sampling kinds draw each row's noise from that row's own seed
-    (``EiNet.conditional_sample_per_key``), so a request's result is a
+    (counter-based, ``EiNet.row_noise``), so a request's result is a
     function of its own (seed, x, evidence) and never of its micro-batch
     neighbours or of the bucket size.
   * Per-request determinism: a request with ``seed`` samples exactly as a
     direct ``model.conditional_sample_per_key([seed], ...)`` call.
+  * Programs live in a shared registry anchored to the model (default
+    ``compile.REGISTRY``); the engine keeps its own view of the keys it
+    serves, so ``num_programs`` and ``stats`` are per engine.  ``warmup``
+    captures programs ahead of a timed drain.
 
-Eager PyTorch compiles nothing, so the reference's per-(kind, bucket)
-program cache has no counterpart: ``warmup`` runs one query per (kind,
-bucket[, component]) on filler rows instead, which pays the one-time costs
-(kernel build and load, allocator growth, library handles) outside a timed
-drain, and ``num_programs`` counts the keys warmed or run.  The engine
-records the reference's serve metrics (``repro_torch.obs``): queue depth,
-per-request queue wait and end-to-end latency, coalesce and execute times.
+The engine records the reference's serve metrics (``repro_torch.obs``):
+queue depth, per-request queue wait and end-to-end latency, coalesce and
+execute times, program-cache hits and misses.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import compile as compile_lib
 from repro_torch import obs
 from repro_torch.core.einet import QUERY_KINDS
 from repro_torch.obs import METRICS
@@ -68,16 +75,16 @@ class Result:
 
 
 def assemble_batch(model, reqs: Sequence[Request],
-                   bucket: int) -> Dict[str, Any]:
+                   bucket: int) -> Dict[str, torch.Tensor]:
     """The ``model.query`` batch of ``bucket`` rows for ``reqs``, on the
     model's device: each request's fields in its row (zeros for a missing
-    ``x``, empty masks for missing ones), filler rows (zeros, empty masks,
-    seed 0) after them."""
+    ``x``, empty masks for missing ones; "seeds" a (bucket,) int64 tensor),
+    filler rows (zeros, empty masks, seed 0) after them."""
     d = model.num_vars
     x = np.zeros((bucket, d), np.float32)
     ev = np.zeros((bucket, d), bool)
     qm = np.zeros((bucket, d), bool)
-    seeds = [0] * bucket
+    seeds = np.zeros(bucket, np.int64)
     for i, r in enumerate(reqs):
         if r.x is not None:
             x[i] = r.x
@@ -91,8 +98,24 @@ def assemble_batch(model, reqs: Sequence[Request],
         "x": torch.from_numpy(x).to(dev),
         "evidence_mask": torch.from_numpy(ev).to(dev),
         "query_mask": torch.from_numpy(qm).to(dev),
-        "seeds": seeds,
+        "seeds": torch.from_numpy(seeds).to(dev),
     }
+
+
+def run_query(model, batch: Dict[str, torch.Tensor], kind: str,
+              component: Optional[int] = None) -> torch.Tensor:
+    """``model.query`` of one kind (pinned to ``component`` where given):
+    the function a program records (``query_fn``)."""
+    if component is None:
+        return model.query(batch, kind)
+    return model.query(batch, kind, component=int(component))
+
+
+def query_fn(kind: str, component: Optional[int] = None
+             ) -> compile_lib.QueryFn:
+    """``run_query`` for one kind (and component), taking the model as its
+    first argument, as ``ProgramRegistry.capture`` wants."""
+    return functools.partial(run_query, kind=kind, component=component)
 
 
 class ServeEngine:
@@ -104,6 +127,7 @@ class ServeEngine:
         model,
         max_batch: int = 64,
         buckets: Optional[Sequence[int]] = None,
+        registry: Optional[compile_lib.ProgramRegistry] = None,
     ):
         self.model = model
         if buckets is None:
@@ -126,9 +150,20 @@ class ServeEngine:
         )
         self.queue = RequestQueue(key_fn=lambda r: (r.kind, r.component))
         self.slots = SlotManager(max_batch)
-        self.stats = {"steps": 0, "requests": 0, "padded_rows": 0}
-        # (kind, bucket[, component]) keys warmed or run
-        self._programs: Set[tuple] = set()
+        # programs live in the shared registry (anchored to the model);
+        # this dict is the engine's own view of the keys it serves, so
+        # num_programs / stats stay per engine under a shared registry
+        self.registry = (registry if registry is not None
+                         else compile_lib.REGISTRY)
+        self._programs: Dict[tuple, compile_lib.Program] = {}
+        self.stats = {
+            "compiles": 0,  # programs materialized into THIS engine's view
+            "compile_s": 0.0,  # capture seconds paid by this engine
+            "registry_hits": 0,  # programs another user already captured
+            "steps": 0,
+            "requests": 0,
+            "padded_rows": 0,
+        }
         # req_id -> enqueue clock, for the queue-wait and end-to-end
         # latency metrics (popped in _execute)
         self._submit_t: Dict[int, float] = {}
@@ -165,40 +200,13 @@ class ServeEngine:
         self.queue.submit(request)
         self._submit_t[request.req_id] = obs.now()
 
-    # ------------------------------------------------------------- warm-up
+    # ------------------------------------------------------- program cache
     @property
     def num_programs(self) -> int:
-        """Distinct (kind, bucket[, component]) keys warmed or run."""
+        """Distinct (kind, bucket[, component]) programs this engine has
+        taken from the registry."""
         return len(self._programs)
 
-    def warmup(
-        self,
-        kinds: Optional[Sequence[str]] = None,
-        buckets: Optional[Sequence[int]] = None,
-        components: Optional[Sequence[int]] = None,
-    ) -> float:
-        """Run one query on filler rows per (kind, bucket) of a cross
-        product; returns the seconds it took, results copied to the host
-        (so the device has finished).  Component-pinned kinds run once per
-        component (all of them by default; pass ``components`` to
-        narrow)."""
-        with obs.timed("serve.warmup") as t:
-            for kind in kinds or self.query_kinds:
-                if kind in self.component_kinds:
-                    comps: Sequence[Optional[int]] = (
-                        components if components is not None
-                        else range(getattr(self.model, "num_components", 0))
-                    )
-                else:
-                    comps = (None,)
-                for c in comps:
-                    for bucket in buckets or self.buckets:
-                        self._query(kind, c,
-                                    assemble_batch(self.model, [], bucket)).cpu()
-                        self._programs.add(self._key(kind, bucket, c))
-        return t.seconds
-
-    # ------------------------------------------------------------ execution
     @staticmethod
     def _key(kind: str, bucket: int, component: Optional[int]) -> tuple:
         return (kind, bucket) if component is None else (kind, bucket,
@@ -210,13 +218,56 @@ class ServeEngine:
                 return b
         return self.buckets[-1]
 
-    def _query(self, kind: str, component: Optional[int],
-               batch: Dict[str, Any]) -> torch.Tensor:
-        with torch.inference_mode():
-            if component is None:
-                return self.model.query(batch, kind)
-            return self.model.query(batch, kind, component=int(component))
+    def _program(self, kind: str, bucket: int,
+                 component: Optional[int] = None) -> compile_lib.Program:
+        key = self._key(kind, bucket, component)
+        prog = self._programs.get(key)
+        if prog is not None:
+            # engine-local fast path; misses fall through to the shared
+            # registry, which does its own (compile.cache.*) accounting
+            METRICS.counter("serve.program_cache.hits", kind=kind).inc()
+            return prog
+        METRICS.counter("serve.program_cache.misses", kind=kind).inc()
+        before = (self.registry.stats["compiles"],
+                  self.registry.stats["compile_s"])
+        prog = self.registry.capture(
+            self.model, key, query_fn(kind, component),
+            assemble_batch(self.model, [], bucket))
+        if self.registry.stats["compiles"] > before[0]:
+            self.stats["compile_s"] += (
+                self.registry.stats["compile_s"] - before[1])
+        else:
+            self.stats["registry_hits"] += 1
+        self.stats["compiles"] += 1
+        self._programs[key] = prog
+        return prog
 
+    def warmup(
+        self,
+        kinds: Optional[Sequence[str]] = None,
+        buckets: Optional[Sequence[int]] = None,
+        components: Optional[Sequence[int]] = None,
+    ) -> float:
+        """Capture the programs of a kind/bucket cross product (on the card:
+        one warm-up run and one capture each); returns the seconds it took,
+        the cost a deployment pays once, reported apart from steady-state
+        latency.  Component-pinned kinds get one program per component (all
+        of them by default; pass ``components`` to narrow)."""
+        with obs.timed("serve.warmup") as t:
+            for kind in kinds or self.query_kinds:
+                if kind in self.component_kinds:
+                    comps: Sequence[Optional[int]] = (
+                        components if components is not None
+                        else range(getattr(self.model, "num_components", 0))
+                    )
+                else:
+                    comps = (None,)
+                for c in comps:
+                    for bucket in buckets or self.buckets:
+                        self._program(kind, bucket, c)
+        return t.seconds
+
+    # ------------------------------------------------------------ execution
     def _execute(self, kind: str, component: Optional[int],
                  reqs: List[Request]) -> List[Result]:
         bucket = self._bucket_for(len(reqs))
@@ -229,12 +280,13 @@ class ServeEngine:
         with obs.timed("serve.coalesce", metric="serve.coalesce.seconds",
                        kind=kind, bucket=bucket):
             batch = assemble_batch(self.model, reqs, bucket)
-        # .cpu() waits for the device, so the execute time covers the work
+        # the copy to the host waits for the device, so the execute time
+        # covers the work
         with obs.timed("serve.execute", metric="serve.execute.seconds",
                        kind=kind, bucket=bucket):
-            out = self._query(kind, component, batch).cpu().numpy()
+            prog = self._program(kind, bucket, component)
+            out = prog(batch).cpu().numpy()
         out = out[: len(reqs)]
-        self._programs.add(self._key(kind, bucket, component))
         self.stats["padded_rows"] += bucket - len(reqs)
         self.stats["requests"] += len(reqs)
         t_done = obs.now()

@@ -1,22 +1,35 @@
-"""Synthetic mixed-kind request streams, the direct (one request at a time)
-call path, and the engine-against-direct parity check.
+"""Synthetic mixed-kind request streams, the two one-request-at-a-time
+call paths, and the engine-against-direct parity check.
 
 ``mixed_requests`` draws the same numpy stream as the reference's
 (``repro/serve/workload.py``), so both packages can serve identical traffic;
-``mixture_requests`` is its counterpart over a mixture's kinds.
-``direct_call`` answers one request with a batch of one, without the
-engine's queue, bucketing or coalescing: the parity oracle for the engine.
+``mixture_requests`` is its counterpart over a mixture's kinds.  Both
+baselines answer one request with a batch of one, without the engine's
+queue, bucketing or coalescing, as the reference's two do:
+
+  * ``direct_call`` -- through a bucket-1 program per kind (a CUDA graph on
+    the card, the eager query on the CPU): the strong baseline, and the
+    parity oracle of ``serve.benchmark``;
+  * ``legacy_call`` -- the eager path, through an EiNet's own methods: an
+    oracle independent of graphs.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import compile as compile_lib
 from repro_torch.core.einet import QUERY_KINDS
-from repro_torch.serve.engine import LL_KINDS, Request, Result
+from repro_torch.serve.engine import (
+    LL_KINDS,
+    Request,
+    Result,
+    assemble_batch,
+    query_fn,
+)
 
 # default traffic mix: LL-heavy with a steady sampling/decode component
 DEFAULT_MIX = (
@@ -84,12 +97,12 @@ def mixture_requests(mix, n: int, seed: int = 0) -> list:
     return reqs
 
 
-def direct_call(model) -> Callable[[Request], np.ndarray]:
-    """One request at a time (batch of one, no coalescing), through an
-    EiNet's own methods, or for a kind the EiNet does not have (a
-    mixture's) through the model's ``query`` on a one-row batch; sampling
-    kinds use the request's seed as the engine does, so outputs are
-    directly comparable."""
+def legacy_call(model) -> Callable[[Request], np.ndarray]:
+    """One request at a time (batch of one, no coalescing), eagerly,
+    through an EiNet's own methods, or for a kind the EiNet does not have
+    (a mixture's) through the model's ``query`` on a one-row batch;
+    sampling kinds use the request's seed as the engine does, so outputs
+    are directly comparable.  No graph is involved."""
     dev = model.device
 
     def call(req: Request) -> np.ndarray:
@@ -121,6 +134,26 @@ def direct_call(model) -> Callable[[Request], np.ndarray]:
             else:
                 raise ValueError(f"unknown kind {req.kind!r}")
         return out.cpu().numpy()[0]
+
+    return call
+
+
+def direct_call(model, registry: Optional[compile_lib.ProgramRegistry] = None
+                ) -> Callable[[Request], np.ndarray]:
+    """One request at a time through a bucket-1 program keyed
+    ``("direct", kind[, component])`` in ``registry`` (default
+    ``compile.REGISTRY``): a CUDA graph replay a request on the card, the
+    eager ``model.query`` on the CPU.  The batch is the engine's own
+    ``assemble_batch`` of one row."""
+    registry = compile_lib.REGISTRY if registry is None else registry
+
+    def call(req: Request) -> np.ndarray:
+        key = ("direct", req.kind) if req.component is None else (
+            "direct", req.kind, int(req.component))
+        batch = assemble_batch(model, [req], 1)
+        prog = registry.capture(model, key, query_fn(req.kind, req.component),
+                                batch)
+        return prog(batch).cpu().numpy()[0]
 
     return call
 

@@ -278,6 +278,19 @@ def test_exponential_families_match_reference(case):
     assert np.all(np.abs(draws.numpy().mean(0) - ref_draws.mean(0)) < 5 * se + 1e-3)
 
 
+@pytest.mark.parametrize("n_trials", [1, 7, 255])
+def test_binomial_log_h_constant_is_unchanged(n_trials):
+    """log N! is computed once, in float32 on the CPU, and kept as a Python
+    float: log h equals, bit for bit, the per-call float32 lgamma of a
+    tensor it replaces, at every x in 0..N."""
+    ef = port_ef.Binomial(n_trials)
+    x = torch.arange(n_trials + 1, dtype=torch.float32)[None].repeat(3, 1)
+    want = (torch.lgamma(torch.tensor(float(n_trials + 1)))
+            - torch.lgamma(x + 1.0) - torch.lgamma(n_trials - x + 1.0))
+    assert isinstance(ef.log_n_factorial, float)
+    assert torch.equal(ef.log_h(x), want) and ef.log_h(x).dtype == torch.float32
+
+
 def test_init_phi_uses_the_generator():
     ef = port_ef.Normal()
     a = ef.init_phi(torch.Generator().manual_seed(4), (3, 2, 2))

@@ -40,6 +40,7 @@ from repro_torch.convert import (
 )
 from repro_torch.core import em, poon_domingos, random_binary_trees
 from repro_torch.core.einet import EiNet
+from repro_torch.core.layers import NEG_INF
 from repro_torch.kernels import ops
 from repro_torch.mixture import (
     MIXTURE_COMPONENT_KINDS,
@@ -418,6 +419,46 @@ def test_component_kinds_are_the_component_einet(pd_mix):
             }
         for k in got:
             assert torch.equal(got[k], want[k]), (c, k)
+
+
+def _grouped_sample_components(mix, choice, x, evidence_mask, noise, mode):
+    """The grouped sampler the port used before its sampling went static:
+    the rows that chose c run through component c together (the oracle
+    for ``EiNetMixture._sample_components``)."""
+    c_n = mix.num_components
+    out = torch.empty_like(x)
+    for c in torch.unique(choice).tolist():
+        rows = torch.nonzero(choice == c)[:, 0]
+        sub_noise = None if noise is None else noise[rows, c_n:]
+        with mix.bound(c) as net:
+            out[rows] = net.conditional_sample(
+                x[rows], evidence_mask[rows], sub_noise, mode=mode)
+    return out
+
+
+@pytest.mark.parametrize("mode", ["sample", "argmax"])
+def test_static_sampling_equals_grouped(pd_mix, mode):
+    """Every component over all rows, each row keeping its chosen one,
+    equals the grouped pass over each component's rows bit for bit (every
+    op computes a row alone); the choices cover all three components."""
+    _, _, _, port = pd_mix
+    x, ev = _data(port.num_vars, 12, 6)
+    xt, evt = torch.from_numpy(x), torch.from_numpy(ev)
+    seeds = list(range(600, 612))
+    with torch.inference_mode():
+        noise = None
+        if mode == "sample":
+            noise = port.component.row_noise(seeds, lead=C)
+        choice = torch.arange(12) % C
+        got = port._sample_components(choice, xt, evt, noise, mode)
+        want = _grouped_sample_components(port, choice, xt, evt, noise, mode)
+        assert torch.equal(got, want)
+        full = port.conditional_sample_per_key(seeds, xt, evt, mode=mode)
+        logits = port._log_weights()[None] + port.component_log_likelihoods(
+            xt, evt)
+        picks = port._choose(torch.clamp(logits, min=NEG_INF), noise)
+        assert torch.equal(full, _grouped_sample_components(
+            port, picks, xt, evt, noise, mode))
 
 
 def test_mixture_sampling_row_independent(pd_mix):

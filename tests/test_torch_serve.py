@@ -2,6 +2,7 @@
 stream shared with the reference, engine-against-direct parity, bucket
 padding isolation and the serve CLI."""
 
+import json
 import os
 import subprocess
 import sys
@@ -12,6 +13,8 @@ import pytest
 import torch
 
 from repro.serve import mixed_requests as ref_mixed_requests
+from repro.serve import run_benchmark as ref_run_benchmark
+from repro_torch import compile as compile_lib
 from repro_torch.core import random_binary_trees
 from repro_torch.core.einet import EiNet
 from repro_torch.serve import (
@@ -20,8 +23,11 @@ from repro_torch.serve import (
     ServeEngine,
     SlotManager,
     direct_call,
+    format_report,
+    legacy_call,
     mixed_requests,
     parity,
+    run_benchmark,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -154,3 +160,96 @@ def test_serve_cli_defaults_to_cuda():
     out = _cli("--arch", "einet_rat", "--requests", "2")
     assert out.returncode != 0
     assert "device='cpu'" in out.stderr
+
+
+def test_direct_and_legacy_calls_agree(small_net):
+    """The per-request program path and the eager path give the same
+    answers (LLs within 1e-6, sampling and decode identical); the direct
+    path's programs are keyed ("direct", kind) in the registry."""
+    reqs = mixed_requests(small_net.num_vars, 12, seed=5)
+    reg = compile_lib.ProgramRegistry()
+    direct, legacy = direct_call(small_net, reg), legacy_call(small_net)
+    for r in reqs:
+        a, b = direct(r), legacy(r)
+        if r.kind.endswith("_ll"):
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(a, b)
+    assert sorted(reg.table(small_net)) == sorted(
+        ("direct", k) for k in {r.kind for r in reqs})
+
+
+REPORT_KEYS = {
+    "num_requests", "kinds", "max_batch", "buckets", "reps", "warmup_s",
+    "compile_s", "direct_warmup_s", "steady_s", "engine_qps", "latency_ms",
+    "program_cache", "direct_s", "direct_qps", "legacy_s", "legacy_qps",
+    "speedup", "speedup_vs_jitted", "programs", "compiles",
+    "scheduler_steps", "padded_rows", "queue_depth_max",
+    "parity_max_abs_diff",
+}
+
+
+def test_run_benchmark_reports_the_reference_keys(small_net):
+    """The port's report carries every key of the reference's, and the
+    stream-derived ones (requests, kinds, buckets, max_batch, scheduling)
+    equal the reference's on the same stream; parity is exact on the
+    CPU."""
+    import jax
+
+    from repro.core import EiNet as RefEiNet
+    from repro.core import random_binary_trees as ref_rbt
+
+    reqs = mixed_requests(small_net.num_vars, 10, seed=6)
+    got = run_benchmark(small_net, reqs, reps=2,
+                        registry=compile_lib.ProgramRegistry())
+    ref = RefEiNet(ref_rbt(8, 2, 2, seed=0), num_sums=3)
+    want = ref_run_benchmark(ref, ref.init(jax.random.PRNGKey(0)),
+                             ref_mixed_requests(8, 10, seed=6), reps=2)
+    assert set(want) <= set(got) and REPORT_KEYS <= set(want)
+    for k in ("num_requests", "kinds", "buckets", "max_batch", "reps",
+              "scheduler_steps", "padded_rows", "programs", "compiles"):
+        assert got[k] == want[k], k
+    assert set(got["latency_ms"]) == set(want["latency_ms"])
+    assert set(got["program_cache"]) == set(want["program_cache"])
+    assert got["program_cache"]["registry_compiles"] == got["programs"]
+    assert got["program_cache"]["hits"] == 2 * got["programs"]
+    assert got["parity_max_abs_diff"] == 0.0
+    assert got["sample_mismatches"] == 0 and got["ll_max_abs_diff"] == 0.0
+    # against the eager path: LLs within 1e-5 relative (the CLI's gate),
+    # sampling and decode identical
+    assert got["legacy_sample_mismatches"] == 0
+    assert got["legacy_ll_max_rel_diff"] <= 1e-5
+    assert got["compile_s"] == 0.0 and got["queue_depth_max"] >= 1
+    with pytest.raises(ValueError, match="at least one"):
+        run_benchmark(small_net, [])
+
+
+def test_format_report_lines(small_net):
+    reqs = mixed_requests(small_net.num_vars, 6, seed=7)
+    text = format_report(run_benchmark(small_net, reqs, reps=1))
+    lines = text.splitlines()
+    heads = [ln.split(":")[0].strip() for ln in lines]
+    assert heads[0].startswith("batched exact-inference engine")
+    for head in ("warm-up", "steady", "prog cache", "baselines", "parity",
+                 "programs"):
+        assert head in heads, head
+    assert sum(h == "latency" for h in heads) == len({r.kind for r in reqs})
+    assert "req/s" in text
+
+
+def test_serve_cli_smoke_trace_and_metrics(tmp_path):
+    out = _cli("--smoke", "--device", "cpu", "--trace",
+               str(tmp_path / "trace.json"), "--metrics",
+               str(tmp_path / "metrics.json"))
+    assert out.returncode == 0, out.stderr
+    assert "einet-rat-serve-smoke" in out.stdout
+    assert "batched exact-inference engine: 4 requests" in out.stdout
+    assert "mismatches 0" in out.stdout and "[obs] serve:" in out.stdout
+    assert "parity: LL max|engine - direct|" in out.stdout
+    assert "parity: LL max|engine - legacy|" in out.stdout
+    names = {e["name"] for e in json.loads(
+        (tmp_path / "trace.json").read_text())["traceEvents"]}
+    assert {"serve.step", "serve.bench.steady", "serve.bench.legacy"} <= names
+    snap = json.loads((tmp_path / "metrics.json").read_text())
+    assert snap["serve.queue.depth"]["max"] >= 1
+    assert snap["compile.cache.misses{kind=eager}"] >= 1

@@ -164,6 +164,12 @@ def test_port_imports_neither_jax_nor_reference():
                     if _forbidden(n)]
     assert not bad, bad
     assert len(_port_files()) > 10
+    # the serving path's modules are among the files checked
+    names = {p.relative_to(ROOT / "src").as_posix() for p in _port_files()
+             if "src" in p.parts}
+    assert {"repro_torch/compile.py", "repro_torch/core/philox.py",
+            "repro_torch/obs/events.py",
+            "repro_torch/serve/benchmark.py"} <= names
 
 
 def test_port_imports_with_jax_blocked():
