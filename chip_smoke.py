@@ -57,6 +57,9 @@
    more than 1e-5 |LL| a step), then 20 stochastic EM steps at B = 2048 in
    each plan, with the launch counters reset just before each run and the
    launches per step asserted (fused: K3 1, K4 1; per layer: K1 4, K2 4).
+   These steps run op by op (the update functions, then load_params), so
+   that the counters see each step; phase 13 holds the step programs'
+   graphs against them.
 8. einet_pd (the paper's SVHN config at full width, seed 0, B = 512, the
    reference's mixture-image data): the serve phase as in 5 (K5 and K1
    launched, engine against eager calls, a few LLs against the CPU), joint_ll
@@ -74,12 +77,13 @@
 10. Mixture of EiNets (§4.2): einet_celeba x 8 components (seed 0) on the
    procedural CelebA stand-in (to_domain "normal").  k-means (C = 8) on
    the card, whose partition must equal a second card run's and the CPU
-   port's; 10 hard stochastic EM steps at 64 rows a component (launches a
-   step asserted: K5 8, K6 8, K1 8, K2 8; step 0 bit for bit 8
-   single-model stochastic_em_update calls of a separate einet_celeba);
-   the soft E-step at B = 512 twice bitwise and against the CPU plain path
-   (statistics rtol 1e-4, atol 1e-6 B, n_weight included); 10 soft
-   stochastic EM steps (same launches), timed whole and by stage; full
+   port's; 10 hard stochastic EM steps at 64 rows a component, op by op
+   as in 7 (launches a step asserted: K5 8, K6 8, K1 8, K2 8; step 0 bit
+   for bit 8 single-model stochastic_em_update calls of a separate
+   einet_celeba); the soft E-step at B = 512 twice bitwise and against the
+   CPU plain path (statistics rtol 1e-4, atol 1e-6 B, n_weight
+   included); 10 soft stochastic EM steps op by op (same launches), timed
+   whole and by stage; full
    soft EM 3 steps on one batch (monotone); mixture_joint_ll at B = 512
    (K5 8, K1 8) against the CPU (rtol 1e-5, atol 1e-4); and 256 requests
    over all ten mixture kinds through ServeEngine(max_batch=64): req/s
@@ -95,8 +99,9 @@
    ServeEngine(max_batch=32) for joint and marginal bits per dim, inpaints
    8 images under the four Fig. 4 masks and draws 16 samples.  Gates:
    parity_mismatches_total == 0 (engine against direct one-row calls, bit
-   for bit), launches a training step (K5, K6, K1, K2 one each a
-   component), no wrapper launch in a joint_ll engine batch but the one
+   for bit), the training run's launches (its steps are replays of a step
+   program's graph: K5, K6, K1, K2 twice each a component, its warm-up and
+   its capture), no wrapper launch in a joint_ll engine batch but the one
    that captures its program (K5, K1 twice each a component: the warm-up
    run and the capture), and one replay of each joint_ll program against
    an eager call on its batch (torch.profiler: the same bits and CUDA
@@ -137,7 +142,34 @@
    times K5 (einet_pd's gather run) and K1 (its root pair) at the serve
    buckets B = 1..64, one launch at a time and replayed from a graph,
    beside their bounds.
-13. Prints the launch counts of every main path (each kernel must have run
+13. Training-graph phase (train_graph_phase): the training steps as
+   captured CUDA graphs through compile.REGISTRY, at full width.  (a) 20
+   graph steps against 20 eager steps (the update functions and
+   load_params) of a second model from the same parameters, LLs and
+   parameters bit for bit, for einet_rat (fused, per layer), einet_pd
+   (planned, per layer) and einet_celeba x 8 (hard, soft); (b) the first
+   graph step alone too; the launch counters (set to 0 just before the
+   graph steps, read just after) hold the warm-up and the capture, twice
+   the eager step's launches, and one replay of each step graph runs the
+   eager step's CUDA kernels by name and number (profiled); prints graph
+   and eager ms/step, capture seconds, pool MiB, the busy share of one
+   graph step, and one replay's span between CUDA events split into its
+   kernels' device time by class (profiled) and the rest.  (c) The health vector of a graph step on the card against
+   the CPU plain path at einet_rat (B = 2048) and einet_pd (B = 512):
+   counts and fractions exact (the clamp fraction counted on the card's
+   parameters), LL and entropy rtol 1e-5, norms rtol 1e-4; health-off
+   parameters equal health-on bit for bit.  (d) einet_rat_large: the step
+   graph at 4 microbatches of 1,024 rows bit for bit the eager microbatch
+   loop, its E-step at B = 16 against the CPU plain path (statistics rtol
+   1e-4, atol 1e-6 B), a checkpoint's save and restore seconds, and the
+   config's own 65,536-row step (64 microbatches of 1,024) timed with its
+   memory peak.  (e) ft.run_training on einet_pd's graph step: 12 steps,
+   checkpoint_every 4, failures at steps 5 and 9; the final parameters
+   equal an uninterrupted run's bit for bit and neither the step graph nor
+   the model's serving programs recapture.  (f) A NaN row from step 3 on
+   with health on: fit raises DivergenceError leaving one incident bundle
+   of six files, and under "continue" runs every step leaving one.
+14. Prints the launch counts of every main path (each kernel must have run
    on them) and the shapes (B, L, K_out, K) K1 and K2 were launched at
    there (counted by wrapping the ops' kernels, whose launch counters stay
    as they are); times K1 and K2 at each of those shapes (and K1 at
@@ -173,6 +205,7 @@ import dataclasses
 import json
 import os
 import shutil
+import statistics
 import struct
 import subprocess
 import sys
@@ -500,9 +533,13 @@ def eval_phase(card: str, dev) -> dict:
             steps = rec["train_steps"]
             if steps != cfg.steps or len(parts["train"]) != 1:
                 raise AssertionError(f"{what}: {steps} EM steps")
-            exactly(parts["train"][0][0], {k: n_c * steps for k in
+            # the training steps are a step program's replays: the wrappers
+            # run in its warm-up and its capture only (K5, K6, K1, K2 once
+            # each a component in each)
+            exactly(parts["train"][0][0], {k: 2 * n_c for k in
                                            (k5, k6, k1, k2)},
-                    f"{what}: {steps} EM steps")
+                    f"{what}: {steps} EM steps (a graph step's warm-up and "
+                    f"capture)")
             # an engine joint_ll batch replays its program's graph: no
             # wrapper runs, except in the batch that captures the program
             # (its warm-up run and its capture, K5 and K1 once each a
@@ -587,8 +624,9 @@ def eval_phase(card: str, dev) -> dict:
                      + inp["parity_rows"] + cfg.num_samples)
             print(f"{what}: {rec['dataset']} ({rec['dataset_source']}) "
                   f"{h}x{w}x{c}, {rec['num_params']} parameters, "
-                  f"{steps} EM steps (launches a step " + ", ".join(
-                      f"{k} {v // steps}" for k, v in
+                  f"{steps} EM steps as graph replays (launches in the "
+                  f"step program's warm-up and capture " + ", ".join(
+                      f"{k} {v}" for k, v in
                       parts["train"][0][0].items() if v)
                   + f"), train LL {rec['train_ll_first']:.4f} -> "
                   f"{rec['train_ll_last']:.4f}"
@@ -652,6 +690,47 @@ def bits_equal(a, b) -> bool:
             and torch.equal(a.view(torch.int32), b.view(torch.int32)))
 
 
+def eager_em_step(model, tcfg):
+    """The EM step of ``tcfg`` op by op -- the update function, then
+    ``load_params`` -- returning the mean LL as a float: the oracle the
+    step programs are held against."""
+    from repro_torch.core import em
+    from repro_torch.train import (em_update_microbatched,
+                                   stochastic_em_update_microbatched)
+
+    update = (stochastic_em_update_microbatched if tcfg.mode == "stochastic"
+              else em_update_microbatched)
+
+    def step(x):
+        new, ll = update(model, x, tcfg.em, tcfg.num_microbatches)
+        em.load_params(model, new)
+        return float(ll)
+
+    return step
+
+
+def eager_mixture_step(mix, mcfg):
+    """The mixture EM step of ``mcfg`` op by op (its update function, then
+    ``load_mixture_params``), returning the mean LL as a float."""
+    from repro_torch.mixture.train import (
+        hard_mixture_em_update, load_mixture_params, mixture_em_update,
+        stochastic_mixture_em_update)
+
+    if mcfg.assign == "hard":
+        update = hard_mixture_em_update
+    elif mcfg.mode == "stochastic":
+        update = stochastic_mixture_em_update
+    else:
+        update = mixture_em_update
+
+    def step(x):
+        new, ll = update(mix, x, mcfg)
+        load_mixture_params(mix, new)
+        return float(ll)
+
+    return step
+
+
 def device_busy_share(fn) -> float:
     """Share of one call of ``fn`` (which ends with results on the host)
     during which the card ran kernels or copies: the summed device time of
@@ -680,10 +759,16 @@ FENCE_KERNELS = 64
 _FENCE = {}
 
 
-def _fence() -> str:
+# profiled windows that lost a side's markers and were taken again
+FENCE_RETRIES = collections.Counter()
+
+
+def _fence(tries: int = 3) -> str:
     """Launch FENCE_KERNELS in-place XORs of a one-byte tensor; returns
     the name their kernel records under (found once, by profiling them:
-    the name that shows FENCE_KERNELS times)."""
+    the name that shows FENCE_KERNELS times).  A profiling session that
+    records no CUDA kernel at all (one did, once, late in a long process)
+    is taken again, up to ``tries`` times in all, then raises."""
     import torch
 
     first = "t" not in _FENCE
@@ -696,20 +781,22 @@ def _fence() -> str:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _fence()
+        for _ in range(tries):
             torch.cuda.synchronize()
-        names = collections.Counter(e.name for e in prof.events()
-                                    if e.device_type == DeviceType.CUDA)
-        if not names:
-            raise AssertionError("torch.profiler recorded no CUDA kernel")
-        _FENCE["name"] = names.most_common(1)[0][0]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _fence()
+                torch.cuda.synchronize()
+                time.sleep(0.02)
+            names = collections.Counter(e.name for e in prof.events()
+                                        if e.device_type == DeviceType.CUDA)
+            if names:
+                _FENCE["name"] = names.most_common(1)[0][0]
+                break
+            FENCE_RETRIES["a marker session recorded no CUDA kernel"] += 1
+        else:
+            raise AssertionError(f"{tries} torch.profiler sessions in turn "
+                                 "recorded no CUDA kernel")
     return _FENCE.get("name", "")
-
-
-# profiled windows that lost a side's markers and were taken again
-FENCE_RETRIES = collections.Counter()
 
 
 def device_kernels(fn, tries: int = 3):
@@ -1088,6 +1175,549 @@ def serve_bucket_times(card: str, dev, pd) -> list:
               f"time {r['eager_ms']:.4f} ms, in a graph {r['graph_ms']:.4f} "
               f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}) [{card}]")
     return rows
+
+
+# the training-graph phase: steps a case, batch rows of each case
+TRAIN_GRAPH_STEPS = 20
+# einet_rat_large's microbatch gates: 4 x 1024 rows against the eager loop,
+# then the config's own 65,536-row step as 64 x 1024
+BIG_MICROBATCH_ROWS = 1024
+BIG_GATE_MICROBATCHES = 4
+# health slots held exactly (counts and fractions), at rtol 1e-5 (LL and
+# entropy) and at rtol 1e-4 (statistic norms), card against the CPU
+HEALTH_RTOL = {"ll.mean": 1e-5, "ll.min": 1e-5, "weight.entropy": 1e-5,
+               "stat.norm.max": 1e-4, "stat.norm.mean": 1e-4}
+INCIDENT_FILES = {"incident.json", "metrics.json", "trace.json",
+                  "health_history.json", "params.npz", "params_tree.txt"}
+
+
+# the port's hand-written kernels, by the CUDA function names of csrc/
+OWN_KERNELS = ("lee_", "grouped_", "gather_", "mix_", "scatter_mix",
+               "accumulate_kernel", "gv_sum", "gx_kernel", "init_kernel")
+
+
+def replay_breakdown(replay) -> dict:
+    """Where one replay of a graph spends the card's time: its span between
+    two CUDA events (ms), the summed device time of its kernels by class
+    (profiled, ms: the port's hand-written kernels, PyTorch's elementwise
+    kernels, its reductions, the rest), and the span less the kernels (the
+    gaps between the graph's nodes, and its copies)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    replay()
+    end.record()
+    torch.cuda.synchronize()
+    span = start.elapsed_time(end)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        replay()
+        torch.cuda.synchronize()
+    by = collections.Counter()
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.name.startswith(
+                ("Memcpy", "Memset")):
+            continue
+        name = e.name
+        kind = ("hand-written" if any(k in name for k in OWN_KERNELS)
+                else "elementwise" if "elementwise" in name
+                else "reduction" if "reduce" in name.lower() else "other")
+        by[kind] += e.time_range.elapsed_us() / 1e3
+    return {"span_ms": span, "kernels_ms": dict(by),
+            "gaps_ms": span - sum(by.values())}
+
+
+def train_graph_phase(card: str, dev, mix_data, compare_stats) -> dict:
+    """Training through captured step graphs at full width, every step
+    program from ``make_em_step`` / ``make_mixture_em_step`` through
+    ``compile.REGISTRY`` unless a gate needs its own registry.
+
+    (a)+(b) einet_rat (fused, per layer), einet_pd (planned, per layer)
+    and einet_celeba x 8 (hard, soft): 20 graph steps against 20 eager
+    steps (the update functions and ``load_params``) of a second model from
+    the same parameters, LL and parameters bit for bit, the first step on
+    its own too; the launch counters (set to 0 just before the graph
+    steps, read just after) hold the step program's warm-up and capture, 2x
+    the eager step's launches; one replay of each step graph runs the same
+    CUDA kernels, by name and number, as one eager step (profiled); each
+    case's ms/step graph and eager, capture seconds, pool MiB, the
+    device's busy share over one graph step, and where one replay's time
+    goes (``replay_breakdown``).
+    (c) health on the card against the CPU plain path (einet_rat fused at
+    B=2048, einet_pd planned at B=512): counts and fractions exact, LL and
+    entropy rtol 1e-5, norms rtol 1e-4; health-off parameters equal
+    health-on parameters bit for bit.
+    (d) einet_rat_large: its step graph at 4 microbatches of 1,024 rows
+    against the eager microbatch loop bit for bit, its E-step at B=16 on
+    the card against the CPU plain path (statistics rtol 1e-4, atol 1e-6
+    B), a checkpoint's save and restore seconds, then the config's own
+    65,536-row step (64 microbatches of 1,024 rows), timed, with its
+    memory peak.
+    (e) ``ft.run_training`` on einet_pd's graph step: 12 steps,
+    checkpoint_every=4, failures at steps 5 and 9; the final parameters
+    equal an uninterrupted run's bit for bit, and neither the step graph
+    nor the model's serving programs recapture across the restores (a
+    served joint_ll batch equals eager afterwards).
+    (f) batches with a NaN row from step 3 on, health on: ``fit`` raises
+    ``DivergenceError`` leaving one incident bundle of six files; under
+    "continue" it runs every step and leaves one bundle.
+
+    Returns the graph runs' launch counts and K1/K2 shapes (the main
+    path's) and the figures."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import compile as compile_lib
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import em
+    from repro_torch.data.datasets import array_loader
+    from repro_torch.dist import fault_tolerance as ft
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cells import build_einet, build_mixture
+    from repro_torch.launch.train import (
+        batch_at, synthetic_pd_data, synthetic_rat_data)
+    from repro_torch.mixture import (
+        MixtureTrainConfig, make_mixture_em_step, prepare_mixture_training)
+    from repro_torch.mixture.train import mixture_params_of
+    from repro_torch.obs import health as health_lib
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import assemble_batch, run_query
+    from repro_torch.train import TrainConfig, fit, make_em_step
+    from repro_torch.train.pipeline import stochastic_em_update_microbatched
+
+    rat_cfg, pd_cfg = get_config("einet_rat"), get_config("einet_pd")
+    mix_cfg = get_config("einet_celeba")
+    n_mix = 8
+    rat_data = torch.from_numpy(synthetic_rat_data(rat_cfg.num_vars)).to(dev)
+    pd_probe = build_einet(pd_cfg, device="meta")
+    pd_data = torch.from_numpy(synthetic_pd_data(pd_probe.num_vars)).to(dev)
+    del pd_probe
+    b_rat, b_pd, b_mix = rat_cfg.batch_size, pd_cfg.batch_size, 512
+    out = {"counts": collections.Counter(), "shapes": collections.Counter(),
+           "cases": {}}
+
+    def params(m):
+        return [p.detach() for p in m.parameters()]
+
+    def same_params(a, b):
+        return all(bits_equal(x, y) for x, y in zip(params(a), params(b)))
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def rat(grouped=True):
+        return build_einet(rat_cfg, device=dev, seed=0, grouped=grouped)
+
+    def pd(grouped=True):
+        return build_einet(pd_cfg, device=dev, seed=0, grouped=grouped)
+
+    def mixture(assign):
+        g = build_mixture(mix_cfg, n_mix, device=dev, seed=0)
+        e = build_mixture(mix_cfg, n_mix, device=dev, seed=0)
+        if assign == "hard":
+            loader, _ = prepare_mixture_training(g, mix_data, seed=0,
+                                                 global_batch=b_mix)
+            e.load_state_dict(g.state_dict())
+        else:
+            loader = array_loader(mix_data, b_mix)
+        cfg = MixtureTrainConfig(assign=assign)
+        return (g, e, make_mixture_em_step(g, cfg),
+                eager_mixture_step(e, cfg),
+                lambda i: torch.from_numpy(loader.batch_at(i)["x"]).to(dev))
+
+    def einet_case(make, data, b):
+        g, e = make(), make()
+        return (g, e, make_em_step(g, TrainConfig()),
+                eager_em_step(e, TrainConfig()),
+                lambda i: batch_at(data, i, b))
+
+    cases = {
+        "einet_rat fused": lambda: einet_case(rat, rat_data, b_rat),
+        "einet_rat per-layer": lambda: einet_case(
+            lambda: rat(False), rat_data, b_rat),
+        "einet_pd planned": lambda: einet_case(pd, pd_data, b_pd),
+        "einet_pd per-layer": lambda: einet_case(
+            lambda: pd(False), pd_data, b_pd),
+        f"einet_celeba x{n_mix} hard": lambda: mixture("hard"),
+        f"einet_celeba x{n_mix} soft": lambda: mixture("soft"),
+    }
+    # ---- (a) + (b)
+    for name, make in cases.items():
+        g, e, g_step, e_step, batches = make()
+        xs = [batches(i) for i in range(TRAIN_GRAPH_STEPS)]
+        torch.cuda.synchronize()
+        reset(ops)
+        lls_g, t_g = [], []
+        for i, x in enumerate(xs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lls_g.append(g_step(x))
+            torch.cuda.synchronize()
+            t_g.append(time.perf_counter() - t0)
+            if i == 0:
+                first = [p.clone() for p in params(g)]
+        g_counts = counts_of(ops)
+        g_shapes = collections.Counter(SHAPES)
+        reset(ops)
+        lls_e, t_e = [], []
+        for i, x in enumerate(xs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lls_e.append(e_step(x))
+            torch.cuda.synchronize()
+            t_e.append(time.perf_counter() - t0)
+            if i == 0 and not all(bits_equal(a, b) for a, b in
+                                  zip(first, params(e))):
+                raise AssertionError(f"training graphs {name}: the first "
+                                     "graph step differs from one eager "
+                                     "step")
+        e_counts = counts_of(ops)
+        del first
+        if lls_g != lls_e or not same_params(g, e):
+            raise AssertionError(
+                f"training graphs {name}: {TRAIN_GRAPH_STEPS} graph steps "
+                f"differ from {TRAIN_GRAPH_STEPS} eager steps (LLs "
+                f"{lls_g[:3]}... vs {lls_e[:3]}...)")
+        want = {k: 2 * v // TRAIN_GRAPH_STEPS for k, v in e_counts.items()}
+        if (g_counts != want or any(v % TRAIN_GRAPH_STEPS
+                                    for v in e_counts.values())
+                or not any(want.values())):
+            raise AssertionError(
+                f"training graphs {name}: launches {g_counts} in "
+                f"{TRAIN_GRAPH_STEPS} graph steps, expected the warm-up and "
+                f"the capture, {want} (eager: {e_counts})")
+        prog = g_step
+        graph = next(iter(prog.graphs.values()))
+        replayed, _ = device_kernels(lambda: prog.replay(graph, xs[0]))
+        ran, _ = device_kernels(lambda: e_step(xs[0]))
+        if replayed != ran or not replayed:
+            diff = {k: (replayed[k], ran[k]) for k in set(replayed) | set(ran)
+                    if replayed[k] != ran[k]}
+            raise AssertionError(
+                f"training graphs {name}: one replay runs "
+                f"{sum(replayed.values())} kernels, one eager step "
+                f"{sum(ran.values())}; (replay, eager) where they differ: "
+                f"{diff}")
+        busy = device_busy_share(lambda: g_step(xs[1]))
+        busy_e = device_busy_share(lambda: e_step(xs[1]))
+        where = replay_breakdown(lambda: prog.replay(graph, xs[2]))
+        fig = {"graph_ms": statistics.median(t_g[1:]) * 1e3,
+               "eager_ms": statistics.median(t_e[1:]) * 1e3,
+               "first_graph_ms": t_g[0] * 1e3,
+               "capture_s": prog.capture_s,
+               "pool_mib": compile_lib.REGISTRY.pool_bytes(g) / 2 ** 20,
+               "busy": busy, "busy_eager": busy_e,
+               "kernels_a_replay": sum(replayed.values()),
+               "launches": g_counts, "replay": where}
+        out["cases"][name] = fig
+        out["counts"].update(g_counts)
+        out["shapes"].update(g_shapes)
+        print(f"training graphs {name}: {TRAIN_GRAPH_STEPS} graph steps "
+              f"equal {TRAIN_GRAPH_STEPS} eager steps bit for bit (LL "
+              f"{lls_g[0]:.4f} -> {lls_g[-1]:.4f}; the first step alone "
+              f"too); graph {fig['graph_ms']:.3f} ms/step, eager "
+              f"{fig['eager_ms']:.3f} ms/step (medians of steps 1-19), first "
+              f"graph step {fig['first_graph_ms']:.1f} ms with capture "
+              f"{fig['capture_s']:.3f} s, pool {fig['pool_mib']:.1f} MiB; "
+              f"device busy over one graph step {busy:.3f}, one eager step "
+              f"{busy_e:.3f}; a replay runs the eager step's "
+              f"{fig['kernels_a_replay']} CUDA kernels; wrapper launches "
+              "(warm-up and capture) " + ", ".join(
+                  f"{k} {v}" for k, v in g_counts.items() if v)
+              + f"; one replay {where['span_ms']:.3f} ms between CUDA "
+              f"events: kernels " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in sorted(
+                      where["kernels_ms"].items(), key=lambda kv: -kv[1]))
+              + f", gaps and copies {where['gaps_ms']:.3f} ms [{card}]")
+        del g, e, g_step, e_step, prog, graph, xs
+        free()
+
+    # ---- (c) health on the card against the CPU plain path
+    for name, make, data, b in (("einet_rat fused", rat, rat_data, b_rat),
+                                ("einet_pd planned", pd, pd_data, b_pd)):
+        on, off = make(), make()
+        cfg = rat_cfg if name.startswith("einet_rat") else pd_cfg
+        cpu = build_einet(cfg, device="cpu", seed=0)
+        x = batch_at(data, 0, b)
+        ll_on, hv = make_em_step(on, TrainConfig(health=True))(x)
+        ll_off = make_em_step(off, TrainConfig(health=False))(x)
+        if ll_on != ll_off or not same_params(on, off):
+            raise AssertionError(f"health {name}: the health-off step's "
+                                 "parameters differ from the health-on "
+                                 "step's")
+        t0 = time.perf_counter()
+        ll_cpu, hv_cpu = make_em_step(cpu, TrainConfig(health=True))(x.cpu())
+        cpu_s = time.perf_counter() - t0
+        spec = on.health_spec
+        got, want = spec.to_dict(hv), spec.to_dict(hv_cpu)
+        # a parameter pinned at a clamp bound sits there up to rounding, so
+        # the card's clamp fraction is held against the CPU's count on the
+        # card's own new parameters
+        want["leaf.clamp_frac"] = float(cpu.ef.clamp_fraction(
+            on.phi.detach().cpu()))
+        diffs = []
+        for slot in spec.names:
+            a, w = got[slot], want[slot]
+            rtol = HEALTH_RTOL.get(slot)
+            ok = (a == w if rtol is None
+                  else bool(np.isfinite(a)) and abs(a - w) <= rtol * abs(w))
+            diffs.append(f"{slot} {a:.6g}/{w:.6g}")
+            if not ok:
+                raise AssertionError(
+                    f"health {name}: slot {slot} on the card {a!r}, on the "
+                    f"CPU {w!r} (rtol {rtol or 'exact'})")
+        print(f"health {name} B={b}: the vector on the card (a graph step) "
+              f"equals the CPU plain path's (counts and fractions exact, the "
+              f"clamp fraction on the card's parameters, LL and entropy rtol "
+              f"1e-5, norms rtol 1e-4; CPU step {cpu_s:.2f} "
+              f"s); health-off parameters equal health-on bit for bit; card/"
+              f"CPU: " + ", ".join(diffs) + f" [{card}]")
+        del on, off, cpu
+        free()
+
+    # ---- (d) einet_rat_large through microbatches
+    big_cfg = get_config("einet_rat_large")
+    big, big_e = (build_einet(big_cfg, device=dev, seed=0) for _ in range(2))
+    big_data = torch.from_numpy(synthetic_rat_data(big.num_vars)).to(dev)
+    n_gate = BIG_GATE_MICROBATCHES
+    x_gate = batch_at(big_data, 0, n_gate * BIG_MICROBATCH_ROWS)
+    tcfg = TrainConfig(num_microbatches=n_gate)
+    step = make_em_step(big, tcfg)
+    reset(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ll_g = step(x_gate)
+    torch.cuda.synchronize()
+    gate_first_s = time.perf_counter() - t0
+    out["counts"].update(counts_of(ops))
+    out["shapes"].update(SHAPES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, ll_e = stochastic_em_update_microbatched(big_e, x_gate, tcfg.em,
+                                                  n_gate)
+    em.load_params(big_e, new)
+    torch.cuda.synchronize()
+    gate_eager_s = time.perf_counter() - t0
+    del new
+    if ll_g != float(ll_e) or not same_params(big, big_e):
+        raise AssertionError(
+            f"einet_rat_large: the {n_gate}-microbatch step graph differs "
+            "from the eager microbatch loop")
+    gate_capture_s = step.capture_s
+    x2 = batch_at(big_data, 1, n_gate * BIG_MICROBATCH_ROWS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(x2)
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - t0
+    del big_e, step, x2
+    compile_lib.REGISTRY.table(big).clear()
+    free()
+    # the E-step at B=16 against the CPU plain path
+    x16 = big_data[:16]
+    stats = em.em_statistics(big, x16)
+    t0 = time.perf_counter()
+    big_cpu = build_einet(big_cfg, device="cpu", seed=0)
+    big_cpu.load_state_dict({k: v.cpu() for k, v in big.state_dict().items()})
+    stats_cpu = em.em_statistics(big_cpu, x16.cpu())
+    big_cpu_s = time.perf_counter() - t0
+    big_d = compare_stats(stats, stats_cpu,
+                          "einet_rat_large E-step B=16 card vs CPU plain",
+                          1e-4, 1e-6 * 16)
+    del stats, stats_cpu, big_cpu
+    free()
+    # a checkpoint of its training state: save (synchronous) and restore
+    ck_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(ck_dir, async_write=False)
+        state = {"last_ll": ll_g, "params": em.params_of(big), "step": 2}
+        t0 = time.perf_counter()
+        mgr.save(2, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, back = mgr.restore(state)
+        em.load_params(big, back["params"])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ck_bytes = sum(os.path.getsize(os.path.join(root, f))
+                       for root, _, files in os.walk(ck_dir) for f in files)
+        del back, state
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    free()
+    # the config's own step: 65,536 rows as 64 microbatches of 1,024
+    n_big = big_cfg.batch_size // BIG_MICROBATCH_ROWS
+    step = make_em_step(big, TrainConfig(num_microbatches=n_big))
+    x_big = batch_at(big_data, 2, big_cfg.batch_size)
+    torch.cuda.reset_peak_memory_stats()
+    reset(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ll_big = step(x_big)
+    torch.cuda.synchronize()
+    big_first_s = time.perf_counter() - t0
+    out["counts"].update(counts_of(ops))
+    out["shapes"].update(SHAPES)
+    big_capture_s = step.capture_s
+    big_step_s = big_first_s - big_capture_s
+    big_peak = torch.cuda.max_memory_allocated()
+    big_pool = compile_lib.REGISTRY.pool_bytes(big)
+    if not np.isfinite(ll_big):
+        raise AssertionError(f"einet_rat_large 65,536-row step: LL {ll_big}")
+    out["big"] = {"gate_s": gate_s, "gate_first_s": gate_first_s,
+                  "gate_eager_s": gate_eager_s,
+                  "gate_capture_s": gate_capture_s,
+                  "estep16_cpu_s": big_cpu_s, "save_s": save_s,
+                  "restore_s": restore_s, "ckpt_bytes": ck_bytes,
+                  "step_s": big_step_s, "capture_s": big_capture_s,
+                  "rows_per_s": big_cfg.batch_size / big_step_s,
+                  "peak_gib": big_peak / 2 ** 30,
+                  "pool_gib": big_pool / 2 ** 30}
+    print(f"einet_rat_large (K=64, {big.num_params()} parameters): the "
+          f"{n_gate} x {BIG_MICROBATCH_ROWS}-row step graph equals the eager "
+          f"microbatch loop bit for bit (first call {gate_first_s:.3f} s with "
+          f"capture {gate_capture_s:.3f} s, eager {gate_eager_s:.3f} s, graph "
+          f"{gate_s:.3f} s/step); E-step B=16 card vs CPU plain max |diff| "
+          f"{big_d[0]:.3e} (at most {big_d[1]:.3e} of a block's max; CPU "
+          f"{big_cpu_s:.1f} s with its build); checkpoint "
+          f"{ck_bytes / 2 ** 20:.1f} MiB saved in {save_s:.3f} s, restored "
+          f"in place in {restore_s:.3f} s [{card}]")
+    print(f"einet_rat_large {big_cfg.batch_size}-row step ({n_big} x "
+          f"{BIG_MICROBATCH_ROWS}): {big_step_s:.3f} s/step, "
+          f"{big_cfg.batch_size / big_step_s:.1f} rows/s (the first call "
+          f"{big_first_s:.3f} s less its capture {big_capture_s:.3f} s), LL "
+          f"{ll_big:.4f}, memory peak {big_peak / 2 ** 30:.2f} GiB allocated, "
+          f"graph pool {big_pool / 2 ** 30:.2f} GiB [{card}]")
+    del big, step, x_big, big_data
+    free()
+
+    # ---- (e) the fault-tolerant loop on einet_pd's graph step
+    reg = compile_lib.ProgramRegistry()
+    pd_a, pd_b = pd(), pd()
+    engine = ServeEngine(pd_a, max_batch=8, registry=reg)
+    engine.warmup(kinds=["joint_ll"])
+    compiles0 = reg.stats["compiles"]
+    ck_root = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+
+    def loop(model, step, directory, injector=None):
+        def load_state(s):
+            em.load_params(model, s["params"])
+            return {"last_ll": float(s["last_ll"]),
+                    "params": em.params_of(model), "step": int(s["step"])}
+
+        def step_fn(s, x):
+            return {"last_ll": step(x), "params": em.params_of(model),
+                    "step": s["step"] + 1}
+
+        init = {"last_ll": 0.0, "step": 0, "params": {
+            k: (v.clone() if torch.is_tensor(v) else [t.clone() for t in v])
+            for k, v in em.params_of(model).items()}}
+        return ft.run_training(
+            step_fn, init, lambda i: batch_at(pd_data, i, b_pd),
+            CheckpointManager(directory), 12,
+            ft.LoopConfig(checkpoint_every=4, max_restarts=5),
+            fail_injector=injector, load_state=load_state)
+
+    crashed = set()
+
+    def injector(i):
+        if i in (5, 9) and i not in crashed:
+            crashed.add(i)
+            raise RuntimeError(f"injected failure at step {i}")
+
+    try:
+        t0 = time.perf_counter()
+        _, stats_a = loop(pd_a, make_em_step(pd_a, TrainConfig(),
+                                             registry=reg),
+                          os.path.join(ck_root, "a"), injector)
+        ft_s = time.perf_counter() - t0
+        _, stats_b = loop(pd_b, make_em_step(pd_b, TrainConfig()),
+                          os.path.join(ck_root, "b"))
+    finally:
+        shutil.rmtree(ck_root, ignore_errors=True)
+    if stats_a["restarts"] != 2 or stats_b["restarts"] != 0:
+        raise AssertionError(f"run_training restarts {stats_a['restarts']}, "
+                             f"{stats_b['restarts']}")
+    if not same_params(pd_a, pd_b):
+        raise AssertionError("run_training with failures at steps 5 and 9 "
+                             "ends in other parameters than an "
+                             "uninterrupted run")
+    key = next(k for k in reg.table(pd_a) if "joint_ll" in str(k))
+    prog = reg.table(pd_a)[key]
+    batch = assemble_batch(pd_a, [], key[1])
+    served = prog(batch)
+    with torch.inference_mode():
+        want = run_query(pd_a, batch, "joint_ll", None)
+    if reg.stats["compiles"] != compiles0 + 1:
+        raise AssertionError(
+            f"run_training: {reg.stats['compiles'] - compiles0} compiles "
+            "across the run (one step capture expected, no recapture)")
+    if not bits_equal(served, want):
+        raise AssertionError("einet_pd joint_ll program after the restores "
+                             "differs from eager")
+    print(f"run_training einet_pd graph step: 12 steps, checkpoint_every=4, "
+          f"failures at steps 5 and 9 -> {stats_a['restarts']} restarts, "
+          f"final parameters equal an uninterrupted run's bit for bit; "
+          f"{compiles0} serving programs and the step graph recaptured 0 "
+          f"times (one step capture in the run), a served joint_ll batch "
+          f"equals eager after the restores; {ft_s:.3f} s [{card}]")
+    del pd_a, pd_b, engine, prog, reg
+    free()
+
+    # ---- (f) the divergence flight recorder
+    nan_xs = []
+    for i in range(6):
+        x = batch_at(rat_data, i, b_rat).clone()
+        if i >= 3:
+            x[0, 0] = float("nan")
+        nan_xs.append(x)
+    inc_root = tempfile.mkdtemp(prefix="chip_smoke_incidents_")
+    try:
+        for policy in ("abort", "continue"):
+            m = rat()
+            where = os.path.join(inc_root, policy)
+            hp = health_lib.HealthPolicy(on_incident=policy,
+                                         incident_dir=where)
+            raised = None
+            lls = []
+            try:
+                lls = fit(m, nan_xs, TrainConfig(health=True),
+                          health_policy=hp)
+            except health_lib.DivergenceError as err:
+                raised = err
+            bundles = os.listdir(where)
+            if len(bundles) != 1:
+                raise AssertionError(f"flight recorder {policy}: bundles "
+                                     f"{bundles}")
+            files = set(os.listdir(os.path.join(where, bundles[0])))
+            with open(os.path.join(where, bundles[0], "incident.json")) as f:
+                inc = json.load(f)
+            if files != INCIDENT_FILES or inc["step"] != 3:
+                raise AssertionError(f"flight recorder {policy}: {files}, "
+                                     f"step {inc['step']}")
+            if (policy == "abort") != (raised is not None) or (
+                    policy == "continue" and len(lls) != len(nan_xs)):
+                raise AssertionError(f"flight recorder {policy}: raised "
+                                     f"{raised!r}, {len(lls)} steps")
+            print(f"flight recorder ({policy}): a NaN row from step 3 on -> "
+                  + (f"DivergenceError ({raised.reason})" if raised
+                     else f"{len(lls)} steps run") + f"; one bundle at step "
+                  f"{inc['step']} with {sorted(files)} [{card}]")
+            del m
+    finally:
+        shutil.rmtree(inc_root, ignore_errors=True)
+    free()
+    return out
 
 
 def main() -> int:
@@ -1871,7 +2501,10 @@ def main() -> int:
 
     # ----------------------------------------------------- training phase
     def train_run(m, mode, steps, batches, want):
-        step = make_em_step(m, TrainConfig(mode=mode))
+        # the step op by op, so that the launch counters see every step
+        # (a graph replay launches through no wrapper; the training-graph
+        # phase holds the graph steps against these)
+        step = eager_em_step(m, TrainConfig(mode=mode))
         reset(ops)
         lls, times = [], []
         for i in range(steps):
@@ -2291,7 +2924,7 @@ def main() -> int:
         """``steps`` mixture EM steps with the launch counters set to 0
         just before and read just after; launches a step asserted against
         ``want``; ``first`` sees the parameters after step 0."""
-        step = make_mixture_em_step(mix, mcfg)
+        step = eager_mixture_step(mix, mcfg)
         xs = [batches(i) for i in range(steps)]
         torch.cuda.synchronize()
         reset(ops)
@@ -2707,6 +3340,14 @@ def main() -> int:
           f"again (a side's markers lost): {sum(FENCE_RETRIES.values())} "
           f"{dict(FENCE_RETRIES)} [{card}]")
 
+    # ----------------------------------------------- training-graph phase
+    # EM steps as captured graphs against eager steps, health, einet_rat_large
+    # through microbatches, the fault-tolerant loop, the flight recorder
+    t_tg = time.perf_counter()
+    tgraphs = train_graph_phase(card, dev, mix_data, compare_stats)
+    tgraph_s = time.perf_counter() - t_tg
+    print(f"training-graph phase: {tgraph_s:.3f} s [{card}]")
+
     # ------------------------------------------------------------- report
     # the main paths: serving, and training in both plans (full EM
     # included), of einet_rat and of einet_pd
@@ -2727,7 +3368,9 @@ def main() -> int:
              **{f"graph serve {name}": g["counts"]
                 for name, g in graphs.items()},
              **{f"eval {name}": run["counts"]
-                for name, run in evals.items()}}
+                for name, run in evals.items()},
+             "training graphs (warm-ups and captures)": {
+                 k: tgraphs["counts"][k] for k in serve_counts}}
     for name, c in paths.items():
         print(f"launches on the {name} path: " + ", ".join(
             f"{k} {v}" for k, v in c.items()) + f" [{card}]")
@@ -2745,7 +3388,8 @@ def main() -> int:
                pd_train["per-layer"]["shapes"], hard["shapes"],
                soft["shapes"], mix_full["shapes"], mix_ll_shapes,
                mix_serve_shapes, *(g["shapes"] for g in graphs.values()),
-               *(run["shapes"] for run in evals.values())):
+               *(run["shapes"] for run in evals.values()),
+               tgraphs["shapes"]):
         path_shapes.update(sh)
     for (name, *shape), n in sorted(path_shapes.items()):
         print(f"{name} launches at (B, L, K_out, K) = {tuple(shape)} on the "

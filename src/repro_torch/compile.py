@@ -1,18 +1,27 @@
-"""Program registry for serving: one captured CUDA graph per key.
+"""Program registry for serving and training: captured CUDA graphs.
 
 The port's counterpart of the reference's ``repro/compile.py``.  There,
 the serving engine reaches one ahead-of-time compiled XLA program per
-``(kind, bucket[, component])`` through a shared ``ProgramRegistry``.  On
-CUDA the counterpart of such a program is a captured CUDA graph
-(``torch.cuda.CUDAGraph``): the query's whole launch sequence, recorded
-once on static input buffers and replayed with no Python and no host-side
-launch cost.
+``(kind, bucket[, component])`` through a shared ``ProgramRegistry``, and
+training reaches one jitted, donated-buffer EM step per (model, config).
+On CUDA the counterpart of such a program is a captured CUDA graph
+(``torch.cuda.CUDAGraph``): the whole launch sequence, recorded once on
+static input buffers and replayed with no Python and no host-side launch
+cost.
 
   * :meth:`ProgramRegistry.capture` is the counterpart of ``aot``: it
     returns the :class:`GraphProgram` (on a CUDA model) or
     :class:`EagerProgram` (on a CPU model) cached under ``(anchor, key)``.
     The device decides which: there is no capture on the CPU, and no
     failure is caught to choose.  A failed capture on the card raises.
+  * :meth:`ProgramRegistry.jit` is the counterpart of ``jit``: it returns
+    the training step program (:class:`StepProgram` on a CUDA model,
+    :class:`EagerStepProgram` on a CPU model) cached under ``(anchor,
+    key)``, so two ``make_em_step`` calls with the same (model, config)
+    return the same callable.  A step program captures its graphs lazily,
+    once per input shape, as ``jax.jit`` compiles once per shape.  The step
+    (:class:`StagedStep`) writes the model's parameters in place; see
+    :class:`StepProgram` for how it is captured.
   * Keys are ``(anchor, key)``: ``anchor`` is the model, held weakly, so a
     dead model releases its programs (and its graphs' memory pool); ``key``
     is a hashable tuple such as ``(kind, bucket[, component])``.
@@ -44,20 +53,20 @@ launches.  What a replay launches on the device is measured, not
 inferred: ``chip_smoke.py`` profiles one replay of each program and holds
 its kernels against an eager call's.
 
-The reference's second path, ``jit`` (training steps), has no counterpart
-here yet: training-step graphs are later work (ROADMAP, Queue 1 item 3).
 :data:`REGISTRY` is the process-wide default; passing an explicit
 registry isolates its statistics (benchmarks, tests).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import weakref
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch import obs
+from repro_torch import tree as tree_lib
 
 QueryFn = Callable[[Any, Dict[str, torch.Tensor]], torch.Tensor]
 # capture(run, device, pool) -> (replay, static output): records ``run()``
@@ -103,6 +112,19 @@ def capture_cuda_graph(run: Callable[[], torch.Tensor], device: torch.device,
     return graph.replay, out
 
 
+def _hold_pool(handle, device: torch.device):
+    """A one-node graph captured into the pool ``handle``, to be kept as
+    long as the registry uses the handle.  PyTorch frees a pool's record
+    once every graph captured into it is gone, and a later capture into the
+    same handle then fails (its host allocator asserts on the released
+    pool): a program that recaptures alone in its pool, or a program made
+    after a model's others were dropped, would hit that.  Returns what
+    keeps the graph alive."""
+    buf = torch.zeros(1, device=device)
+    replay, _ = capture_cuda_graph(lambda: buf.add_(0.0), device, handle)
+    return replay, buf
+
+
 class EagerProgram:
     """A CPU model's program: the query function itself, run eagerly."""
 
@@ -115,6 +137,22 @@ class EagerProgram:
 
     def __call__(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         return self._fn(_alive(self._anchor), batch)
+
+
+def _warm_up(device: torch.device, run: Callable[[], Any]) -> Any:
+    """``run()`` for real before a capture, on a side stream on the card
+    (as ``torch.cuda.graphs`` asks), directly on the CPU: it fills the
+    caches that allocate on first use (kernel libraries, packed gather
+    tables, function attributes), so none of them is filled inside the
+    capture.  Returns what ``run`` returns."""
+    if device.type != "cuda":
+        return run()
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        out = run()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    return out
 
 
 def _alive(ref):
@@ -146,20 +184,6 @@ class GraphProgram:
         self.replays = 0
         self.capture_s = self._capture(anchor)
 
-    def _warm_up(self, run: Callable[[], torch.Tensor]) -> None:
-        """One real run before the capture, on a side stream on the card
-        (as ``torch.cuda.graphs`` asks): it fills the caches that allocate
-        on first use (kernel libraries, packed gather tables, function
-        attributes), so none of them is filled inside the capture."""
-        if self.device.type != "cuda":
-            run()
-            return
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            run()
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-
     def _capture(self, anchor) -> float:
         fn, static = self._fn, self._static
 
@@ -168,7 +192,7 @@ class GraphProgram:
 
         self._replay = self._out = None  # the old graph goes first
         with obs.timed("compile.graph", key=repr(self.key)) as t:
-            self._warm_up(run)
+            _warm_up(self.device, run)
             capture = self._registry.capture_fn or capture_cuda_graph
             self._replay, self._out = capture(
                 run, self.device, self._registry.pool(anchor, self.device))
@@ -195,6 +219,201 @@ class GraphProgram:
         self._replay()
         self.replays += 1
         return self._out.clone()
+
+
+@dataclasses.dataclass(frozen=True)
+class StagedStep:
+    """A training step in the stages :meth:`ProgramRegistry.jit` captures.
+
+    The step writes its model's parameters in place and returns output
+    tensors (a mean LL, a health vector).  With ``num_microbatches`` n:
+
+      * n == 1: ``finish(model, None, x)`` is the whole step on batch x;
+      * n > 1: ``start(model)`` makes the accumulators (a tree of tensors,
+        set to zero before every step), ``body(model, acc, xb)`` adds one
+        microbatch's E-step statistics into them in place, and ``finish(model,
+        acc, x)`` runs the rest of the step (M-step, blend, writes) on the
+        whole batch x.
+
+    ``finish`` returns a tuple of tensors; ``result`` maps (copies of) them
+    to what a call of the step returns.
+    """
+
+    finish: Callable[[Any, Any, torch.Tensor], Tuple[torch.Tensor, ...]]
+    num_microbatches: int = 1
+    start: Optional[Callable[[Any], Any]] = None
+    body: Optional[Callable[[Any, Any, torch.Tensor], None]] = None
+    result: Callable[[Tuple[torch.Tensor, ...]], Any] = tuple
+
+    def microbatch_rows(self, x: torch.Tensor) -> int:
+        n, b = self.num_microbatches, x.shape[0]
+        if b % n:
+            raise ValueError(
+                f"batch {b} not divisible into {n} microbatches")
+        return b // n
+
+    def run_eager(self, anchor, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The step op by op: the microbatches' bodies in order, then
+        ``finish``."""
+        if self.num_microbatches == 1:
+            return tuple(self.finish(anchor, None, x))
+        rows = self.microbatch_rows(x)
+        acc = self.start(anchor)
+        for xb in x.split(rows):
+            self.body(anchor, acc, xb)
+        return tuple(self.finish(anchor, acc, x))
+
+
+class EagerStepProgram:
+    """A CPU model's step program: the step run op by op."""
+
+    kind = "eager"
+
+    def __init__(self, anchor, key: Hashable, fn: StagedStep):
+        self.key = key
+        self._anchor = weakref.ref(anchor)
+        self._fn = fn
+
+    def __call__(self, x: torch.Tensor):
+        return self._fn.result(self._fn.run_eager(_alive(self._anchor), x))
+
+
+@dataclasses.dataclass
+class StepGraphs:
+    """One input shape's captured step: the static batch ``x`` (and
+    microbatch ``xb``), the accumulators, the static outputs, the replays of
+    the body graph (n > 1) and of the finish graph, and the pointers of the
+    tensors the model read at capture."""
+
+    x: torch.Tensor
+    xb: Optional[torch.Tensor]
+    acc_leaves: List[torch.Tensor]
+    outs: List[torch.Tensor]
+    body: Optional[Callable[[], None]]
+    finish: Callable[[], None]
+    pointers: Tuple[int, ...]
+    capture_s: float
+
+
+class StepProgram:
+    """A training step as captured CUDA graphs, one set per input shape.
+
+    On the first call with a batch of a new shape the program
+
+      1. copies the batch into a static buffer and makes the accumulators
+         and a microbatch buffer, all outside any capture (so they live
+         outside the graph pool, for the program's life);
+      2. warms up: runs one microbatch body (n > 1) and ``finish`` for real
+         on a side stream, after snapshotting every parameter of the model,
+         and copies the snapshot back afterwards -- the step writes the
+         M-step into the parameters, so without this the warm-up would
+         advance the model and the first call would be two steps;
+      3. captures the body graph (n > 1), which adds into the accumulators,
+         and the finish graph, which writes the parameters and copies the
+         outputs into static buffers (a capture executes nothing).
+
+    A call copies the batch in, sets the accumulators to zero, replays the
+    body once a microbatch (each after copying its rows into the microbatch
+    buffer, in order, so the sums are the eager loop's bit for bit),
+    replays the finish graph and hands back copies of the outputs.  As for
+    :class:`GraphProgram`, a tensor the model reads that has moved (a
+    replaced parameter) makes that shape recapture; an in-place write
+    (``load_params``, a restored checkpoint) does not.  The graphs share the
+    anchor's memory pool with its serving programs: they keep nothing in it
+    between calls.
+    """
+
+    kind = "graph"
+
+    def __init__(self, registry: "ProgramRegistry", anchor, key: Hashable,
+                 fn: StagedStep):
+        self.key = key
+        self._registry = registry
+        self._anchor = weakref.ref(anchor)
+        self._fn = fn
+        self.graphs: Dict[Tuple, StepGraphs] = {}
+
+    def _capture(self, anchor, x: torch.Tensor) -> StepGraphs:
+        fn = self._fn
+        n = fn.num_microbatches
+        rows = fn.microbatch_rows(x)
+        device = x.device
+        xs = torch.empty(x.shape, dtype=x.dtype, device=device).copy_(x)
+        xb = acc = None
+        acc_leaves: List[torch.Tensor] = []
+        if n > 1:
+            xb = torch.empty((rows,) + tuple(x.shape[1:]), dtype=x.dtype,
+                             device=device)
+            acc = fn.start(anchor)
+            acc_leaves = tree_lib.flatten(acc)[1]
+        capture = self._registry.capture_fn or capture_cuda_graph
+        pool = self._registry.pool(anchor, device)
+        written = [p.detach() for p in anchor.parameters()]
+        with obs.timed("compile.graph",
+                       key=repr((self.key, tuple(x.shape)))) as t:
+            saved = [p.clone() for p in written]
+
+            def warm_up():
+                if n > 1:
+                    xb.copy_(xs[:rows])
+                    fn.body(anchor, acc, xb)
+                return tuple(fn.finish(anchor, acc, xs))
+
+            example = _warm_up(device, warm_up)
+            with torch.no_grad():
+                for p, s in zip(written, saved):
+                    p.copy_(s)
+            del saved
+            outs = [torch.empty_like(o) for o in example]
+            del example
+            # the recorded functions reach the model through the program's
+            # weak reference, so that what a capture keeps of them does not
+            # keep the model alive
+            ref = self._anchor
+            body = None
+            if n > 1:
+                body, _ = capture(lambda: fn.body(_alive(ref), acc, xb),
+                                  device, pool)
+
+            def finish_run():
+                for o, v in zip(outs, fn.finish(_alive(ref), acc, xs)):
+                    o.copy_(v)
+
+            finish, _ = capture(finish_run, device, pool)
+        return StepGraphs(x=xs, xb=xb, acc_leaves=acc_leaves, outs=outs,
+                          body=body, finish=finish,
+                          pointers=_pointers(anchor), capture_s=t.seconds)
+
+    def __call__(self, x: torch.Tensor):
+        """One step on ``x``: capture (first call of this shape, or after a
+        tensor the model reads moved), then copy in, replay, copy out."""
+        anchor = _alive(self._anchor)
+        sig = (tuple(x.shape), x.dtype, x.device)
+        g = self.graphs.get(sig)
+        if g is None or _pointers(anchor) != g.pointers:
+            self.graphs.pop(sig, None)  # the old graphs go first
+            g = self._capture(anchor, x)
+            self.graphs[sig] = g
+            self._registry._count_compile(self.kind, (self.key, sig[0]),
+                                          g.capture_s)
+        self.replay(g, x)
+        return self._fn.result(tuple(o.clone() for o in g.outs))
+
+    def replay(self, g: StepGraphs, x: torch.Tensor) -> None:
+        """The device work of one step on ``x`` through ``g``'s graphs."""
+        g.x.copy_(x)
+        if g.body is not None:
+            rows = g.xb.shape[0]
+            for t in g.acc_leaves:
+                t.zero_()
+            for i in range(self._fn.num_microbatches):
+                g.xb.copy_(g.x[i * rows: (i + 1) * rows])
+                g.body()
+        g.finish()
+
+    @property
+    def capture_s(self) -> float:
+        return sum(g.capture_s for g in self.graphs.values())
 
 
 Program = Union[GraphProgram, EagerProgram]
@@ -236,22 +455,25 @@ class ProgramRegistry:
         self.stats = {"compiles": 0, "compile_s": 0.0, "hits": 0}
 
     def pool(self, anchor, device: torch.device):
-        """``anchor``'s CUDA graph memory pool (made on first use; None off
-        the card)."""
+        """``anchor``'s CUDA graph memory pool (made on first use, with a
+        one-node graph that holds it for the anchor's life; None off the
+        card)."""
         if device.type != "cuda":
             return None
-        handle = self._pools.get(anchor)
-        if handle is None:
+        entry = self._pools.get(anchor)
+        if entry is None:
             handle = torch.cuda.graph_pool_handle()
-            self._pools[anchor] = handle
-        return handle
+            entry = (handle, _hold_pool(handle, device))
+            self._pools[anchor] = entry
+        return entry[0]
 
     def pool_bytes(self, anchor) -> int:
         """Bytes the card holds in ``anchor``'s graph memory pool (0
         without one), from the caching allocator's snapshot."""
-        handle = self._pools.get(anchor)
-        if handle is None:
+        entry = self._pools.get(anchor)
+        if entry is None:
             return 0
+        handle = entry[0]
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg["segment_pool_id"]) == tuple(handle))
 
@@ -276,6 +498,32 @@ class ProgramRegistry:
             prog = GraphProgram(self, anchor, key, fn, example_batch)
             seconds = prog.capture_s
         self._count_compile(prog.kind, key, seconds)
+        table[key] = prog
+        return prog
+
+    def jit(self, anchor, key: Hashable, fn: StagedStep
+            ) -> Union[StepProgram, EagerStepProgram]:
+        """The training step program of ``fn`` on ``anchor`` (a model whose
+        parameters the step writes in place), cached under ``(anchor,
+        key)``: a :class:`StepProgram` on a CUDA model (graphs captured
+        lazily, once per batch shape; each capture counts a compile), an
+        :class:`EagerStepProgram` on a CPU model (one compile of 0 s, as
+        :meth:`capture` counts an eager program)."""
+        table = self.table(anchor)
+        prog = table.get(key)
+        if prog is not None:
+            self.stats["hits"] += 1
+            obs.cache_event(prog.kind, hit=True)
+            return prog
+        device = read_tensors(anchor)[0].device
+        if self.capture_fn is None and device.type != "cuda":
+            prog = EagerStepProgram(anchor, key, fn)
+            self._count_compile(prog.kind, key, 0.0)
+        else:
+            prog = StepProgram(self, anchor, key, fn)
+        # captures happen on first use; an instant marker keeps "compile."
+        # visible in traces of train-only runs
+        obs.event("compile.jit", key=repr(key))
         table[key] = prog
         return prog
 

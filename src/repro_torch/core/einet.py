@@ -46,6 +46,7 @@ from repro_torch.core.layers import (
     normalize_mixing_weights,
 )
 from repro_torch.kernels import ops
+from repro_torch.obs import health as health_lib
 
 # query kinds understood by EiNet.query / the serving engine
 QUERY_KINDS = (
@@ -148,6 +149,7 @@ class EiNet(nn.Module):
         plan_budget: Optional[int] = None,
         device=None,
         seed: int = 0,
+        health: Optional[bool] = None,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -161,6 +163,11 @@ class EiNet(nn.Module):
         self.plan = plan_lib.plan_circuit(
             self.pair_specs, grouped=self.grouped, plan_budget=plan_budget)
         self.exec_plan = self.plan.segments
+        # numerical-health telemetry (repro_torch.obs.health): the ctor knob
+        # wins, else the REPRO_HEALTH environment variable; the spec is fixed
+        # by the execution plan
+        self.health = health_lib.resolve_health(health)
+        self.health_spec = health_lib.spec_for(self)
         self._register_tables()
         self._noise_layout()
 
@@ -492,6 +499,7 @@ class EiNet(nn.Module):
                 n_l = buffer[:, self._table(i, "left"), :]
                 n_r = buffer[:, self._table(i, "right"), :]
             s = ops.log_einsum_exp(self.einsum[i], n_l, n_r)  # (B, L, k_out)
+            health_lib.tap_segment(s)
             new_rows = [s]
             mix_out = None
             if spec.mix_global is not None:
@@ -532,6 +540,7 @@ class EiNet(nn.Module):
                     prev_out[:, :half, :],
                     prev_out[:, half: 2 * half, :],
                 )
+            health_lib.tap_segment(s)
             mix_out = None
             if last.mix_global is not None:
                 i = seg.stop - 1
@@ -565,6 +574,7 @@ class EiNet(nn.Module):
                       if self.pair_specs[t].mix_global is not None]
                 new = ops.gather_grouped_log_einsum_exp(seg.tables, ws, vs,
                                                         buffer)
+                health_lib.tap_segment(new)
                 buffer = torch.cat([buffer, new], dim=1)
                 continue
             i = seg.start
@@ -572,6 +582,7 @@ class EiNet(nn.Module):
             s = ops.log_einsum_exp(self.einsum[i],
                                    buffer[:, self._table(i, "left"), :],
                                    buffer[:, self._table(i, "right"), :])
+            health_lib.tap_segment(s)
             mix_out = None
             if spec.mix_global is not None:
                 ln = s[:, self._table(i, "mix_child"), :]

@@ -144,7 +144,9 @@ def em_statistics(model: EiNet, x: torch.Tensor) -> Dict[str, Any]:
         # dlogP/dlog(prior_c) = sum_x posterior(c | x): expected class counts
         "n_class": g_prior,
         "ll": val.detach(),
-        "count": torch.tensor(float(x.shape[0]), device=x.device),
+        # a fill on the device, not a host-to-device copy: a CUDA graph
+        # capture refuses the copy
+        "count": torch.full((), float(x.shape[0]), device=x.device),
     }
 
 

@@ -63,6 +63,13 @@ class ExponentialFamily:
     def project_phi(self, phi: torch.Tensor) -> torch.Tensor:
         return phi
 
+    def clamp_fraction(self, phi: torch.Tensor) -> torch.Tensor:
+        """Fraction of leaf parameters pinned at their projection bounds (a
+        float32 scalar on ``phi``'s device): the health telemetry's detector
+        for EM updates that keep hitting ``project_phi``'s clamps.
+        Families without hard bounds report 0."""
+        return phi.new_zeros((), dtype=torch.float32)
+
     def mode(self, phi: torch.Tensor) -> torch.Tensor:
         """Distribution mode (deterministic decode for argmax sampling)."""
         raise NotImplementedError
@@ -138,6 +145,12 @@ class Normal(ExponentialFamily):
         mu, var = self._moments(phi)
         return torch.stack([mu, mu * mu + var], dim=-1)
 
+    def clamp_fraction(self, phi):
+        mu = phi[..., 0]
+        raw_var = phi[..., 1] - mu * mu
+        pinned = (raw_var <= self.min_var) | (raw_var >= self.max_var)
+        return torch.mean(pinned.to(torch.float32))
+
 
 class Bernoulli(ExponentialFamily):
     """x in {0,1}.  T(x) = [x], phi = [p]."""
@@ -177,6 +190,11 @@ class Bernoulli(ExponentialFamily):
 
     def project_phi(self, phi):
         return torch.clamp(phi, self.min_p, 1.0 - self.min_p)
+
+    def clamp_fraction(self, phi):
+        p = phi[..., 0]
+        pinned = (p <= self.min_p) | (p >= 1.0 - self.min_p)
+        return torch.mean(pinned.to(torch.float32))
 
 
 class Binomial(ExponentialFamily):
@@ -238,6 +256,11 @@ class Binomial(ExponentialFamily):
         return torch.clamp(phi, self.min_p * self.n_trials,
                            (1.0 - self.min_p) * self.n_trials)
 
+    def clamp_fraction(self, phi):
+        p = phi[..., 0] / self.n_trials
+        pinned = (p <= self.min_p) | (p >= 1.0 - self.min_p)
+        return torch.mean(pinned.to(torch.float32))
+
 
 class Categorical(ExponentialFamily):
     """x in {0..C-1}.  T(x) = onehot(x), phi = probs (C,)."""
@@ -286,6 +309,9 @@ class Categorical(ExponentialFamily):
 
     def project_phi(self, phi):
         return self._p(phi)
+
+    def clamp_fraction(self, phi):
+        return torch.mean((phi <= self.min_p).to(torch.float32))
 
 
 EF_REGISTRY = {

@@ -1,5 +1,8 @@
-"""Training CLI: EM steps on a registered architecture, one EiNet or a
-mixture of them (§4.2).
+"""Training CLI: the reference's production training launcher
+(``repro.launch.train``) on one device -- EM steps on a registered
+architecture, one EiNet or a mixture of them (§4.2), inside the
+fault-tolerant loop with checkpoints and, with health on, the divergence
+flight recorder.
 
 The data is the reference's (``repro.launch.train`` ``einet_train_data``):
 ``--dataset synthetic`` (the default) cycles through white noise
@@ -12,11 +15,11 @@ fetcher, else (offline, or CelebA without a local raw copy) the procedural
 stand-in of the same shapes.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch einet_rat --steps 20
-  PYTHONPATH=src python -m repro_torch.launch.train --arch einet_pd --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch einet_pd --steps 20 \\
+      --health --ckpt-dir /tmp/ck
   PYTHONPATH=src python -m repro_torch.launch.train --arch einet_celeba \\
       --dataset celeba --mixture 8 --steps 20
-  PYTHONPATH=src python -m repro_torch.launch.train --arch einet_rat \\
-      --steps 3 --batch 64 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
 
 ``--mixture C`` (C >= 2) trains C components: ``--mixture-assign hard``
 (the default, the paper's protocol) k-means the data into C clusters and
@@ -24,38 +27,73 @@ gives each component a per-cluster batch of ``batch // C`` rows;
 ``soft`` runs responsibility-weighted EM on shared batches of ``batch``
 rows.
 
-Runs on CUDA unless ``--device cpu``; on the card every step's E-step goes
-through the hand-written forward and backward kernels.  Prints the
-execution plan, the float32 settings, the k-means cluster counts (hard
-mixtures), the median ms/step, the first and last mean LL and the kernel
-launches per step.  Checkpoints, fault tolerance and health telemetry are
-not part of this CLI.
+Every step is the program ``make_em_step`` / ``make_mixture_em_step``
+returns: on the card captured CUDA graphs (the first step of a batch shape
+captures them), on the CPU the same update op by op.  ``ft.run_training``
+runs the steps: it commits a checkpoint every ``--checkpoint-every`` steps
+under ``<--ckpt-dir>/<arch>/`` (default ``artifacts/ckpt_torch/``), resumes
+a run from the newest one, and replays from the last one after a failed
+step.  ``--smoke`` trains the reference's small RAT smoke config with
+health telemetry on; ``--health`` turns it on for any arch (a single
+EiNet): each step's health vector feeds the ``train.health.*`` gauges and
+the flight recorder, which dumps an incident bundle under
+``artifacts/incidents_torch/`` when the step diverges and then aborts or
+continues (``--on-divergence``).  ``--trace`` and ``--metrics`` export the
+obs spans and metrics at exit.
+
+Runs on CUDA unless ``--device cpu``.  Prints the execution plan, the
+float32 settings, the k-means cluster counts (hard mixtures), the median
+ms/step, the first and last mean LL, the kernel launches of the last step
+(a graph replay launches through no wrapper, so 0 on the card after the
+first step), then the reference's closing lines: ms/step with the
+restarts, and the objective first -> last.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch import obs
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import EinetConfig, get_config
 from repro_torch.core.einet import resolve_device
-from repro_torch.core.em import EMConfig
+from repro_torch.core.em import EMConfig, load_params, params_of
 from repro_torch.data import datasets as ds_lib
 from repro_torch.data import gaussian_mixture_images
 from repro_torch.kernels import ops
 from repro_torch.launch.cells import build_einet, build_mixture
+from repro_torch.dist import fault_tolerance as ft
 from repro_torch.mixture import (
     MixtureTrainConfig,
     make_mixture_em_step,
     prepare_mixture_training,
 )
+from repro_torch.mixture.train import load_mixture_params, mixture_params_of
+from repro_torch.obs import health as health_lib
 from repro_torch.train import TrainConfig, make_em_step
+from repro_torch.train.pipeline import resolve_step_health
 
 NUM_ROWS = 4096  # the reference's synthetic training sets
+DEFAULT_CKPT_DIR = "artifacts/ckpt_torch"
+
+# --smoke: the reference's smoke profile (``repro.launch.train``
+# SMOKE_CONFIG) -- a RAT shape small enough to train in seconds on the CPU
+# but deep enough to fuse, with health telemetry forced on
+SMOKE_CONFIG = EinetConfig(
+    name="einet-rat-train-launch-smoke",
+    structure="rat",
+    num_vars=32,
+    depth=2,
+    num_repetitions=2,
+    num_sums=4,
+    batch_size=64,
+)
 
 
 def synthetic_rat_data(num_vars: int) -> np.ndarray:
@@ -109,23 +147,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _run(step, batches, steps: int, device: torch.device) -> dict:
-    """``steps`` calls of ``step`` on ``batches(i)``, each timed to the end
-    of its work on the device; the launches of the last one."""
-    lls, times, launches = [], [], []
-    for i in range(steps):
-        x = batches(i)
-        ops.reset_counts()
-        _sync(device)
-        t0 = time.perf_counter()
-        lls.append(step(x))
-        _sync(device)
-        times.append(time.perf_counter() - t0)
-        launches.append({op.name: (op.launches, op.plain_calls)
-                         for op in ops.KERNEL_OPS})
-    return {"lls": lls, "step_ms": [t * 1e3 for t in times],
-            "median_ms": statistics.median(times) * 1e3,
-            "launches_per_step": launches[-1]}
+def _snapshot(params):
+    """A copy of a parameter tree (the loop's replay-from-start state)."""
+    if isinstance(params, dict):
+        return {k: _snapshot(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_snapshot(v) for v in params]
+    return params.clone()
 
 
 def _float32() -> tuple:
@@ -135,37 +163,109 @@ def _float32() -> tuple:
             torch.backends.cudnn.allow_tf32)
 
 
+def _loop(step, batches, steps: int, device: torch.device, params_of_model,
+          load, ckpt_dir: str, checkpoint_every: int,
+          watcher=None, spec=None) -> dict:
+    """``steps`` calls of ``step`` on ``batches(i)`` inside
+    ``ft.run_training``: each call timed to the end of its work on the
+    device, its launches counted, a checkpoint committed every
+    ``checkpoint_every`` steps under ``ckpt_dir``.  ``params_of_model()``
+    gives the model's parameters (views), ``load(params)`` writes a
+    parameter tree into the model in place.  With a health ``watcher``
+    the step returns (LL, health vector) and each vector is published and
+    watched.  Returns the report."""
+    mgr = CheckpointManager(ckpt_dir)
+    times, launches, lls = [], [], []
+    first = {}
+
+    def step_fn(state, x):
+        ops.reset_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        with obs.timed("train.step", metric="train.step.seconds"):
+            out = step(x)
+            ll, hv = out if watcher is not None else (out, None)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        launches.append({op.name: (op.launches, op.plain_calls)
+                         for op in ops.KERNEL_OPS})
+        obs.METRICS.counter("train.examples.count").inc(
+            x.shape[:-1].numel())
+        obs.METRICS.gauge("train.ll.last").set(ll)
+        if watcher is not None:
+            health_lib.publish(spec, hv)
+            watcher.observe(state["step"], hv, params_of_model())
+        return {"last_ll": ll, "params": params_of_model(),
+                "step": state["step"] + 1}
+
+    def load_state(state):
+        load(state["params"])
+        first.setdefault("step", int(state["step"]))
+        return {"last_ll": float(state["last_ll"]),
+                "params": params_of_model(), "step": int(state["step"])}
+
+    init = {"last_ll": 0.0, "params": _snapshot(params_of_model()),
+            "step": 0}
+    with obs.timed("train.run") as t_run:
+        state, stats = ft.run_training(
+            step_fn, init, batches, mgr, steps,
+            ft.LoopConfig(checkpoint_every=checkpoint_every),
+            on_step=lambda s, st: lls.append(st["last_ll"]),
+            load_state=load_state)
+    return {"lls": lls, "step_ms": [t * 1e3 for t in times],
+            "median_ms": statistics.median(times) * 1e3 if times else 0.0,
+            "launches_per_step": launches[-1] if launches else {},
+            "run_s": t_run.seconds, "restarts": stats["restarts"],
+            "resumed_at": first.get("step", 0), "ckpt_dir": ckpt_dir,
+            "checkpoints": mgr.all_steps()}
+
+
 def train_einet(arch: str, steps: int, batch=None, microbatches: int = 1,
                 mode: str = "stochastic", grouped: bool = True, device=None,
                 seed: int = 0, dataset: str = "synthetic",
-                data_dir: str = ds_lib.DEFAULT_DATA_DIR) -> dict:
-    """Build ``arch`` from ``seed`` and run ``steps`` EM steps on the
-    ``dataset`` rows; returns the report."""
+                data_dir: str = ds_lib.DEFAULT_DATA_DIR,
+                ckpt_dir: str = DEFAULT_CKPT_DIR, checkpoint_every: int = 25,
+                health=None, on_divergence: str = "abort",
+                cfg: EinetConfig = None) -> dict:
+    """Build ``arch`` (or ``cfg``) from ``seed`` and run ``steps`` EM steps
+    on the ``dataset`` rows in the fault-tolerant loop; ``health`` None
+    defers to the model's knob (``REPRO_HEALTH``).  Returns the report."""
     device = resolve_device(device)
     tf32 = _float32()
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     batch = batch or cfg.batch_size
     model = build_einet(cfg, device=device, seed=seed, grouped=grouped)
     data = torch.from_numpy(
         train_data(cfg, model.num_vars, dataset, data_dir)).to(device)
-    step = make_em_step(model, TrainConfig(
-        em=EMConfig(), mode=mode, num_microbatches=microbatches))
-    run = _run(step, lambda i: batch_at(data, i, batch), steps, device)
+    tcfg = TrainConfig(em=EMConfig(), mode=mode,
+                       num_microbatches=microbatches, health=health)
+    health_on = resolve_step_health(model, tcfg)
+    watcher = (health_lib.HealthWatcher(model, health_lib.HealthPolicy(
+        on_incident=on_divergence)) if health_on else None)
+    step = make_em_step(model, tcfg)
+    run = _loop(step, lambda i: batch_at(data, i, batch), steps, device,
+                lambda: params_of(model), lambda p: load_params(model, p),
+                os.path.join(ckpt_dir, cfg.name.replace("/", "_")),
+                checkpoint_every, watcher, model.health_spec)
     return {"arch": cfg.name, "device": str(device), "batch": batch,
             "microbatches": microbatches, "mode": mode,
             "plan": model.grouping_summary()["segments"], "tf32": tf32,
-            **run}
+            "health": health_on, "program": step.kind,
+            "incidents": watcher.incidents if watcher else [], **run}
 
 
 def train_mixture(arch: str, num_components: int, steps: int, batch=None,
                   assign: str = "hard", microbatches: int = 1,
                   mode: str = "stochastic", grouped: bool = True,
                   device=None, seed: int = 0, dataset: str = "synthetic",
-                  data_dir: str = ds_lib.DEFAULT_DATA_DIR) -> dict:
+                  data_dir: str = ds_lib.DEFAULT_DATA_DIR,
+                  ckpt_dir: str = DEFAULT_CKPT_DIR,
+                  checkpoint_every: int = 25) -> dict:
     """Build a mixture of ``num_components`` ``arch`` EiNets from ``seed``
     and run ``steps`` mixture EM steps on the ``dataset`` rows (hard: after
     k-means, per-cluster batches of ``batch // C`` rows; soft: shared
-    batches of ``batch`` rows); returns the report."""
+    batches of ``batch`` rows) in the fault-tolerant loop; returns the
+    report."""
     device = resolve_device(device)
     tf32 = _float32()
     cfg = get_config(arch)
@@ -182,19 +282,29 @@ def train_mixture(arch: str, num_components: int, steps: int, batch=None,
     step = make_mixture_em_step(mix, MixtureTrainConfig(
         em=EMConfig(), assign=assign, mode=mode,
         num_microbatches=microbatches))
-    run = _run(step, lambda i: torch.from_numpy(
-        loader.batch_at(i)["x"]).to(device), steps, device)
+    run = _loop(step, lambda i: torch.from_numpy(
+        loader.batch_at(i)["x"]).to(device), steps, device,
+        lambda: mixture_params_of(mix),
+        lambda p: load_mixture_params(mix, p),
+        os.path.join(ckpt_dir, f"{cfg.name}_x{num_components}_{assign}"),
+        checkpoint_every)
     return {"arch": cfg.name, "device": str(device),
             "batch": loader.per_host, "microbatches": microbatches,
             "mode": mode, "assign": assign, "components": num_components,
             "plan": mix.component.grouping_summary()["segments"],
-            "tf32": tf32, "kmeans": km, **run}
+            "tf32": tf32, "kmeans": km, "health": False,
+            "program": step.kind, "incidents": [], **run}
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
-    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--arch", default=None,
+                    help="registered EiNet config (required unless --smoke)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reference's small RAT smoke config, health "
+                         "telemetry on")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="EM steps (default 8 with --smoke, else 20)")
     ap.add_argument("--batch", type=int, default=None,
                     help="rows per step (default: the config's batch_size); "
                          "a hard mixture gives each component batch // C")
@@ -216,17 +326,51 @@ def main():
                     default="hard",
                     help="hard per-cluster EM on k-means clusters, or soft "
                          "responsibility-weighted EM on shared batches")
+    ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR,
+                    help="checkpoint root; a run writes under "
+                         "<ckpt-dir>/<arch>/ and resumes from the newest "
+                         "committed step there")
+    ap.add_argument("--checkpoint-every", type=int, default=25)
+    ap.add_argument("--health", action="store_true",
+                    help="force health telemetry on (default: the model "
+                         "knob, REPRO_HEALTH; implied by --smoke; one EiNet "
+                         "only)")
+    ap.add_argument("--on-divergence", choices=("abort", "continue"),
+                    default="abort",
+                    help="flight-recorder policy when the health vector "
+                         "trips: dump an incident bundle then abort (raise) "
+                         "or keep training")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="collect obs spans and export a Chrome-trace JSON "
+                         "to this path at exit")
+    ap.add_argument("--metrics", default=None, metavar="OUT.json",
+                    help="write the metrics snapshot JSON (train.health.* "
+                         "gauges included) to this path at exit")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args()
+    if args.arch is None and not args.smoke:
+        ap.error("--arch is required (or pass --smoke)")
+    if args.steps is None:
+        args.steps = 8 if args.smoke else 20
+    if args.health and args.mixture >= 2:
+        ap.error("--health needs a single EiNet (no --mixture)")
+    obs.cli_begin(args.trace)
     if args.mixture >= 2:
         r = train_mixture(args.arch, args.mixture, args.steps, args.batch,
                           args.mixture_assign, args.microbatches,
                           args.em_mode, args.grouped, args.device,
-                          dataset=args.dataset, data_dir=args.data_dir)
+                          dataset=args.dataset, data_dir=args.data_dir,
+                          ckpt_dir=args.ckpt_dir,
+                          checkpoint_every=args.checkpoint_every)
     else:
         r = train_einet(args.arch, args.steps, args.batch, args.microbatches,
                         args.em_mode, args.grouped, args.device,
-                        dataset=args.dataset, data_dir=args.data_dir)
+                        dataset=args.dataset, data_dir=args.data_dir,
+                        ckpt_dir=args.ckpt_dir,
+                        checkpoint_every=args.checkpoint_every,
+                        health=True if (args.smoke or args.health) else None,
+                        on_divergence=args.on_divergence,
+                        cfg=SMOKE_CONFIG if args.smoke else None)
     where = r["device"]
     if where.startswith("cuda"):
         where += f" ({torch.cuda.get_device_name(torch.device(where))})"
@@ -235,17 +379,30 @@ def main():
         what = (f"mixture of {r['components']} components, {r['assign']} "
                 f"{what}" + (" a component" if r["assign"] == "hard" else ""))
     print(f"{r['arch']} on {where}: plan {r['plan']}, {what} in "
-          f"{r['microbatches']} microbatch(es)")
+          f"{r['microbatches']} microbatch(es); {r['program']} step program"
+          f", health {'on' if r['health'] else 'off'}")
     print(f"float32: matmul allow_tf32={r['tf32'][0]}, "
           f"cudnn allow_tf32={r['tf32'][1]}")
     if r.get("kmeans") is not None:
         km = r["kmeans"]
         print(f"k-means clusters: {km.counts.tolist()} (inertia "
               f"{km.inertia:.4f})")
-    print(f"{len(r['lls'])} steps: median {r['median_ms']:.3f} ms/step; "
-          f"mean LL first {r['lls'][0]:.4f}, last {r['lls'][-1]:.4f}")
-    print("kernel launches per step (plain-version calls): " + ", ".join(
-        f"{k} {n} ({p})" for k, (n, p) in r["launches_per_step"].items()))
+    print(f"[ckpt] {r['ckpt_dir']}: resumed at step {r['resumed_at']}, "
+          f"committed steps {r['checkpoints']}")
+    lls = r["lls"]
+    if lls:
+        print(f"{len(r['step_ms'])} steps: median {r['median_ms']:.3f} "
+              f"ms/step; mean LL first {lls[0]:.4f}, last {lls[-1]:.4f}")
+        print("kernel launches per step (plain-version calls): "
+              + ", ".join(f"{k} {n} ({p})" for k, (n, p)
+                          in r["launches_per_step"].items()))
+    ran = max(args.steps - r["resumed_at"], 0)
+    print(f"{r['arch']}: {ran} steps, {r['run_s'] / max(ran, 1) * 1e3:.0f} "
+          f"ms/step, restarts={r['restarts']}")
+    if lls:
+        print(f"objective: first {np.mean(lls[:5]):.3f} -> last "
+              f"{np.mean(lls[-5:]):.3f}")
+    obs.cli_end(args.trace, args.metrics)
 
 
 if __name__ == "__main__":

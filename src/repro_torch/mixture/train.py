@@ -24,8 +24,12 @@ M-step and blend, microbatch accumulation in order.  Updates return new
 parameter dicts in the reference's layout (``{"components": {...},
 "mixture_weights": (C,)}``, every component tensor with its leading C
 axis) and change nothing; the step of ``make_mixture_em_step`` writes them
-into the mixture in place.  The reference's compiled-program registry has
-no counterpart: PyTorch runs the step eagerly.
+into the mixture in place.  That step is the program the port's registry
+caches under (mixture, config), as the reference's ``make_mixture_em_step``
+goes through its registry's ``jit``: on the card one captured CUDA graph
+of the whole step (the hard step's loop over the C components on the
+stacked (C, B/C, D) batch, or the soft step on the shared (B, D) batch,
+microbatches included), on the CPU the same update op by op.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import compile as compile_lib
 from repro_torch import obs
 from repro_torch.core.em import (
     EMConfig,
@@ -158,7 +163,9 @@ def mixture_em_statistics(mix: EiNetMixture,
         "n_class": g_prior,  # (C, num_classes)
         "n_weight": weights.detach() * g_w,  # (C,) = sum_b r[b, c]
         "ll": val.detach(),
-        "count": torch.tensor(float(x.shape[0]), device=x.device),
+        # a fill on the device, not a host-to-device copy: a CUDA graph
+        # capture refuses the copy
+        "count": torch.full((), float(x.shape[0]), device=x.device),
     }
 
 
@@ -277,18 +284,11 @@ def hard_mixture_em_update(
 
 
 # ---------------------------------------------------------------------- step
-def make_mixture_em_step(
-    mix: EiNetMixture, cfg: MixtureTrainConfig = MixtureTrainConfig()
-) -> Callable[[torch.Tensor], float]:
-    """The mixture EM step ``step(x) -> mean LL`` (a float, so the step has
-    finished on the device when it returns), which writes the new
-    parameters into the mixture IN PLACE.  ``assign="hard"`` expects a
-    stacked (C, B, D) batch (:func:`stacked_cluster_loader`);
-    ``assign="soft"`` a shared (B, D) batch."""
-    if cfg.assign not in ("hard", "soft"):
-        raise ValueError(f"unknown assign {cfg.assign!r}; 'hard' or 'soft'")
-    if cfg.mode not in ("stochastic", "full"):
-        raise ValueError(f"unknown mode {cfg.mode!r}; 'stochastic' or 'full'")
+def mixture_stages(cfg: MixtureTrainConfig) -> compile_lib.StagedStep:
+    """The mixture step of ``cfg`` as one stage (its microbatches, if any,
+    inside it): the update, then its parameters written into the mixture.
+    The stage takes the mixture as an argument and holds no reference to
+    it."""
     if cfg.assign == "hard":
         update = hard_mixture_em_update
     elif cfg.mode == "stochastic":
@@ -296,12 +296,33 @@ def make_mixture_em_step(
     else:
         update = mixture_em_update
 
-    def step(x: torch.Tensor) -> float:
+    def finish(mix, acc, x):
         new, ll = update(mix, x, cfg)
         load_mixture_params(mix, new)
-        return float(ll)
+        return (ll,)
 
-    return step
+    return compile_lib.StagedStep(finish=finish,
+                                  result=lambda outs: float(outs[0]))
+
+
+def make_mixture_em_step(
+    mix: EiNetMixture, cfg: MixtureTrainConfig = MixtureTrainConfig(),
+    registry: Optional[compile_lib.ProgramRegistry] = None,
+) -> Callable[[torch.Tensor], float]:
+    """The mixture EM step ``step(x) -> mean LL`` (a float, so the step has
+    finished on the device when it returns), which writes the new
+    parameters into the mixture IN PLACE.  ``assign="hard"`` expects a
+    stacked (C, B, D) batch (:func:`stacked_cluster_loader`);
+    ``assign="soft"`` a shared (B, D) batch.  Cached in ``registry``
+    (default ``compile.REGISTRY``) under (mixture, config), like
+    ``repro_torch.train.make_em_step``: a captured CUDA graph a batch shape
+    on the card, op by op on the CPU."""
+    if cfg.assign not in ("hard", "soft"):
+        raise ValueError(f"unknown assign {cfg.assign!r}; 'hard' or 'soft'")
+    if cfg.mode not in ("stochastic", "full"):
+        raise ValueError(f"unknown mode {cfg.mode!r}; 'stochastic' or 'full'")
+    reg = registry if registry is not None else compile_lib.REGISTRY
+    return reg.jit(mix, ("mixture_em_step", cfg), mixture_stages(cfg))
 
 
 # -------------------------------------------------------------------- loaders
@@ -387,13 +408,14 @@ def fit_mixture(
     cfg: MixtureTrainConfig = MixtureTrainConfig(),
     num_steps: Optional[int] = None,
     on_step: Optional[Callable[[int, float], None]] = None,
+    registry: Optional[compile_lib.ProgramRegistry] = None,
 ) -> List[float]:
     """Run the mixture step over an iterable of batches (dicts with an "x"
     key, or arrays / tensors), updating ``mix`` in place.  Returns the
     per-step mean LLs.  Steps are timed into ``train.step.seconds`` and
     their rows (all components') counted in ``train.examples.count``, as
     ``repro_torch.train.fit`` does."""
-    step = make_mixture_em_step(mix, cfg)
+    step = make_mixture_em_step(mix, cfg, registry)
     lls: List[float] = []
     for i, batch in enumerate(batches):
         if num_steps is not None and i >= num_steps:

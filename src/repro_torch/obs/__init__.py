@@ -19,6 +19,9 @@ out.json`` and print one ``[obs]`` summary line at exit
 (:func:`format_summary`).
 
 Stdlib only: every module of the port may import ``repro_torch.obs``.
+The training step's health telemetry (:mod:`repro_torch.obs.health`) and
+the divergence flight recorder (:mod:`repro_torch.obs.incident`) import
+torch and are imported directly, not re-exported here.
 """
 
 from repro_torch.obs.events import (

@@ -184,6 +184,12 @@ def event(name: str, **args: Any) -> None:
     })
 
 
+def trace_events() -> List[Dict[str, Any]]:
+    """A copy of the buffered events."""
+    with _STATE.lock:
+        return list(_STATE.events)
+
+
 def num_events() -> int:
     with _STATE.lock:
         return len(_STATE.events)

@@ -2,10 +2,26 @@
 the M-step, and for stochastic EM the Sato blend, applied to the module.
 
 The reference compiles the whole update into one donated-buffer XLA program
-and folds the microbatches with ``lax.scan``.  PyTorch runs eagerly: the
-microbatch fold is a Python loop that adds the statistics in microbatch
-order, and the step writes the new parameters into the module in place
-(``copy_`` under ``no_grad``), which is what donation bought the reference.
+through its registry's ``jit`` and folds the microbatches with
+``lax.scan``.  Here :func:`make_em_step` goes through the port's registry
+(``repro_torch.compile.ProgramRegistry.jit``): on the card the step is
+captured CUDA graphs -- at one microbatch one graph of the whole step; at
+more, one graph of a microbatch's E-step that adds into static
+accumulators, replayed once a microbatch in order, and one graph of the
+M-step and blend -- and on the CPU the same stages run op by op.  The
+step writes the new parameters into the module in place (``copy_``),
+which is what donation bought the reference, so the graphs and any
+serving programs of the model stay valid.
+
+The op-by-op updates (:func:`stochastic_em_update_microbatched`,
+:func:`em_update_microbatched`, with ``em.load_params``) stay: they are
+the oracle the step programs are held against.
+
+With health telemetry on (``TrainConfig.health``, else the model's
+``health`` knob), the step also builds the health vector
+(``repro_torch.obs.health``) inside the same program: a probe forward
+under the tap collector on the whole batch at one microbatch, on the
+first microbatch otherwise, as in the reference.
 """
 
 from __future__ import annotations
@@ -15,7 +31,9 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
 
+from repro_torch import compile as compile_lib
 from repro_torch import obs
+from repro_torch import tree as tree_lib
 from repro_torch.core.einet import EiNet
 from repro_torch.core.em import (
     EMConfig,
@@ -27,6 +45,7 @@ from repro_torch.core.em import (
     params_of,
     zeros_like_statistics,
 )
+from repro_torch.obs import health as health_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +62,11 @@ class TrainConfig:
     em: EMConfig = EMConfig()
     mode: str = "stochastic"  # "stochastic" | "full"
     num_microbatches: int = 1
+    health: Optional[bool] = None
+    """Build the health vector (``repro_torch.obs.health``) as a second
+    step output.  None defers to the model's ``health`` knob (which itself
+    defers to ``REPRO_HEALTH``); the resolved flag is part of the step's
+    registry key, so toggling it selects another cached program."""
 
 
 def split_microbatches(x: torch.Tensor, num_microbatches: int):
@@ -87,34 +111,105 @@ def stochastic_em_update_microbatched(model: EiNet, x: torch.Tensor,
     return new, stats["ll"] / stats["count"]
 
 
-def make_em_step(model: EiNet,
-                 cfg: TrainConfig = TrainConfig()) -> Callable[[torch.Tensor], float]:
+def _probe_slice(x: torch.Tensor, num_microbatches: int) -> torch.Tensor:
+    """The rows the health forward runs on: the whole batch at one
+    microbatch, the first microbatch otherwise."""
+    return x[: x.shape[0] // max(num_microbatches, 1)]
+
+
+def _new_params(model: EiNet, stats: Dict[str, Any],
+                cfg: TrainConfig) -> Dict[str, Any]:
+    """The M-step from ``stats`` and, for stochastic EM, its blend into the
+    module's current parameters."""
+    mini = m_step(model, stats, cfg.em)
+    if cfg.mode == "full":
+        return mini
+    return blend_params(model, params_of(model), mini, cfg.em.step_size)
+
+
+def em_stages(cfg: TrainConfig, health: bool) -> compile_lib.StagedStep:
+    """The step of ``cfg`` as the stages its program captures.  The stage
+    functions take the model as an argument and hold no reference to it,
+    so a registry anchored on the model can release it."""
+    n = cfg.num_microbatches
+
+    def body(model, acc, xb):
+        stats = em_statistics(model, xb)
+        with torch.no_grad():
+            for a, b in zip(tree_lib.flatten(acc)[1],
+                            tree_lib.flatten(stats)[1]):
+                a.add_(b)
+
+    def finish(model, acc, x):
+        stats = em_statistics(model, x) if acc is None else acc
+        new = _new_params(model, stats, cfg)
+        out = (stats["ll"] / stats["count"],)
+        if health:
+            # the probe runs on the parameters the E-step ran on, before
+            # the new ones are written
+            out += (health_lib.health_vector(model, _probe_slice(x, n),
+                                             stats, new),)
+        load_params(model, new)
+        return out
+
+    def result(outs):
+        return (float(outs[0]), outs[1]) if health else float(outs[0])
+
+    return compile_lib.StagedStep(finish=finish, num_microbatches=n,
+                                  start=zeros_like_statistics, body=body,
+                                  result=result)
+
+
+def _step_key(cfg: TrainConfig, tag: str, health: bool) -> tuple:
+    """Registry key of one training step: the step kind and every config
+    field that changes the program."""
+    return (tag, cfg.mode, cfg.num_microbatches, cfg.em, health)
+
+
+def resolve_step_health(model: EiNet, cfg: TrainConfig) -> bool:
+    return model.health if cfg.health is None else bool(cfg.health)
+
+
+def make_em_step(model: EiNet, cfg: TrainConfig = TrainConfig(),
+                 registry: Optional[compile_lib.ProgramRegistry] = None):
     """The training step ``step(x) -> mean LL of x`` (a float, so the step
-    has finished on the device when it returns).  It computes the
-    statistics and the new parameters from the current ones, then updates
-    the module's parameters IN PLACE."""
+    has finished on the device when it returns); with health on,
+    ``step(x) -> (mean LL, health vector)``.  It computes the statistics
+    and the new parameters from the current ones, then writes them into
+    the module's parameters IN PLACE.
+
+    The step is the program that ``registry`` (default
+    ``compile.REGISTRY``) caches under (model, step key): repeat calls with
+    the same (model, cfg) return the same callable.  On a CUDA model it
+    replays captured graphs (captured on the first call of each batch
+    shape); on a CPU model it runs op by op."""
     if cfg.mode not in ("stochastic", "full"):
         raise ValueError(f"unknown mode {cfg.mode!r}; 'stochastic' or 'full'")
-    update = (stochastic_em_update_microbatched if cfg.mode == "stochastic"
-              else em_update_microbatched)
-
-    def step(x: torch.Tensor) -> float:
-        new, ll = update(model, x, cfg.em, cfg.num_microbatches)
-        load_params(model, new)
-        return float(ll)
-
-    return step
+    health = resolve_step_health(model, cfg)
+    reg = registry if registry is not None else compile_lib.REGISTRY
+    return reg.jit(model, _step_key(cfg, "em_step", health),
+                   em_stages(cfg, health))
 
 
 def fit(model: EiNet, batches: Iterable[Any], cfg: TrainConfig = TrainConfig(),
         num_steps: Optional[int] = None,
-        on_step: Optional[Callable[[int, float], None]] = None) -> List[float]:
+        on_step: Optional[Callable[[int, float], None]] = None,
+        health_policy: Optional[health_lib.HealthPolicy] = None,
+        registry: Optional[compile_lib.ProgramRegistry] = None) -> List[float]:
     """Run the step over an iterable of (B, D) tensors or arrays (or dicts
     with an "x" key), each moved to the model's device, updating ``model``
     in place.  Returns the per-step mean LLs.
     Each step is timed into ``train.step.seconds``; ``train.examples.count``
-    counts its rows and ``train.ll.last`` holds its LL."""
-    step = make_em_step(model, cfg)
+    counts its rows and ``train.ll.last`` holds its LL.
+
+    With health on, every step's health vector feeds the
+    ``train.health.*`` gauges and a ``HealthWatcher`` (``health_policy``
+    configures it): a divergence dumps an incident bundle and, under the
+    default "abort" policy, raises ``DivergenceError``."""
+    step = make_em_step(model, cfg, registry)
+    health_on = resolve_step_health(model, cfg)
+    watcher = (health_lib.HealthWatcher(model, health_policy) if health_on
+               else None)
     lls: List[float] = []
     for i, batch in enumerate(batches):
         if num_steps is not None and i >= num_steps:
@@ -124,9 +219,14 @@ def fit(model: EiNet, batches: Iterable[Any], cfg: TrainConfig = TrainConfig(),
         # the step returns a float, so it has finished on the device when
         # the timed region closes
         with obs.timed("train.step", metric="train.step.seconds"):
-            lls.append(step(x))
+            out = step(x)
+            ll, hv = out if health_on else (out, None)
+            lls.append(ll)
         obs.METRICS.counter("train.examples.count").inc(int(x.shape[0]))
         obs.METRICS.gauge("train.ll.last").set(lls[-1])
+        if watcher is not None:
+            health_lib.publish(model.health_spec, hv)
+            watcher.observe(i, hv, params_of(model))
         if on_step is not None:
             on_step(i, lls[-1])
     return lls

@@ -711,6 +711,67 @@ def test_mixture_step_updates_in_place(pd_mix):
     assert sum(op.launches for op in ops.KERNEL_OPS) == 0
 
 
+def _capture_nothing_counted(calls):
+    """A capture that records nothing and executes nothing (as a real
+    capture); a replay runs the step, counted in ``calls``."""
+    def capture(run, device, pool):
+        calls["captures"] += 1
+
+        def replay():
+            calls["replays"] += 1
+            run()
+
+        return replay, None
+
+    return capture
+
+
+@pytest.mark.parametrize("mode", ["stochastic", "full"])
+@pytest.mark.parametrize("assign", ["hard", "soft"])
+def test_mixture_graph_step_equals_the_eager_update(pd_mix, assign, mode):
+    """The mixture's step program (one graph: the hard step's loop over the
+    components, or the soft step) through an injected capture: cached per
+    (mixture, config), one capture, the first call one step, and every step
+    bit for bit the eager update followed by ``load_mixture_params``."""
+    from repro_torch import compile as compile_lib
+    from repro_torch.mixture.train import load_mixture_params
+
+    _, _, pnp, _ = pd_mix
+
+    def fresh():
+        port = EiNetMixture(EiNet(poon_domingos(4, 8, 2), num_sums=4,
+                                  device="cpu"), C)
+        port.load_state_dict(mixture_params_from_jax(pnp, port))
+        return port
+
+    g, e = fresh(), fresh()
+    calls = {"captures": 0, "replays": 0}
+    reg = compile_lib.ProgramRegistry(
+        capture_fn=_capture_nothing_counted(calls))
+    cfg = MixtureTrainConfig(assign=assign, mode=mode)
+    step = make_mixture_em_step(g, cfg, registry=reg)
+    assert make_mixture_em_step(g, cfg, registry=reg) is step
+    if assign == "hard":
+        update = hard_mixture_em_update
+    elif mode == "stochastic":
+        update = stochastic_mixture_em_update
+    else:
+        update = mixture_em_update
+    rng = np.random.RandomState(11)
+    shape = (C, 6, 32) if assign == "hard" else (18, 32)
+    for i in range(3):
+        x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+        ll = step(x)
+        new, want = update(e, x, cfg)
+        load_mixture_params(e, new)
+        assert ll == float(want), i
+        for a, b in zip(g.parameters(), e.parameters()):
+            assert torch.equal(a, b), i
+    assert calls == {"captures": 1, "replays": 3}
+    lls = fit_mixture(g, [x], cfg, registry=reg)
+    assert calls["replays"] == 4 and len(lls) == 1
+
+
 def test_mixture_learns_clustered_data(blobs):
     """k-means + hard EM on separable blobs raises the mixture LL far above
     the initialisation."""

@@ -24,6 +24,7 @@ from repro.core import em as ref_em
 from repro.core import poon_domingos as ref_pd
 from repro.core import random_binary_trees as ref_rbt
 from repro.data.synthetic import gaussian_mixture_images as ref_images
+from repro_torch import compile as compile_lib
 from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.core import em, poon_domingos, random_binary_trees
 from repro_torch.core.einet import EiNet
@@ -36,9 +37,11 @@ from repro_torch.launch.train import (
 )
 from repro_torch.train import (
     TrainConfig,
+    em_update_microbatched,
     fit,
     make_em_step,
     microbatched_em_statistics,
+    stochastic_em_update_microbatched,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -284,3 +287,173 @@ def test_train_cli_pd_on_cpu():
     assert out.returncode == 0, out.stderr
     assert "'gather'" in out.stdout and "ms/step" in out.stdout
     assert "gather_grouped_log_einsum_exp_bwd 0 (1)" in out.stdout
+
+
+# ----------------------------------------------------------- step programs
+# A registry whose capture function records nothing and executes nothing
+# (as a real capture executes nothing); a replay runs the stage, counted.
+class _Seam:
+    def __init__(self):
+        self.captures = 0
+        self.replays = 0
+
+    def __call__(self, run, device, pool):
+        self.captures += 1
+
+        def replay():
+            self.replays += 1
+            run()
+
+        return replay, None
+
+
+def _seam_registry():
+    seam = _Seam()
+    return compile_lib.ProgramRegistry(capture_fn=seam), seam
+
+
+def _batches(n, b=16, seed=5):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(b, NV).astype(np.float32))
+            for _ in range(n)]
+
+
+def _eager_steps(port, xs, mb=1, mode="stochastic"):
+    update = (stochastic_em_update_microbatched if mode == "stochastic"
+              else em_update_microbatched)
+    lls = []
+    for x in xs:
+        new, ll = update(port, x, em.EMConfig(), mb)
+        em.load_params(port, new)
+        lls.append(float(ll))
+    return lls
+
+
+def _same(a, b):
+    return all(torch.equal(p, q) for p, q in zip(a.parameters(),
+                                                 b.parameters()))
+
+
+def test_step_program_is_cached_per_model_and_config():
+    reg, _ = _seam_registry()
+    a, b = _port(), _port()
+    s1 = make_em_step(a, TrainConfig(), registry=reg)
+    assert make_em_step(a, TrainConfig(), registry=reg) is s1
+    assert make_em_step(a, TrainConfig(mode="full"), registry=reg) is not s1
+    assert make_em_step(a, TrainConfig(health=True), registry=reg) is not s1
+    assert make_em_step(b, TrainConfig(), registry=reg) is not s1
+    assert isinstance(s1, compile_lib.StepProgram)
+    # the default registry makes a CPU model's step an op-by-op program
+    eager = make_em_step(a)
+    assert isinstance(eager, compile_lib.EagerStepProgram)
+    assert make_em_step(a) is eager
+
+
+@pytest.mark.parametrize("mode", ["stochastic", "full"])
+def test_first_graph_call_is_one_eager_step(mode):
+    """The warm-up runs the step for real and then puts the parameters
+    back, so the first call is exactly one step."""
+    reg, seam = _seam_registry()
+    g, e = _port(), _port()
+    x = _batches(1)[0]
+    ll = make_em_step(g, TrainConfig(mode=mode), registry=reg)(x)
+    assert seam.captures == 1 and seam.replays == 1
+    assert [ll] == _eager_steps(e, [x], mode=mode)
+    assert _same(g, e)
+
+
+@pytest.mark.parametrize("grouped", [True, False], ids=["fused", "per_layer"])
+def test_microbatch_body_replays_equal_the_eager_loop(grouped):
+    """Four microbatches: the body graph replayed four times a step into
+    the static accumulators, then the finish graph, bit for bit the eager
+    microbatch loop (update, then load_params), step after step."""
+    reg, seam = _seam_registry()
+    g, e = _port(grouped), _port(grouped)
+    step = make_em_step(g, TrainConfig(num_microbatches=4), registry=reg)
+    xs = _batches(3)
+    lls = [step(x) for x in xs]
+    assert seam.captures == 2  # the body graph and the finish graph
+    assert seam.replays == 3 * (4 + 1)
+    assert lls == _eager_steps(e, xs, mb=4)
+    assert _same(g, e)
+    with pytest.raises(ValueError, match="divisible"):
+        step(_batches(1, b=10)[0])
+
+
+def test_recapture_only_when_a_tensor_moves(tmp_path):
+    """Writing parameters in place (``load_params``, a restored checkpoint)
+    recaptures nothing; a replaced parameter tensor recaptures its shape's
+    graphs once; a new batch shape captures its own."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    reg, _ = _seam_registry()
+    g, e = _port(), _port()
+    step = make_em_step(g, TrainConfig(), registry=reg)
+    xs = _batches(4)
+    step(xs[0])
+    snap = {k: (v.clone() if torch.is_tensor(v) else [t.clone() for t in v])
+            for k, v in em.params_of(g).items()}
+    mgr = CheckpointManager(str(tmp_path), async_write=False)
+    mgr.save(1, {"params": em.params_of(g)})
+    step(xs[1])
+    em.load_params(g, snap)
+    step(xs[1])
+    _eager_steps(e, [xs[0], xs[1]])
+    assert _same(g, e)  # the step after load_params ran on its parameters
+    step(xs[2])
+    _, back = mgr.restore({"params": em.params_of(g)})
+    em.load_params(g, back["params"])
+    step(xs[1])
+    assert _same(g, e)  # and after a restored checkpoint
+    assert reg.stats["compiles"] == 1
+    with torch.no_grad():
+        g.class_prior = torch.nn.Parameter(g.class_prior.detach().clone())
+    step(xs[2])
+    assert reg.stats["compiles"] == 2
+    step(xs[3][:8])
+    assert reg.stats["compiles"] == 3 and len(step.graphs) == 2
+
+
+def test_step_program_releases_its_model():
+    """The stages hold no reference to the model: a dead model's step
+    program leaves the registry."""
+    import gc
+
+    reg, _ = _seam_registry()
+    port = _port()
+    step = make_em_step(port, TrainConfig(num_microbatches=2), registry=reg)
+    step(_batches(1)[0])
+    assert reg.num_programs() == 1
+    del port, step
+    gc.collect()
+    assert reg.num_programs() == 0
+
+
+def test_fit_runs_the_step_program():
+    reg, seam = _seam_registry()
+    g, e = _port(), _port()
+    xs = _batches(3)
+    lls = fit(g, xs, TrainConfig(), registry=reg)
+    assert seam.captures == 1 and seam.replays == 3
+    assert lls == _eager_steps(e, xs)
+    assert _same(g, e)
+
+
+def test_train_cli_smoke_checkpoints_and_resumes(tmp_path):
+    """``--smoke --device cpu``: health on, checkpoints every 4 steps under
+    the tmp root; a second run with more steps resumes at the saved step."""
+    ck = str(tmp_path / "ck")
+    out = _cli("--smoke", "--device", "cpu", "--ckpt-dir", ck,
+               "--checkpoint-every", "4", "--metrics",
+               str(tmp_path / "m.json"))
+    assert out.returncode == 0, out.stderr
+    assert "health on" in out.stdout and "restarts=0" in out.stdout
+    assert "objective: first" in out.stdout
+    assert "resumed at step 0, committed steps [4, 8]" in out.stdout
+    with open(tmp_path / "m.json") as f:
+        assert "train.health.ll.mean" in f.read()
+    again = _cli("--smoke", "--device", "cpu", "--ckpt-dir", ck,
+                 "--checkpoint-every", "4", "--steps", "12")
+    assert again.returncode == 0, again.stderr
+    assert "resumed at step 8, committed steps [4, 8, 12]" in again.stdout
+    assert "4 steps: median" in again.stdout
