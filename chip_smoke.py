@@ -77,7 +77,9 @@
 10. Mixture of EiNets (§4.2): einet_celeba x 8 components (seed 0) on the
    procedural CelebA stand-in (to_domain "normal").  k-means (C = 8) on
    the card, whose partition must equal a second card run's and the CPU
-   port's; 10 hard stochastic EM steps at 64 rows a component, op by op
+   port's, and the same on 12,288 procedural CelebA rows, past the
+   8,192-row threshold where k-means runs its contiguous-block minibatch
+   iterations; 10 hard stochastic EM steps at 64 rows a component, op by op
    as in 7 (launches a step asserted: K5 8, K6 8, K1 8, K2 8; step 0 bit
    for bit 8 single-model stochastic_em_update calls of a separate
    einet_celeba); the soft E-step at B = 512 twice bitwise and against the
@@ -163,14 +165,30 @@
    loop, its E-step at B = 16 against the CPU plain path (statistics rtol
    1e-4, atol 1e-6 B), a checkpoint's save and restore seconds, and the
    config's own 65,536-row step (64 microbatches of 1,024) timed with its
-   memory peak.  (e) ft.run_training on einet_pd's graph step: 12 steps,
+   memory peak; the card's graph pools by segment after the 4 x 1,024-row
+   program, after its drop, and after the 65,536-row step, whose pools must
+   hold at most 1.10 x the same program captured into a fresh model (each
+   step capture has a pool of its own).  (g) Run before (d): a replaced
+   parameter makes einet_rat's step program recapture once, into a fresh
+   pool (the old one released), both steps bit for bit eager ones.
+   (e) ft.run_training on einet_pd's graph step: 12 steps,
    checkpoint_every 4, failures at steps 5 and 9; the final parameters
    equal an uninterrupted run's bit for bit and neither the step graph nor
    the model's serving programs recapture.  (f) A NaN row from step 3 on
    with health on: fit raises DivergenceError leaving one incident bundle
    of six files, and under "continue" runs every step leaving one.
-14. Prints the launch counts of every main path (each kernel must have run
-   on them) and the shapes (B, L, K_out, K) K1 and K2 were launched at
+14. Paper comparison phase (paper_phase, repro_torch.bench): Table 1 on
+   all 20 binary proxies at the reference's quick sizes with 10 EM epochs
+   (max |dLL| EiNet against NaiveEiNet < 1e-3, EM raises every test LL);
+   NaiveEiNet against EiNet at einet_rat's width on 2,000 x 512 rows (LL
+   rtol 1e-5, atol 1e-4; E-step statistics rtol 1e-4, atol 1e-6 B; the
+   naive LL against the CPU plain path; no K1-K6 launch from the naive net,
+   the EiNet's plan's kernels from its own); Fig. 3 (train time, peak
+   memory) and Fig. 6 (inference) over K in {2, ..., 40}, eager and graph,
+   each naive point out of memory recorded and the first such K printed;
+   Fig. 4 quick (EM learns, argmax inpainting beats mean-fill).
+15. Prints the launch counts of every main path (each kernel must have run
+   on them; the paper phase's EiNet side among them) and the shapes (B, L, K_out, K) K1 and K2 were launched at
    there (counted by wrapping the ops' kernels, whose launch counters stay
    as they are); times K1 and K2 at each of those shapes (and K1 at
    einet_pd's pairs at B = 64) on fresh inputs with their geometry, K2's
@@ -196,6 +214,12 @@ nothing of JAX.
 prints only a hash of each kernel's outputs on seeded inputs and its time
 there, for holding two trees' kernels against each other, bit for bit and
 in time, in one call.
+
+  python3 chip_smoke.py --pool
+
+prints the card's graph pools by segment through einet_rat_large's
+drop-then-capture sequence (a copy beside another tree's src/ probes that
+tree).
 """
 
 from __future__ import annotations
@@ -917,6 +941,10 @@ def mixture_sampling_path(mix, batch) -> dict:
     return out
 
 
+# rows of the procedural CelebA set k-means clusters past its minibatch
+# threshold (mixture.train.KMEANS_MINIBATCH_THRESHOLD, 8,192)
+KMEANS_BIG_ROWS = 12288
+
 # the graph-serving phase's streams: 256 requests, max_batch 64
 GRAPH_REQUESTS = 256
 GRAPH_MAX_BATCH = 64
@@ -1232,6 +1260,109 @@ def replay_breakdown(replay) -> dict:
             "gaps_ms": span - sum(by.values())}
 
 
+def pool_segments() -> dict:
+    """Graph memory pool id -> (segments, bytes, allocated bytes) of every
+    private pool the caching allocator holds on the card (the default pool,
+    id (0, 0), left out), from ``torch.cuda.memory_snapshot()``."""
+    import torch
+
+    out = {}
+    for seg in torch.cuda.memory_snapshot():
+        pid = tuple(seg["segment_pool_id"])
+        if pid == (0, 0):
+            continue
+        n, total, used = out.get(pid, (0, 0, 0))
+        out[pid] = (n + 1, total + seg["total_size"],
+                    used + seg["allocated_size"])
+    return out
+
+
+def pools_beyond(base: dict) -> dict:
+    """The private pools on the card that ``base`` (an earlier
+    ``pool_segments()``) did not hold."""
+    return {k: v for k, v in pool_segments().items() if k not in base}
+
+
+def pool_text(pools: dict) -> str:
+    total = sum(v[1] for v in pools.values())
+    return (f"{len(pools)} pools, {total / 2 ** 30:.3f} GiB"
+            + "".join(f"; {k}: {n} segments, {t / 2 ** 20:.1f} MiB, "
+                      f"{u / 2 ** 20:.1f} MiB allocated"
+                      for k, (n, t, u) in sorted(pools.items())))
+
+
+def pool_probe() -> int:
+    """``--pool``: einet_rat_large's drop-then-capture sequence with the
+    card's graph pools by segment at each stage: a 4 x 1,024-row step
+    program captured and stepped once, dropped, then the 65,536-row program
+    captured (``StepProgram._capture``: no step), against the same capture
+    into a fresh model.  Runs against either tree's ``src/`` (a copy of this
+    script beside another tree's ``src/`` probes that tree)."""
+    import gc
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch import compile as compile_lib
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.cells import build_einet
+    from repro_torch.launch.train import batch_at, synthetic_rat_data
+    from repro_torch.train import TrainConfig, make_em_step
+
+    build.build(force=True)
+    card = smi_line()
+    dev = torch.device("cuda")
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def show(stage, base):
+        pools = pools_beyond(base)
+        print(f"pool probe, {stage}: {pool_text(pools)}; allocated "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, reserved "
+              f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB [{card}]")
+        return sum(v[1] for v in pools.values())
+
+    cfg = get_config("einet_rat_large")
+    base = pool_segments()
+    big = build_einet(cfg, device=dev, seed=0)
+    data = torch.from_numpy(synthetic_rat_data(big.num_vars)).to(dev)
+    n_big = cfg.batch_size // BIG_MICROBATCH_ROWS
+    step = make_em_step(big, TrainConfig(
+        num_microbatches=BIG_GATE_MICROBATCHES))
+    step(batch_at(data, 0, BIG_GATE_MICROBATCHES * BIG_MICROBATCH_ROWS))
+    torch.cuda.synchronize()
+    show("the 4 x 1,024-row program captured and stepped", base)
+    compile_lib.REGISTRY.table(big).clear()
+    del step
+    free()
+    show("after its drop and empty_cache", base)
+    x_big = batch_at(data, 2, cfg.batch_size)
+    graphs = make_em_step(big, TrainConfig(num_microbatches=n_big))._capture(
+        big, x_big)
+    torch.cuda.synchronize()
+    after = show(f"the {cfg.batch_size}-row program captured", base)
+    del graphs, big
+    compile_lib.REGISTRY.clear()
+    free()
+    show("all dropped", base)
+    fresh_model = build_einet(cfg, device=dev, seed=0)
+    graphs = make_em_step(fresh_model, TrainConfig(
+        num_microbatches=n_big))._capture(fresh_model, x_big)
+    torch.cuda.synchronize()
+    fresh = show(f"the {cfg.batch_size}-row program captured into a fresh "
+                 "model", base)
+    print(f"pool probe: after the drop {after / 2 ** 30:.3f} GiB against "
+          f"{fresh / 2 ** 30:.3f} GiB fresh ({after / fresh:.3f}x) [{card}]")
+    print(card)
+    return 0
+
+
 def train_graph_phase(card: str, dev, mix_data, compare_stats) -> dict:
     """Training through captured step graphs at full width, every step
     program from ``make_em_step`` / ``make_mixture_em_step`` through
@@ -1257,7 +1388,12 @@ def train_graph_phase(card: str, dev, mix_data, compare_stats) -> dict:
     the card against the CPU plain path (statistics rtol 1e-4, atol 1e-6
     B), a checkpoint's save and restore seconds, then the config's own
     65,536-row step (64 microbatches of 1,024 rows), timed, with its
-    memory peak.
+    memory peak; the pool gate: after the 4 x 1,024-row program's drop and
+    the 65,536-row step, the card's graph pools (beyond those held before
+    (d)) hold at most 1.10 x that program captured into a fresh model.
+    (g), before (d): a replaced parameter makes einet_rat's step program
+    recapture once, into a fresh pool, the old pool released, both steps
+    bit for bit eager ones.
     (e) ``ft.run_training`` on einet_pd's graph step: 12 steps,
     checkpoint_every=4, failures at steps 5 and 9; the final parameters
     equal an uninterrupted run's bit for bit, and neither the step graph
@@ -1485,7 +1621,41 @@ def train_graph_phase(card: str, dev, mix_data, compare_stats) -> dict:
         del on, off, cpu
         free()
 
-    # ---- (d) einet_rat_large through microbatches
+    # ---- (g) a recaptured step program takes a fresh pool: a replaced
+    # parameter moves a pointer, the old graphs and pool go, the step still
+    # equals the eager one bit for bit
+    g, e = rat(), rat()
+    step, e_step = make_em_step(g, TrainConfig()), eager_em_step(
+        e, TrainConfig())
+    base = pool_segments()
+    lls = [(step(batch_at(rat_data, 0, b_rat)),
+            e_step(batch_at(rat_data, 0, b_rat)))]
+    first_pools = compile_lib.REGISTRY.pools(g)
+    compiles0 = compile_lib.REGISTRY.stats["compiles"]
+    for m in (g, e):
+        m.class_prior = torch.nn.Parameter(m.class_prior.detach().clone())
+    lls.append((step(batch_at(rat_data, 1, b_rat)),
+                e_step(batch_at(rat_data, 1, b_rat))))
+    free()
+    new_pools = compile_lib.REGISTRY.pools(g)
+    left = set(map(tuple, first_pools)) & set(pools_beyond(base))
+    recaptures = compile_lib.REGISTRY.stats["compiles"] - compiles0
+    if recaptures != 1 or (
+            set(map(tuple, new_pools)) & set(map(tuple, first_pools))):
+        raise AssertionError(f"step recapture: {recaptures} compiles, pools "
+                             f"{first_pools} -> {new_pools}")
+    if left or any(a != b for a, b in lls) or not same_params(g, e):
+        raise AssertionError(
+            f"step recapture: pools left behind {left}, LLs {lls}, or "
+            "parameters differ from the eager steps")
+    print(f"step recapture (einet_rat, class_prior replaced): one "
+          f"recapture into a fresh pool {new_pools} (was {first_pools}, "
+          f"released), no assert, both steps bit for bit eager [{card}]")
+    del g, e, step, e_step
+    free()
+
+    # ---- (d) einet_rat_large through microbatches; the pool gate
+    pools_base = pool_segments()
     big_cfg = get_config("einet_rat_large")
     big, big_e = (build_einet(big_cfg, device=dev, seed=0) for _ in range(2))
     big_data = torch.from_numpy(synthetic_rat_data(big.num_vars)).to(dev)
@@ -1520,9 +1690,14 @@ def train_graph_phase(card: str, dev, mix_data, compare_stats) -> dict:
     step(x2)
     torch.cuda.synchronize()
     gate_s = time.perf_counter() - t0
+    gate_pools = pools_beyond(pools_base)
     del big_e, step, x2
     compile_lib.REGISTRY.table(big).clear()
     free()
+    dropped_pools = pools_beyond(pools_base)
+    print(f"graph pools: the {n_gate} x {BIG_MICROBATCH_ROWS}-row step "
+          f"program {pool_text(gate_pools)}; after its drop and empty_cache "
+          f"{pool_text(dropped_pools)} [{card}]")
     # the E-step at B=16 against the CPU plain path
     x16 = big_data[:16]
     stats = em.em_statistics(big, x16)
@@ -1572,6 +1747,7 @@ def train_graph_phase(card: str, dev, mix_data, compare_stats) -> dict:
     big_step_s = big_first_s - big_capture_s
     big_peak = torch.cuda.max_memory_allocated()
     big_pool = compile_lib.REGISTRY.pool_bytes(big)
+    big_pools = pools_beyond(pools_base)
     if not np.isfinite(ll_big):
         raise AssertionError(f"einet_rat_large 65,536-row step: LL {ll_big}")
     out["big"] = {"gate_s": gate_s, "gate_first_s": gate_first_s,
@@ -1598,7 +1774,33 @@ def train_graph_phase(card: str, dev, mix_data, compare_stats) -> dict:
           f"{big_first_s:.3f} s less its capture {big_capture_s:.3f} s), LL "
           f"{ll_big:.4f}, memory peak {big_peak / 2 ** 30:.2f} GiB allocated, "
           f"graph pool {big_pool / 2 ** 30:.2f} GiB [{card}]")
-    del big, step, x_big, big_data
+    del big, step
+    free()
+    # the pool gate: the same program captured (no step) into a fresh model
+    fresh = build_einet(big_cfg, device=dev, seed=0)
+    fresh_step = make_em_step(fresh, TrainConfig(num_microbatches=n_big))
+    fresh_step.capture(x_big)
+    torch.cuda.synchronize()
+    fresh_pool = compile_lib.REGISTRY.pool_bytes(fresh)
+    fresh_pools = pools_beyond(pools_base)
+    held = sum(v[1] for v in big_pools.values())
+    print(f"graph pools: the {big_cfg.batch_size}-row program after the "
+          f"drop {pool_text(big_pools)} (registry: {big_pool / 2 ** 30:.3f} "
+          f"GiB); captured into a fresh model {pool_text(fresh_pools)} "
+          f"(registry: {fresh_pool / 2 ** 30:.3f} GiB); "
+          f"{held / fresh_pool:.4f}x [{card}]")
+    if held > 1.10 * fresh_pool:
+        raise AssertionError(
+            f"pool gate: after the drop the card holds {held} B of graph "
+            f"pools, more than 1.10 x the {fresh_pool} B of the same "
+            "program captured into a fresh model")
+    out["big"].update({"held_gib": held / 2 ** 30,
+                       "fresh_pool_gib": fresh_pool / 2 ** 30,
+                       "gate_pool_gib": sum(
+                           v[1] for v in gate_pools.values()) / 2 ** 30,
+                       "dropped_pool_gib": sum(
+                           v[1] for v in dropped_pools.values()) / 2 ** 30})
+    del fresh, fresh_step, x_big, big_data
     free()
 
     # ---- (e) the fault-tolerant loop on einet_pd's graph step
@@ -1720,6 +1922,177 @@ def train_graph_phase(card: str, dev, mix_data, compare_stats) -> dict:
     return out
 
 
+# the paper phase: Table 1's EM epochs on all 20 proxies, and the rows of
+# the naive/EiNet parity at einet_rat's width (the paper's Fig. 3 data size)
+PAPER_EPOCHS = 10
+PAPER_ROWS = 2000
+
+
+def paper_phase(card: str, dev, compare_stats) -> dict:
+    """The paper's comparison (``repro_torch.bench``) on the card.
+
+    (a) Table 1 over all 20 binary proxies at the reference's quick sizes
+    (``table1.MAX_VARS`` variables, 400 / 200 rows) with 10 EM epochs:
+    max |dLL| (EiNet against NaiveEiNet) < 1e-3 and the test LL after EM
+    above the initial model's, on every proxy.
+    (b) NaiveEiNet against EiNet at einet_rat's full width (D=4, R=10,
+    K=10) on Fig. 3's 2,000 x 512 rows, the same parameters: LL rtol 1e-5,
+    atol 1e-4; E-step statistics rtol 1e-4, atol 1e-6 B; the naive LL on the
+    card against the port's CPU plain path (rtol 1e-5, atol 1e-4); the
+    launch counters, set to 0 just before and read just after, show no
+    K1-K6 launch from the naive net's LL and E-step, and the EiNet's plan's
+    kernels from its own.
+    (c) Fig. 3 and Fig. 6 over the full profile's K sweep (2,000 x 512 rows
+    and 100 rows, D=4, R=10), eager and graph, with each naive point out of
+    memory recorded and the first such K printed.
+    (d) Fig. 4 quick: EM learns and the argmax inpainting beats mean-fill.
+
+    Returns the launch counts of the EiNet paths of (a)-(d) (each part
+    with the counters set to 0 just before, read just after) and the
+    figures."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import fig3, fig4, fig6, table1
+    from repro_torch.configs import get_config
+    from repro_torch.core import em
+    from repro_torch.core.baseline import NaiveEiNet
+    from repro_torch.data.synthetic import TWENTY_DATASETS
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cells import build_einet
+
+    out = {"counts": collections.Counter()}
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def part(fn):
+        """``fn()`` between a counter reset and a read; its time too."""
+        free()
+        reset(ops)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = counts_of(ops)
+        out["counts"].update(got)
+        return res, got, sec
+
+    # ---- (a) Table 1 on all 20 proxies
+    rows, _, t1_s = part(lambda: table1.run(
+        quick=True, device=dev, datasets=TWENTY_DATASETS,
+        epochs=PAPER_EPOCHS))
+    print(table1.HEADER)
+    for r in rows:
+        print(",".join(str(x) for x in r))
+    if len(rows) != 20 or not table1.gate(rows):
+        raise AssertionError("Table 1: parity below 1e-3 and EM above the "
+                             "initial model must hold on all 20 proxies")
+    print(f"Table 1 on all 20 proxies (at most {table1.MAX_VARS} variables, "
+          f"{table1.N_TRAIN}/{table1.N_TEST} rows, {PAPER_EPOCHS} EM epochs "
+          f"through graph steps): max |dLL| "
+          f"{max(r[4] for r in rows):.3e}, EM raises every test LL; "
+          f"{t1_s:.2f} s [{card}]")
+    out["table1"] = {"rows": rows, "seconds": t1_s}
+
+    # ---- (b) NaiveEiNet against EiNet at einet_rat's width
+    net = build_einet(get_config("einet_rat"), device=dev, seed=0)
+    naive = NaiveEiNet(net.graph, num_sums=net.K,
+                       num_classes=net.num_classes,
+                       exponential_family=net.ef, device=dev)
+    naive.load_state_dict(net.state_dict())
+    x = fig3.data(PAPER_ROWS, net.num_vars, dev)
+
+    def ll_and_stats(m):
+        with torch.inference_mode():
+            ll = m.log_likelihood(x)
+        return ll, em.em_statistics(m, x)
+
+    (ll_n, st_n), naive_counts, naive_s = part(lambda: ll_and_stats(naive))
+    if any(naive_counts.values()):
+        raise AssertionError(f"NaiveEiNet launched kernels: {naive_counts}")
+    (ll_e, st_e), einet_counts, einet_s = part(lambda: ll_and_stats(net))
+    kinds = collections.Counter(seg.kind for seg in net.exec_plan)
+    want = {"grouped_log_einsum_exp": 2 * kinds["fused"],
+            "grouped_log_einsum_exp_bwd": kinds["fused"],
+            "log_einsum_exp": 2 * kinds["layer"],
+            "log_einsum_exp_bwd": kinds["layer"]}
+    if any(einet_counts[k] != want.get(k, 0) for k in einet_counts):
+        raise AssertionError(f"EiNet LL and E-step launched {einet_counts}, "
+                             f"its plan {dict(kinds)} wants {want}")
+    ll_d = assert_ll(ll_n, ll_e, "NaiveEiNet LL vs EiNet LL")
+    compare_stats(st_n, st_e, f"einet_rat B={PAPER_ROWS} E-step NaiveEiNet "
+                  "vs EiNet", 1e-4, 1e-6 * PAPER_ROWS)
+    naive_cpu = NaiveEiNet(net.graph, num_sums=net.K,
+                           num_classes=net.num_classes,
+                           exponential_family=net.ef, device="cpu")
+    naive_cpu.load_state_dict({k: v.cpu()
+                               for k, v in net.state_dict().items()})
+    with torch.inference_mode():
+        ll_cpu = naive_cpu.log_likelihood(x.cpu())
+    cpu_d = assert_ll(ll_n, ll_cpu, "NaiveEiNet LL card vs CPU plain")
+    print(f"NaiveEiNet vs EiNet, einet_rat (D=4, R=10, K=10, "
+          f"{len(net.pair_specs)} pairs) B={PAPER_ROWS}: LL max |diff| "
+          f"{ll_d:.3e}, statistics within rtol 1e-4, atol 1e-6 B, naive LL "
+          f"card vs CPU max |diff| {cpu_d:.3e}; launches naive "
+          f"{naive_counts} (none), EiNet {einet_counts} (plan "
+          f"{dict(kinds)}); LL + E-step naive {naive_s * 1e3:.1f} ms, EiNet "
+          f"{einet_s * 1e3:.1f} ms [{card}]")
+    del net, naive, naive_cpu, x, ll_n, st_n, ll_e, st_e, ll_cpu
+
+    # ---- (c) Fig. 3 and Fig. 6 over the K sweep
+    ks = {"K": fig3.PROFILES["full"]["sweeps"]["K"]}
+    rows3, _, f3_s = part(lambda: fig3.run(quick=False, device=dev,
+                                           sweeps=ks))
+    print(fig3.HEADER)
+    for r in rows3:
+        print(fig3.format_row(r))
+    if any(r[3] == fig3.OOM for r in rows3 if r[0] == "einet"):
+        raise AssertionError("Fig. 3: an EiNet point ran out of memory")
+    rows6, _, f6_s = part(lambda: fig6.run(quick=False, device=dev,
+                                           sweeps=ks))
+    print(fig6.HEADER)
+    for r in rows6:
+        print(fig6.format_row(r))
+    print(f"Fig. 3 / Fig. 6 K sweep at 2,000 x 512 / 100 rows (D=4, R=10): "
+          f"first naive OOM K {fig3.first_oom(rows3)} / "
+          f"{fig3.first_oom(rows6)}; naive/einet at the largest K both ran "
+          f"{fig3.ratios(rows3)}; {f3_s:.2f} / {f6_s:.2f} s [{card}]")
+    out["fig3"], out["fig6"] = rows3, rows6
+
+    # ---- (d) Fig. 4 quick
+    fig4_dir = tempfile.mkdtemp(prefix="chip_smoke_fig4_")
+    try:
+        r4, _, f4_s = part(lambda: fig4.run(quick=True, device=dev,
+                                            out_dir=fig4_dir))
+    finally:
+        shutil.rmtree(fig4_dir, ignore_errors=True)
+    if not (fig4.gate(r4) and r4["samples_finite"]):
+        raise AssertionError(f"Fig. 4 quick: {r4}")
+    print("Fig. 4 quick (12 x 12 x 3 PD, K=8, 3 epochs): " + ", ".join(
+        f"{k} {v}" for k, v in r4.items()) + f"; {f4_s:.2f} s [{card}]")
+    out["fig4"] = r4
+    free()
+    return out
+
+
+def assert_ll(got, want, what: str) -> float:
+    """LLs within rtol 1e-5, atol 1e-4 (any device; compared on the CPU);
+    returns the max |diff|."""
+    import torch
+
+    got, want = got.detach().cpu(), want.detach().cpu()
+    d = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-4):
+        raise AssertionError(f"{what}: max |diff| {d:.3e} beyond rtol 1e-5, "
+                             "atol 1e-4")
+    return d
+
+
 def main() -> int:
     import torch
 
@@ -1747,7 +2120,9 @@ def main() -> int:
         log_einsum_exp_bwd_cuda, log_einsum_exp_bwd_plain,
         log_einsum_exp_cuda, log_einsum_exp_plain)
     from repro_torch.data import load_image_dataset, to_domain
-    from repro_torch.data.datasets import array_loader
+    from repro_torch.data.datasets import (
+        SPECS, array_loader, procedural_images)
+    from repro_torch.mixture.train import KMEANS_MINIBATCH_THRESHOLD
     from repro_torch.launch.cells import build_einet, build_mixture
     from repro_torch.launch.train import (
         batch_at, synthetic_pd_data, synthetic_rat_data)
@@ -2919,6 +3294,41 @@ def main() -> int:
           f"with the mixture's init, CPU {km_cpu_s:.3f} s; mixture of "
           f"{mix.num_params()} parameters built in {mix_build_s:.2f} s "
           f"[{card}]")
+    # k-means past the minibatch threshold (the contiguous-block minibatch
+    # iterations prepare_mixture_training takes above it) on a procedural
+    # CelebA set of KMEANS_BIG_ROWS rows: two card runs and the CPU
+    big_u8, _ = procedural_images(SPECS["celeba"], KMEANS_BIG_ROWS, seed=2)
+    big_km_data, _ = to_domain(big_u8, "normal")
+    del big_u8
+    km_big = {}
+    for run_name, where in (("card", dev), ("card again", dev),
+                            ("CPU", "cpu")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        km_big[run_name] = kmeans(big_km_data, n_mix,
+                                  batch=KMEANS_MINIBATCH_THRESHOLD,
+                                  device=where)
+        torch.cuda.synchronize()
+        km_big[run_name + " s"] = time.perf_counter() - t0
+    a, b, c = km_big["card"], km_big["card again"], km_big["CPU"]
+    if not (np.array_equal(a.assignments, b.assignments)
+            and np.array_equal(a.centers, b.centers)):
+        raise AssertionError(f"k-means at {KMEANS_BIG_ROWS} rows: two card "
+                             "runs differ")
+    if not np.array_equal(a.assignments, c.assignments):
+        raise AssertionError(
+            f"k-means at {KMEANS_BIG_ROWS} rows: card and CPU partitions "
+            f"differ in {int((a.assignments != c.assignments).sum())} rows")
+    print(f"k-means past the minibatch threshold: {KMEANS_BIG_ROWS} "
+          f"procedural CelebA rows (D={big_km_data.shape[1]}), C={n_mix}, "
+          f"blocks of {KMEANS_MINIBATCH_THRESHOLD}: counts "
+          f"{a.counts.tolist()}, inertia {a.inertia:.6f}; the partition "
+          f"equals a second card run's (centres bit for bit) and the CPU's "
+          f"(centres max |diff| "
+          f"{float(np.abs(a.centers - c.centers).max()):.3e}); card "
+          f"{km_big['card s']:.3f} / {km_big['card again s']:.3f} s, CPU "
+          f"{km_big['CPU s']:.3f} s [{card}]")
+    del big_km_data, km_big, a, b, c
 
     def mixture_run(mcfg, steps, batches, want, first=None):
         """``steps`` mixture EM steps with the launch counters set to 0
@@ -3348,6 +3758,14 @@ def main() -> int:
     tgraph_s = time.perf_counter() - t_tg
     print(f"training-graph phase: {tgraph_s:.3f} s [{card}]")
 
+    # ----------------------------------------------- paper comparison phase
+    # Table 1, NaiveEiNet against EiNet at einet_rat's width, the Fig. 3 and
+    # Fig. 6 K sweeps, Fig. 4 quick (repro_torch.bench)
+    t_paper = time.perf_counter()
+    paper = paper_phase(card, dev, compare_stats)
+    paper_s = time.perf_counter() - t_paper
+    print(f"paper comparison phase: {paper_s:.3f} s [{card}]")
+
     # ------------------------------------------------------------- report
     # the main paths: serving, and training in both plans (full EM
     # included), of einet_rat and of einet_pd
@@ -3370,7 +3788,9 @@ def main() -> int:
              **{f"eval {name}": run["counts"]
                 for name, run in evals.items()},
              "training graphs (warm-ups and captures)": {
-                 k: tgraphs["counts"][k] for k in serve_counts}}
+                 k: tgraphs["counts"][k] for k in serve_counts},
+             "paper comparison (EiNet side)": {
+                 k: paper["counts"][k] for k in serve_counts}}
     for name, c in paths.items():
         print(f"launches on the {name} path: " + ", ".join(
             f"{k} {v}" for k, v in c.items()) + f" [{card}]")
@@ -3675,4 +4095,5 @@ def compare() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(compare() if sys.argv[1:] == ["--compare"] else main())
+    sys.exit({"--compare": compare, "--pool": pool_probe}.get(
+        " ".join(sys.argv[1:]), main)())

@@ -25,14 +25,18 @@ cost.
   * Keys are ``(anchor, key)``: ``anchor`` is the model, held weakly, so a
     dead model releases its programs (and its graphs' memory pool); ``key``
     is a hashable tuple such as ``(kind, bucket[, component])``.
-  * Each anchor has one CUDA graph memory pool, shared by all its graphs:
-    a graph's intermediates are free again when its capture ends, so a
+  * An anchor's serving programs share one CUDA graph memory pool: a
+    graph's intermediates are free again when its capture ends, so a
     later capture may place its own intermediates, or its static output,
     in the same blocks.  Replaying one graph can therefore overwrite
     another graph's static output, so a graph's output is valid only until
     any program of the same model replays.  :meth:`GraphProgram.__call__`
     hands back a copy made right after its replay (on the same stream),
     so what a caller holds stays valid whatever replays next.
+  * Each captured step shape (:class:`StepGraphs`) has a pool of its own,
+    made for that capture and dropped with it: when a step program, or
+    one of its shapes, goes, the card gets its memory back.  A recapture
+    takes a fresh pool, so no capture ever reuses a released pool.
   * Capture counts and seconds, and cache hits, are tracked per registry
     (``stats``) and through ``repro_torch.obs`` (:func:`obs.compile_event`,
     :func:`obs.cache_event`, kind ``"graph"`` or ``"eager"``); the capture
@@ -102,24 +106,40 @@ def capture_cuda_graph(run: Callable[[], torch.Tensor], device: torch.device,
     graph = torch.cuda.CUDAGraph()
     stream = torch.cuda.Stream(device)
     torch.cuda.synchronize(device)
+    # cuBLAS keeps a workspace a stream, made on first use and cached for
+    # the process: cleared before, the capture makes its own in ``pool``
+    # (never one another pool or the eager cache owns); cleared after, it
+    # is free in the pool like any intermediate, instead of pinning a
+    # segment of the pool once the pool's graphs are gone
+    torch._C._cuda_clearCublasWorkspaces()
     with torch.cuda.device(device), torch.cuda.stream(stream):
         graph.capture_begin(pool=pool)
         try:
             out = run()
         finally:
             graph.capture_end()
+    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.current_stream(device).wait_stream(stream)
     return graph.replay, out
 
 
+def new_pool(device: torch.device):
+    """A fresh CUDA graph memory pool handle on the card (None elsewhere,
+    where only an injected capture function records)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.graph_pool_handle()
+
+
 def _hold_pool(handle, device: torch.device):
-    """A one-node graph captured into the pool ``handle``, to be kept as
+    """A one-node graph captured into the serving pool ``handle``, kept as
     long as the registry uses the handle.  PyTorch frees a pool's record
     once every graph captured into it is gone, and a later capture into the
     same handle then fails (its host allocator asserts on the released
-    pool): a program that recaptures alone in its pool, or a program made
-    after a model's others were dropped, would hit that.  Returns what
-    keeps the graph alive."""
+    pool).  The serving pool needs the hold: a serving program that
+    recaptures alone in the pool, or one made after a model's others were
+    dropped, captures into the same handle.  Step graphs need none: each
+    capture takes a fresh pool.  Returns what keeps the graph alive."""
     buf = torch.zeros(1, device=device)
     replay, _ = capture_cuda_graph(lambda: buf.add_(0.0), device, handle)
     return replay, buf
@@ -282,9 +302,11 @@ class EagerStepProgram:
 class StepGraphs:
     """One input shape's captured step: the static batch ``x`` (and
     microbatch ``xb``), the accumulators, the static outputs, the replays of
-    the body graph (n > 1) and of the finish graph, and the pointers of the
-    tensors the model read at capture."""
+    the body graph (n > 1) and of the finish graph, the pointers of the
+    tensors the model read at capture, and the memory pool both graphs
+    were captured into (released with them)."""
 
+    pool: Any
     x: torch.Tensor
     xb: Optional[torch.Tensor]
     acc_leaves: List[torch.Tensor]
@@ -318,9 +340,10 @@ class StepProgram:
     replays the finish graph and hands back copies of the outputs.  As for
     :class:`GraphProgram`, a tensor the model reads that has moved (a
     replaced parameter) makes that shape recapture; an in-place write
-    (``load_params``, a restored checkpoint) does not.  The graphs share the
-    anchor's memory pool with its serving programs: they keep nothing in it
-    between calls.
+    (``load_params``, a restored checkpoint) does not.  Each capture
+    allocates in a pool of its own (:func:`new_pool`), which goes when its
+    :class:`StepGraphs` go: a recapture drops the old graphs first and
+    takes a fresh pool.
     """
 
     kind = "graph"
@@ -347,7 +370,7 @@ class StepProgram:
             acc = fn.start(anchor)
             acc_leaves = tree_lib.flatten(acc)[1]
         capture = self._registry.capture_fn or capture_cuda_graph
-        pool = self._registry.pool(anchor, device)
+        pool = new_pool(device)
         written = [p.detach() for p in anchor.parameters()]
         with obs.timed("compile.graph",
                        key=repr((self.key, tuple(x.shape)))) as t:
@@ -366,6 +389,10 @@ class StepProgram:
             del saved
             outs = [torch.empty_like(o) for o in example]
             del example
+            if device.type == "cuda":
+                # the capture allocates in a fresh pool, which cannot reuse
+                # the blocks the warm-up left cached: give them back first
+                torch.cuda.empty_cache()
             # the recorded functions reach the model through the program's
             # weak reference, so that what a capture keeps of them does not
             # keep the model alive
@@ -380,22 +407,31 @@ class StepProgram:
                     o.copy_(v)
 
             finish, _ = capture(finish_run, device, pool)
-        return StepGraphs(x=xs, xb=xb, acc_leaves=acc_leaves, outs=outs,
-                          body=body, finish=finish,
+        return StepGraphs(pool=pool, x=xs, xb=xb, acc_leaves=acc_leaves,
+                          outs=outs, body=body, finish=finish,
                           pointers=_pointers(anchor), capture_s=t.seconds)
 
-    def __call__(self, x: torch.Tensor):
-        """One step on ``x``: capture (first call of this shape, or after a
-        tensor the model reads moved), then copy in, replay, copy out."""
+    def capture(self, x: torch.Tensor) -> StepGraphs:
+        """The graphs of ``x``'s shape, captured now if there are none yet
+        or a tensor the model reads has moved (the old graphs, and their
+        pool, go first); runs no step."""
         anchor = _alive(self._anchor)
         sig = (tuple(x.shape), x.dtype, x.device)
         g = self.graphs.get(sig)
         if g is None or _pointers(anchor) != g.pointers:
-            self.graphs.pop(sig, None)  # the old graphs go first
+            # the old graphs, and their pool, go before the new capture
+            self.graphs.pop(sig, None)
+            del g
             g = self._capture(anchor, x)
             self.graphs[sig] = g
             self._registry._count_compile(self.kind, (self.key, sig[0]),
                                           g.capture_s)
+        return g
+
+    def __call__(self, x: torch.Tensor):
+        """One step on ``x``: capture (first call of this shape, or after a
+        tensor the model reads moved), then copy in, replay, copy out."""
+        g = self.capture(x)
         self.replay(g, x)
         return self._fn.result(tuple(o.clone() for o in g.outs))
 
@@ -455,27 +491,36 @@ class ProgramRegistry:
         self.stats = {"compiles": 0, "compile_s": 0.0, "hits": 0}
 
     def pool(self, anchor, device: torch.device):
-        """``anchor``'s CUDA graph memory pool (made on first use, with a
-        one-node graph that holds it for the anchor's life; None off the
-        card)."""
-        if device.type != "cuda":
-            return None
+        """The memory pool ``anchor``'s serving programs share (made on
+        first use, on the card with a one-node graph that holds it for the
+        anchor's life)."""
         entry = self._pools.get(anchor)
         if entry is None:
-            handle = torch.cuda.graph_pool_handle()
-            entry = (handle, _hold_pool(handle, device))
+            handle = new_pool(device)
+            hold = (_hold_pool(handle, device) if device.type == "cuda"
+                    else None)
+            entry = (handle, hold)
             self._pools[anchor] = entry
         return entry[0]
 
-    def pool_bytes(self, anchor) -> int:
-        """Bytes the card holds in ``anchor``'s graph memory pool (0
-        without one), from the caching allocator's snapshot."""
+    def pools(self, anchor) -> List[Any]:
+        """The memory pools ``anchor``'s programs hold: the serving pool
+        (once made), then one a captured step shape."""
         entry = self._pools.get(anchor)
-        if entry is None:
+        out = [] if entry is None else [entry[0]]
+        for prog in self._tables.get(anchor, {}).values():
+            if isinstance(prog, StepProgram):
+                out += [g.pool for g in prog.graphs.values()]
+        return [h for h in out if h is not None]
+
+    def pool_bytes(self, anchor) -> int:
+        """Bytes the card holds in ``anchor``'s graph memory pools (0
+        without one), from the caching allocator's snapshot."""
+        ids = {tuple(h) for h in self.pools(anchor)}
+        if not ids:
             return 0
-        handle = entry[0]
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg["segment_pool_id"]) == tuple(handle))
+                   if tuple(seg["segment_pool_id"]) in ids)
 
     # ---------------------------------------------------------------- capture
     def capture(self, anchor, key: Hashable, fn: QueryFn,

@@ -498,7 +498,7 @@ class EiNet(nn.Module):
             else:
                 n_l = buffer[:, self._table(i, "left"), :]
                 n_r = buffer[:, self._table(i, "right"), :]
-            s = ops.log_einsum_exp(self.einsum[i], n_l, n_r)  # (B, L, k_out)
+            s = self.pair_log_einsum_exp(self.einsum[i], n_l, n_r)
             health_lib.tap_segment(s)
             new_rows = [s]
             mix_out = None
@@ -522,6 +522,13 @@ class EiNet(nn.Module):
             return root_out, cache
         return root_out
 
+    def pair_log_einsum_exp(self, w: torch.Tensor, ln_left: torch.Tensor,
+                            ln_right: torch.Tensor) -> torch.Tensor:
+        """One pair's einsum layer, (B, L, K) x 2 -> (B, L, K_out): the
+        kernel op (K1, under autograd K2).  The naive baseline
+        (``core.baseline.NaiveEiNet``) overrides it."""
+        return ops.log_einsum_exp(w, ln_left, ln_right)
+
     def _forward_planned(self, leaf_rows: torch.Tensor) -> torch.Tensor:
         """The depth-grouped bottom-up pass over an all-canonical plan:
         "fused" segments are one grouped launch, "layer" segments the
@@ -535,7 +542,7 @@ class EiNet(nn.Module):
                 s = ops.grouped_log_einsum_exp(ws, prev_out)
             else:
                 half = last.num_partitions
-                s = ops.log_einsum_exp(
+                s = self.pair_log_einsum_exp(
                     self.einsum[seg.start],
                     prev_out[:, :half, :],
                     prev_out[:, half: 2 * half, :],
@@ -579,9 +586,9 @@ class EiNet(nn.Module):
                 continue
             i = seg.start
             spec = self.pair_specs[i]
-            s = ops.log_einsum_exp(self.einsum[i],
-                                   buffer[:, self._table(i, "left"), :],
-                                   buffer[:, self._table(i, "right"), :])
+            s = self.pair_log_einsum_exp(
+                self.einsum[i], buffer[:, self._table(i, "left"), :],
+                buffer[:, self._table(i, "right"), :])
             health_lib.tap_segment(s)
             mix_out = None
             if spec.mix_global is not None:

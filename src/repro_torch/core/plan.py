@@ -22,7 +22,10 @@ model (``fused_cost_bytes`` / ``gather_cost_bytes``) and the 12 MiB default
 budget are the JAX reference's, kept unchanged so that both packages plan
 every circuit segment for segment; ``out_block`` and ``block_b`` are that
 model's tile sizes and are recorded, not used as CUDA launch geometry (each
-CUDA kernel sizes its own tiles against the card's shared memory).
+CUDA kernel sizes its own tiles against the card's shared memory).  One
+check is the port's own: a canonical run joins a fused segment only where
+the fused kernels have a launch geometry for it (:func:`kernels_hold`), on
+every device, so the CPU plans what the card runs.
 
 The budget resolves in priority order: the ``plan_budget=`` ctor knob, the
 ``REPRO_TORCH_PLAN_BUDGET`` env var (bytes), then :data:`PLAN_BUDGET_BYTES`.
@@ -33,6 +36,8 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from repro_torch.kernels import grouped as grouped_kernels
 
 # working-set budget of the reference cost model for one fused program (the
 # reference's 12 MiB VMEM slice, kept so plans match the reference)
@@ -227,6 +232,23 @@ def gather_cost_bytes(specs: Sequence, i: int, j: int, bb: int) -> int:
 
 
 # ------------------------------------------------------------ run pickers
+def kernels_hold(specs: Sequence, i: int, j: int) -> bool:
+    """Whether the fused kernels (K3 forward, K4 backward) have a launch
+    geometry for the canonical run [i, j): each sizes its row tile against
+    the card's 227 KB of shared memory, and one output cell's subtree must
+    fit one row tile (the reference's 12 MiB budget admits runs that do
+    not, e.g. four depths at K=24).  Neither geometry depends on the
+    batch for this."""
+    k_outs = tuple(specs[t].k_out for t in range(i, j))
+    args = (j - i, specs[i].k_in, k_outs, 1, specs[j - 1].num_partitions)
+    try:
+        grouped_kernels.fwd_geometry(*args)
+        grouped_kernels.bwd_geometry(*args)
+    except ValueError:
+        return False
+    return True
+
+
 def pick_tiling(
     specs: Sequence, i: int, j: int, plan_budget: int
 ) -> Optional[Tuple[int, int]]:
@@ -244,6 +266,8 @@ def pick_tiling(
             return None  # not an exact canonical halving chain
         if t < j - 1 and specs[t].k_out != specs[t + 1].k_in:
             return None
+    if not kernels_hold(specs, i, j):
+        return None
     for bb in _GROUP_BLOCK_B:
         for s in range(l_out, 0, -1):
             if l_out % s:
@@ -316,6 +340,8 @@ def _why_not_canonical(specs: Sequence, i: int, plan_budget: int) -> str:
         return "non-canonical pair in every candidate run"
     if specs[i].mix_global is not None:
         return "interior mixing terminates runs"
+    if not kernels_hold(specs, i, i + 2):
+        return "the fused kernels cannot hold the 2-depth run"
     return "2-depth working set exceeds the plan budget"
 
 

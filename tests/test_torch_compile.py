@@ -10,6 +10,7 @@ only on the card (``chip_smoke.py``).
 """
 
 import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -205,6 +206,138 @@ def test_engine_with_injected_capture_matches_eager():
     for r in reqs:
         np.testing.assert_array_equal(graphed[r.req_id].value,
                                       eager[r.req_id].value)
+
+
+# ------------------------------------------------------------------- pools
+class _Graph:
+    """Stands for a captured graph: while it lives, the pool it was
+    captured into is in use (PyTorch releases a pool once its graphs are
+    gone).  A replay reruns the recorded function (into the static output
+    of a serving program; a step stage returns nothing)."""
+
+    def __init__(self, run, out):
+        self.run, self.out = run, out
+
+    def replay(self):
+        if self.out is None:
+            self.run()
+            return
+        with torch.inference_mode():
+            self.out.copy_(self.run())
+
+
+class _PoolSeam:
+    """A capture function that records each capture's pool and a weak
+    reference to its graph; it runs ``run`` once for the static output."""
+
+    def __init__(self):
+        self.captures = []  # (pool, weakref to the graph), in order
+
+    def __call__(self, run, device, pool):
+        graph = _Graph(run, run())
+        self.captures.append((pool, weakref.ref(graph)))
+        return graph.replay, graph.out
+
+    def live(self, pool):
+        gc.collect()
+        return [r for p, r in self.captures if p == pool and r() is not None]
+
+
+@pytest.fixture
+def pool_seam(monkeypatch):
+    """A registry whose captures ``_PoolSeam`` records, with numbered
+    tokens for pools (``new_pool`` makes none off the card)."""
+    made = []
+
+    def new_pool(device):
+        made.append(("pool", len(made)))
+        return made[-1]
+
+    monkeypatch.setattr(compile_lib, "new_pool", new_pool)
+    seam = _PoolSeam()
+    return compile_lib.ProgramRegistry(capture_fn=seam), seam, made
+
+
+def _step(reg, net, **cfg):
+    from repro_torch.train import TrainConfig, make_em_step
+
+    return make_em_step(net, TrainConfig(**cfg), registry=reg)
+
+
+def _x(b, seed=0):
+    return torch.from_numpy(
+        np.random.RandomState(seed).randn(b, D).astype(np.float32))
+
+
+def test_step_programs_get_distinct_pools(pool_seam):
+    reg, seam, _ = pool_seam
+    net = _net()
+    _step(reg, net)(_x(4))
+    _step(reg, net)(_x(6))  # a second shape of the same program
+    _step(reg, net, mode="full")(_x(4))
+    _step(reg, net, num_microbatches=2)(_x(4))  # body and finish graphs
+    pools = [p for p, _ in seam.captures]
+    assert len(pools) == 5
+    assert len(set(pools[:3])) == 3 and pools[3] == pools[4]
+    assert pools[2] != pools[3]
+    assert reg.pools(net) == pools[:3] + [pools[3]]
+
+
+def test_step_recapture_takes_a_fresh_pool(pool_seam):
+    reg, seam, _ = pool_seam
+    net = _net()
+    step = _step(reg, net)
+    x = _x(4)
+    step(x)
+    first = seam.captures[0][0]
+    net.class_prior = nn.Parameter(net.class_prior.detach().clone())
+    step(x)
+    assert len(seam.captures) == 2 and reg.stats["compiles"] == 2
+    second = seam.captures[1][0]
+    assert second != first
+    # the old graphs went before the new capture, and their pool with them
+    assert seam.live(first) == [] and len(seam.live(second)) == 1
+    assert reg.pools(net) == [second]
+
+
+def test_serving_programs_of_a_model_share_a_pool(pool_seam):
+    reg, seam, made = pool_seam
+    net, other = _net(), _net(1)
+    batch = assemble_batch(net, [], 2)
+    for kind in ("joint_ll", "mpe"):
+        reg.capture(net, (kind, 2), query_fn(kind), batch)
+    reg.capture(other, ("joint_ll", 2), query_fn("joint_ll"), batch)
+    _step(reg, net)(_x(2))
+    pools = [p for p, _ in seam.captures]
+    assert pools[0] == pools[1] != pools[2]
+    assert pools[3] not in pools[:3]
+    assert reg.pools(net) == [pools[0], pools[3]]
+    assert len(made) == 3
+
+
+def test_a_dropped_step_program_releases_its_pool(pool_seam):
+    reg, seam, _ = pool_seam
+    net = _net()
+    batch = assemble_batch(net, [], 2)
+    reg.capture(net, ("joint_ll", 2), query_fn("joint_ll"), batch)
+    step = _step(reg, net, num_microbatches=2)
+    step(_x(4))
+    serve_pool, step_pool = seam.captures[0][0], seam.captures[1][0]
+    assert len(seam.live(step_pool)) == 2
+    del step
+    reg.table(net).pop(next(k for k in reg.table(net) if k[0] == "em_step"))
+    assert seam.live(step_pool) == []
+    assert reg.pools(net) == [serve_pool]
+    assert len(seam.live(serve_pool)) == 1
+    # a dead model takes its step pools along too (a fresh one: the fake
+    # serving graph above holds its model, which a real graph does not)
+    net = _net(1)
+    step = _step(reg, net)
+    step(_x(4))
+    pool = seam.captures[-1][0]
+    assert len(seam.live(pool)) == 1
+    del step, net
+    assert seam.live(pool) == []
 
 
 # ------------------------------------------------------------------ philox

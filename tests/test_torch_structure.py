@@ -15,12 +15,13 @@ import pytest
 import torch
 
 from repro.configs import REGISTRY as REF_REGISTRY
+from repro.core import EiNet as RefEiNet
 from repro.core import region_graph as ref_rg
 from repro.launch.cells import build_einet as ref_build_einet
 from repro_torch.configs import REGISTRY, get_config
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import region_graph as port_rg
-from repro_torch.core.einet import resolve_device
+from repro_torch.core.einet import EiNet, resolve_device
 from repro_torch.launch.cells import build_einet
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -125,6 +126,27 @@ def test_hopper_sized_budget_refuses_the_fused_run():
     assert plan_lib.fused_cost_bytes(specs, 0, 4, 1, 32) == 948_224
     plan = plan_lib.plan_circuit(specs, plan_budget=232_448)
     assert [s.kind for s in plan.segments] == ["layer"] * 4
+
+
+@pytest.mark.parametrize("k", [16, 24, 32])
+def test_fused_runs_the_kernels_cannot_hold_are_cut(k):
+    """At K=24 and K=32 one output cell's 4-depth subtree does not fit
+    K4's block in 227 KB, which the reference's 12 MiB budget admits: the
+    port plans the longest run the kernels hold ([0, 3)) and the root pair
+    per layer; at K=16 it keeps the reference's [0, 4)."""
+    graph = ref_rg.random_binary_trees(512, 4, 10, seed=0)
+    ref = RefEiNet(graph, num_sums=k)
+    port = EiNet(port_rg.random_binary_trees(512, 4, 10, seed=0),
+                 num_sums=k, device="meta")
+    got = [(s.start, s.stop, s.kind) for s in port.exec_plan]
+    want = [(s.start, s.stop, s.kind) for s in ref.exec_plan]
+    assert want == [(0, 4, "fused")]
+    assert plan_lib.kernels_hold(port.pair_specs, 0, 3)
+    if k == 16:
+        assert got == want and plan_lib.kernels_hold(port.pair_specs, 0, 4)
+    else:
+        assert got == [(0, 3, "fused"), (3, 4, "layer")]
+        assert not plan_lib.kernels_hold(port.pair_specs, 0, 4)
 
 
 def test_entry_points_default_to_cuda():
