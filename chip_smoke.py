@@ -187,8 +187,25 @@
    memory) and Fig. 6 (inference) over K in {2, ..., 40}, eager and graph,
    each naive point out of memory recorded and the first such K printed;
    Fig. 4 quick (EM learns, argmax inpainting beats mean-fill).
-15. Prints the launch counts of every main path (each kernel must have run
-   on them; the paper phase's EiNet side among them) and the shapes (B, L, K_out, K) K1 and K2 were launched at
+15. Distributed phase (dist_phase): the sharded EM step.  (a) NCCL at a
+   world of 1 on a (data=1, model=1) mesh: 20 make_sharded_em_step steps
+   at einet_rat (B = 2048, fused) and einet_pd (B = 512, planned) bit for
+   bit 20 make_em_step steps of a second model (LLs and parameters), the
+   same wrapper launches (the counters set to 0 just before and read just
+   after), one replay of each running the same hand-written kernels
+   (profiled); ms/step of both, the reduce stage and one all_reduce of
+   the statistics (CUDA events).  (b) Two ranks spawned on the one card
+   over gloo with CUDA tensors (NCCL will not put two ranks on one
+   device): einet_pd at B = 512 on a (2, 1) mesh (256 rows a rank, from
+   the sharded loader) and a (1, 2) mesh (the M-step on each rank's model
+   shard), 5 steps each held against one process's step on all 512 rows
+   from the same parameters (step-0 statistics rtol 1e-4, atol 1e-6 B;
+   parameters rtol 1e-4, atol 1e-6; mean LL 1e-4 + 1e-6 |LL|), the ranks'
+   parameters bit for bit equal; the (1, 2) parameters resharded onto
+   (2, 1) and back bit for bit; compressed_psum within 5% of the exact
+   sum and bit for bit the CPU's.  NCCL across cards is not exercised.
+16. Prints the launch counts of every main path (each kernel must have run
+   on them; the paper phase's EiNet side and the sharded steps among them) and the shapes (B, L, K_out, K) K1 and K2 were launched at
    there (counted by wrapping the ops' kernels, whose launch counters stay
    as they are); times K1 and K2 at each of those shapes (and K1 at
    einet_pd's pairs at B = 64) on fresh inputs with their geometry, K2's
@@ -220,6 +237,10 @@ in time, in one call.
 prints the card's graph pools by segment through einet_rat_large's
 drop-then-capture sequence (a copy beside another tree's src/ probes that
 tree).
+
+  python3 chip_smoke.py --dist
+
+builds the kernels and runs only the distributed phase (15).
 """
 
 from __future__ import annotations
@@ -2080,6 +2101,463 @@ def paper_phase(card: str, dev, compare_stats) -> dict:
     return out
 
 
+def flat_stats(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in flat_stats(v, k)]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree)
+                for p in flat_stats(v, f"{prefix}[{i}]")]
+    return [(prefix, tree.detach().cpu())]
+
+
+def compare_stats(a, b, what, rtol, atol, scaled=None):
+    """Every tensor of a statistics or parameter dict against another:
+    rtol, atol (for a name in ``scaled``, its value times the block's
+    max |b| instead).  Prints each block's max |diff|; raises after printing if
+    any block is out of tolerance.  Returns the largest |diff| and the
+    largest |diff| / max|b| over the blocks."""
+    import torch
+
+    worst_abs = worst_rel = 0.0
+    lines, bad = [], []
+    for (name, x), (_, y) in zip(flat_stats(a), flat_stats(b)):
+        if x.shape != y.shape:
+            raise AssertionError(f"{what} {name}: {x.shape} vs {y.shape}")
+        if x.numel() == 0:
+            continue
+        scale = y.abs().max().item()
+        tol = scaled[name] * scale if name in (scaled or {}) else atol
+        d = (x - y).abs().max().item()
+        lines.append(f"{name} {d:.2e}")
+        if not torch.allclose(x, y, rtol=rtol, atol=tol):
+            bad.append(f"{name} (max |diff| {d:.3e} beyond rtol={rtol}, "
+                       f"atol={tol:.1e})")
+        worst_abs = max(worst_abs, d)
+        worst_rel = max(worst_rel, d / scale if scale else 0.0)
+    print(f"{what}: max |diff| by block: " + ", ".join(lines))
+    if bad:
+        raise AssertionError(f"{what}: " + "; ".join(bad))
+    return worst_abs, worst_rel
+
+
+
+# the distributed phase: sharded EM steps a case (a), the rows a step of the
+# two-rank run (b) and its steps, and the compressed all-reduce's length
+DIST_STEPS = 20
+DIST_RANK_STEPS = 5
+DIST_PSUM_N = 100_000
+DIST_TIMEOUT_S = 300
+# an all-reduce a replay in (a): iterations timed with CUDA events
+DIST_REDUCE_ITERS = 20
+
+
+def own_kernel_names() -> set:
+    """The names of the hand-written CUDA kernels (every ``__global__``
+    function in the port's csrc/)."""
+    import re
+
+    src = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
+    names = set()
+    for f in os.listdir(src):
+        with open(os.path.join(src, f)) as fh:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+                fh.read()))
+    return names
+
+
+def own_kernels(ran, names) -> dict:
+    """The hand-written kernels among a profiled call's, by name (the
+    profiler's demangled names, e.g. "void (anonymous
+    namespace)::grouped_fwd_kernel<2>(float const*, ...)")."""
+    out = collections.Counter()
+    for name, n in ran.items():
+        base = name.replace("(anonymous namespace)::", "").replace(
+            "void ", "").split("(")[0].split("<")[0].split("::")[-1].strip()
+        if base in names:
+            out[base] += n
+    return dict(out)
+
+
+def dist_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of the phase's part (b): gloo with CUDA tensors on the one
+    card.  einet_pd at B=512 on a (2, 1) mesh (256 rows a rank, from the
+    sharded loader) and on a (1, 2) mesh (the M-step on each rank's model
+    shard), DIST_RANK_STEPS sharded steps each after holding the step-0
+    statistics this rank reduces; then the (1, 2) parameters resharded onto
+    (2, 1) and back; then ``compressed_psum`` of seeded tensors on the
+    card and on the CPU.  Writes what it found to ``rank_<r>.pt``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.core import em
+    from repro_torch.data.datasets import array_loader
+    from repro_torch.dist import elastic
+    from repro_torch.dist import sharding as shlib
+    from repro_torch.launch.cells import build_einet
+    from repro_torch.launch.mesh import dp_index, dp_shards, make_mesh_for
+    from repro_torch.launch.train import synthetic_pd_data
+    from repro_torch.optim.compression import compressed_psum
+    from repro_torch.train import TrainConfig, make_sharded_em_step
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"rank {rank}: no CUDA device")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        cfg = get_config("einet_pd")
+        b = cfg.batch_size
+        out = {"backend": dist.get_backend(), "cases": {}}
+        meshes = {"(2, 1)": make_mesh_for(world, 1, device_type="cuda"),
+                  "(1, 2)": make_mesh_for(world, 2, device_type="cuda")}
+        for name, mesh in meshes.items():
+            model = build_einet(cfg, device=dev, seed=0)
+            rows = synthetic_pd_data(model.num_vars)
+            loader = array_loader(rows, b, num_shards=dp_shards(mesh),
+                                  shard_id=dp_index(mesh))
+            xs = [torch.from_numpy(loader.batch_at(i)["x"]).to(dev)
+                  for i in range(DIST_RANK_STEPS)]
+            stats = shlib.reduce_like_params(em.em_statistics(model, xs[0]),
+                                             mesh)
+            shapes = em.zeros_like_statistics(model, "meta")
+            placed = tree_lib.leaves_like(
+                shapes, shlib.tree_shardings(mesh, shapes))
+            model_dim = mesh.mesh_dim_names.index("model")
+            step = make_sharded_em_step(model, TrainConfig(), mesh)
+
+            def host(t):
+                return t.detach().to("cpu", copy=True)
+
+            def host_params():
+                return {k: (host(v) if not isinstance(v, list)
+                            else [host(t) for t in v])
+                        for k, v in em.params_of(model).items()}
+
+            lls, times, params = [], [], [host_params()]
+            for x in xs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lls.append(step(x))
+                times.append(time.perf_counter() - t0)
+                params.append(host_params())
+            case = {
+                "coord": mesh.get_coordinate(), "rows": xs[0].shape[0],
+                "lls": lls, "ms": [t * 1e3 for t in times],
+                "stats": tree_lib.unflatten_like(
+                    stats, [host(t) for t in tree_lib.flatten(stats)[1]],
+                    lambda _, new: new),
+                "block_dims": [p[model_dim].dim if isinstance(
+                    p[model_dim], Shard) else None for p in placed],
+                "params": params}
+            out["cases"][name] = case
+            if name == "(1, 2)":
+                tree = em.params_of(model)
+                a = elastic.reshard(tree, mesh)
+                moved = elastic.reshard(a, meshes["(2, 1)"])
+                back = elastic.reshard(moved, mesh)
+                full = [shlib.gather_full(x.to_local(), x.placements,
+                                          x.device_mesh)
+                        for x in tree_lib.flatten(moved)[1]]
+                out["reshard"] = {
+                    "blocks_equal": all(
+                        torch.equal(u.to_local().view(torch.int32),
+                                    v.to_local().view(torch.int32))
+                        for u, v in zip(tree_lib.flatten(a)[1],
+                                        tree_lib.flatten(back)[1])),
+                    "full_equal": all(
+                        torch.equal(f.view(torch.int32), t.view(torch.int32))
+                        for f, t in zip(full, tree_lib.flatten(tree)[1])),
+                    "sharded": sum(shlib.is_sharded(x.placements)
+                                   for x in tree_lib.flatten(a)[1])}
+            del model, step
+        g = np.random.RandomState(40 + rank).randn(DIST_PSUM_N).astype(
+            np.float32)
+        r = (0.01 * np.random.RandomState(50 + rank).randn(DIST_PSUM_N)
+             ).astype(np.float32)
+        on_card = compressed_psum(torch.from_numpy(g).to(dev), None,
+                                  torch.from_numpy(r).to(dev))
+        on_cpu = compressed_psum(torch.from_numpy(g), None,
+                                 torch.from_numpy(r))
+        out["psum"] = {"card": [t.cpu() for t in on_card],
+                       "cpu": list(on_cpu), "g": g}
+        torch.save(out, os.path.join(tmp, f"rank_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_phase(card: str, dev, compare_stats) -> dict:
+    """Distributed EM on the one card.
+
+    (a) NCCL at a world of 1 on a (data=1, model=1) mesh:
+    ``make_sharded_em_step`` for DIST_STEPS stochastic steps at einet_rat
+    (B=2048, fused) and einet_pd (B=512, planned) against ``make_em_step``
+    on a second model from the same parameters: LLs and parameters bit for
+    bit; the wrapper launches (warm-up and capture, counters set to 0 just
+    before the sharded steps and read just after) equal; one replay of each
+    program runs the same hand-written kernels by name and number
+    (profiled).  Prints ms/step of both and the all-reduce's time from CUDA
+    events: the step's ``reduce`` stage, and one ``dist.all_reduce`` of a
+    buffer of the statistics' size.
+    (b) Two ranks spawned on the card over gloo with CUDA tensors (NCCL
+    will not put two ranks on one device): einet_pd at B=512 for
+    DIST_RANK_STEPS steps on a (2, 1) mesh (256 rows a rank) and a (1, 2)
+    mesh, each step held against a single-process step on all 512 rows
+    from the same parameters: statistics (step 0) rtol 1e-4, atol 1e-6 B;
+    parameters rtol 1e-4, atol 1e-6; mean LL within 1e-4 + 1e-6 |LL| (one
+    float32 step of einet_pd's mean LL is 2.4e-4); parameters bit
+    for bit equal across the ranks; the (1, 2)
+    parameters resharded onto (2, 1) and back bit for bit;
+    ``compressed_psum`` within 5% of the exact sum and bit for bit the
+    CPU's.
+
+    Returns (a)'s launch counts and K1/K2 shapes (a main path's) and the
+    figures."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.core import em
+    from repro_torch.dist import sharding as shlib
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cells import build_einet
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.train import (
+        batch_at, synthetic_pd_data, synthetic_rat_data)
+    from repro_torch.train import (
+        TrainConfig, make_em_step, make_sharded_em_step)
+
+    out = {"counts": collections.Counter(), "shapes": collections.Counter(),
+           "cases": {}}
+    names = own_kernel_names()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        # ---- (a) NCCL, a world of 1
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh_for(1, 1, device_type="cuda")
+            backend = dist.get_backend()
+            for arch in ("einet_rat", "einet_pd"):
+                cfg = get_config(arch)
+                b = cfg.batch_size
+                s_model = build_einet(cfg, device=dev, seed=0)
+                r_model = build_einet(cfg, device=dev, seed=0)
+                make = (synthetic_pd_data if cfg.structure == "pd"
+                        else synthetic_rat_data)
+                data = torch.from_numpy(make(s_model.num_vars)).to(dev)
+                xs = [batch_at(data, i, b) for i in range(DIST_STEPS)]
+                s_step = make_sharded_em_step(s_model, TrainConfig(), mesh)
+                r_step = make_em_step(r_model, TrainConfig())
+                runs = {}
+                for tag, step in (("sharded", s_step), ("make_em_step",
+                                                         r_step)):
+                    torch.cuda.synchronize()
+                    reset(ops)
+                    lls, times = [], []
+                    for x in xs:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        lls.append(step(x))
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                    runs[tag] = {"lls": lls, "counts": counts_of(ops),
+                                 "shapes": collections.Counter(SHAPES),
+                                 "ms": statistics.median(times[1:]) * 1e3}
+                s_run, r_run = runs["sharded"], runs["make_em_step"]
+                if s_run["lls"] != r_run["lls"] or not all(
+                        bits_equal(p.detach(), q.detach()) for p, q in
+                        zip(s_model.parameters(), r_model.parameters())):
+                    raise AssertionError(
+                        f"dist (a) {arch}: {DIST_STEPS} sharded steps at a "
+                        f"world of 1 differ from make_em_step's (LLs "
+                        f"{s_run['lls'][:3]}... vs {r_run['lls'][:3]}...)")
+                if s_run["counts"] != r_run["counts"] or not any(
+                        s_run["counts"].values()):
+                    raise AssertionError(
+                        f"dist (a) {arch}: wrapper launches {s_run['counts']}"
+                        f" against make_em_step's {r_run['counts']}")
+                s_graph = next(iter(s_step.graphs.values()))
+                r_graph = next(iter(r_step.graphs.values()))
+                s_ran, _ = device_kernels(
+                    lambda: s_step.replay(s_graph, xs[0]))
+                r_ran, _ = device_kernels(
+                    lambda: r_step.replay(r_graph, xs[0]))
+                s_own, r_own = own_kernels(s_ran, names), own_kernels(
+                    r_ran, names)
+                if s_own != r_own or not s_own:
+                    raise AssertionError(
+                        f"dist (a) {arch}: one sharded replay runs the hand-"
+                        f"written kernels {s_own}, one make_em_step replay "
+                        f"{r_own} (kernels of the sharded replay: "
+                        f"{sorted(s_ran)})")
+                reduce = s_step._fn.reduce
+                reduce_ms = time_ms(lambda: reduce(s_model, s_graph.acc),
+                                    iters=DIST_REDUCE_ITERS)
+                floats = sum(t.numel() for t in tree_lib.flatten(
+                    s_graph.acc["stats"])[1])
+                buf = torch.ones(floats, device=dev)
+                allreduce_ms = time_ms(lambda: dist.all_reduce(buf),
+                                       iters=DIST_REDUCE_ITERS)
+                fig = {"sharded_ms": s_run["ms"], "make_em_step_ms":
+                       r_run["ms"], "reduce_ms": reduce_ms,
+                       "allreduce_ms": allreduce_ms, "floats": floats,
+                       "kernels_a_replay": s_own,
+                       "all_kernels_a_replay": (sum(s_ran.values()),
+                                                sum(r_ran.values()))}
+                out["cases"][f"{arch} world 1"] = fig
+                out["counts"].update(s_run["counts"])
+                out["shapes"].update(s_run["shapes"])
+                print(f"dist (a) {arch} B={b}, {backend} world 1, mesh "
+                      f"(data=1, model=1): {DIST_STEPS} sharded steps equal "
+                      f"{DIST_STEPS} make_em_step steps bit for bit (LL "
+                      f"{s_run['lls'][0]:.4f} -> {s_run['lls'][-1]:.4f}); "
+                      f"{s_run['ms']:.3f} against {r_run['ms']:.3f} ms/step "
+                      f"(medians of steps 1-{DIST_STEPS - 1}); wrapper "
+                      "launches (warm-up and capture) " + ", ".join(
+                          f"{k} {v}" for k, v in s_run["counts"].items() if v)
+                      + " in both; a replay runs the same hand-written "
+                      "kernels " + ", ".join(f"{k} {v}" for k, v in
+                                            sorted(s_own.items()))
+                      + f" ({fig['all_kernels_a_replay'][0]} CUDA kernels "
+                      f"in all, make_em_step's {fig['all_kernels_a_replay'][1]}"
+                      f"); the reduce stage {reduce_ms:.4f} ms, one "
+                      f"all_reduce of its {floats:,} floats "
+                      f"{allreduce_ms:.4f} ms (CUDA events) [{card}]")
+                del s_model, r_model, s_step, r_step, s_graph, r_graph, buf
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+        # ---- (b) two ranks on the card over gloo
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(dist_rank, args=(2, tmp), nprocs=2,
+                                 start_method="spawn", join=False)
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise AssertionError("dist (b): the two ranks did not "
+                                         f"finish in {DIST_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank_{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        backend = ranks[0]["backend"]
+        cfg = get_config("einet_pd")
+        b = cfg.batch_size
+        ref = build_einet(cfg, device=dev, seed=0)
+        data = torch.from_numpy(synthetic_pd_data(ref.num_vars)).to(dev)
+        xs = [batch_at(data, i, b) for i in range(DIST_RANK_STEPS)]
+        ref_stats = em.em_statistics(ref, xs[0])
+        ref_step = make_em_step(ref, TrainConfig())
+        for name in ("(2, 1)", "(1, 2)"):
+            cases = [r["cases"][name] for r in ranks]
+            for c in cases:
+                coord = c["coord"]
+                blocks = [t if d is None else t.chunk(2, d)[coord[1]]
+                          for t, d in zip(tree_lib.flatten(ref_stats)[1],
+                                          c["block_dims"])]
+                want = tree_lib.unflatten_like(ref_stats, blocks,
+                                               lambda _, new: new)
+                compare_stats(c["stats"], want,
+                              f"dist (b) {name} rank at {coord}: step-0 "
+                              f"statistics ({c['rows']} rows a rank) against "
+                              f"one process on {b}", 1e-4, 1e-6 * b)
+                # each step against one single-process step on all the
+                # rows from the same parameters (a trajectory of steps
+                # drifts apart by rounding, which EM amplifies)
+                d_ll = 0.0
+                for i, x in enumerate(xs):
+                    em.load_params(ref, {k: (v.to(dev) if not isinstance(
+                        v, list) else [t.to(dev) for t in v])
+                        for k, v in c["params"][i].items()})
+                    ll = ref_step(x)
+                    d_ll = max(d_ll, abs(ll - c["lls"][i]))
+                    # 1e-4, plus 1e-6 |LL|: at einet_pd's |LL| of about
+                    # 3,300 one float32 step of the mean is 2.4e-4
+                    if abs(ll - c["lls"][i]) > 1e-4 + 1e-6 * abs(ll):
+                        raise AssertionError(
+                            f"dist (b) {name} step {i}: mean LL "
+                            f"{c['lls'][i]} against one process's {ll}")
+                    compare_stats(c["params"][i + 1], em.params_of(ref),
+                                  f"dist (b) {name} rank at {coord}: "
+                                  f"parameters after step {i} against one "
+                                  "process's step", 1e-4, 1e-6)
+            same = all(bits_equal(u, v) for u, v in zip(
+                tree_lib.flatten(cases[0]["params"])[1],
+                tree_lib.flatten(cases[1]["params"])[1]))
+            if not same or cases[0]["lls"] != cases[1]["lls"]:
+                raise AssertionError(f"dist (b) {name}: the two ranks' "
+                                     "parameters differ")
+            ms = statistics.median(cases[0]["ms"][1:])
+            out["cases"][f"einet_pd {name} {backend}"] = {
+                "rows": cases[0]["rows"], "ms": ms,
+                "first_ms": cases[0]["ms"][0], "d_ll": d_ll}
+            print(f"dist (b) einet_pd B={b} on a {name} (data, model) mesh, "
+                  f"two ranks on one card over {backend} with CUDA tensors: "
+                  f"{cases[0]['rows']} rows a rank; {DIST_RANK_STEPS} "
+                  f"sharded steps, each within rtol 1e-4 of one process's "
+                  f"step on all {b} rows from the same parameters (mean LL "
+                  f"max |diff| {d_ll:.2e}); parameters "
+                  f"bit for bit equal across the ranks; {ms:.3f} ms/step "
+                  f"(median of steps 1-{DIST_RANK_STEPS - 1}; first step "
+                  f"with capture {cases[0]['ms'][0]:.1f} ms) [{card}]")
+        for r in ranks:
+            rs = r["reshard"]
+            if not (rs["blocks_equal"] and rs["full_equal"]
+                    and rs["sharded"]):
+                raise AssertionError(f"dist (b): reshard (1, 2) -> (2, 1) -> "
+                                     f"(1, 2) {rs}")
+        exact = sum(torch.from_numpy(r["psum"]["g"]) for r in ranks)
+        for rank, r in enumerate(ranks):
+            p = r["psum"]
+            rel = float((p["card"][0] - exact).abs().max()
+                        / exact.abs().max())
+            if rel >= 0.05:
+                raise AssertionError(f"dist (b) compressed_psum rank {rank}: "
+                                     f"{rel:.3e} relative to the exact sum")
+            if not all(bits_equal(u, v) for u, v in zip(p["card"],
+                                                        p["cpu"])):
+                raise AssertionError(
+                    f"dist (b) compressed_psum rank {rank}: the card's sum "
+                    f"and residual differ from the CPU's by "
+                    + ", ".join(f"{float((u - v).abs().max()):.3e} in "
+                                f"{int((u != v).sum())}" for u, v in
+                                zip(p["card"], p["cpu"])))
+        out["ranks_s"] = ranks_s
+        print(f"dist (b): (1, 2) parameters resharded onto (2, 1) and back "
+              f"bit for bit ({ranks[0]['reshard']['sharded']} leaves sharded "
+              f"on the model dim); compressed_psum of {DIST_PSUM_N:,} floats "
+              f"a rank within {rel:.3e} of the exact sum (gate 5%) and bit "
+              f"for bit the CPU's, sum and residual; the two ranks' "
+              f"processes {ranks_s:.1f} s, spawn included [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def assert_ll(got, want, what: str) -> float:
     """LLs within rtol 1e-5, atol 1e-4 (any device; compared on the CPU);
     returns the max |diff|."""
@@ -2796,41 +3274,6 @@ def main() -> int:
     qps = len(reqs) / min(steady)
 
     # ------------------------------------------------------- E-step phase
-    def flat_stats(tree, prefix=""):
-        if isinstance(tree, dict):
-            return [p for k, v in tree.items() for p in flat_stats(v, k)]
-        if isinstance(tree, list):
-            return [p for i, v in enumerate(tree)
-                    for p in flat_stats(v, f"{prefix}[{i}]")]
-        return [(prefix, tree.detach().cpu())]
-
-    def compare_stats(a, b, what, rtol, atol, scaled=None):
-        """Every tensor of a statistics or parameter dict against another:
-        rtol, atol (for a name in ``scaled``, its value times the block's
-        max |b| instead).  Prints each block's max |diff|; raises after printing if
-        any block is out of tolerance.  Returns the largest |diff| and the
-        largest |diff| / max|b| over the blocks."""
-        worst_abs = worst_rel = 0.0
-        lines, bad = [], []
-        for (name, x), (_, y) in zip(flat_stats(a), flat_stats(b)):
-            if x.shape != y.shape:
-                raise AssertionError(f"{what} {name}: {x.shape} vs {y.shape}")
-            if x.numel() == 0:
-                continue
-            scale = y.abs().max().item()
-            tol = scaled[name] * scale if name in (scaled or {}) else atol
-            d = (x - y).abs().max().item()
-            lines.append(f"{name} {d:.2e}")
-            if not torch.allclose(x, y, rtol=rtol, atol=tol):
-                bad.append(f"{name} (max |diff| {d:.3e} beyond rtol={rtol}, "
-                           f"atol={tol:.1e})")
-            worst_abs = max(worst_abs, d)
-            worst_rel = max(worst_rel, d / scale if scale else 0.0)
-        print(f"{what}: max |diff| by block: " + ", ".join(lines))
-        if bad:
-            raise AssertionError(f"{what}: " + "; ".join(bad))
-        return worst_abs, worst_rel
-
     data = torch.from_numpy(synthetic_rat_data(model.num_vars))
     data_dev = data.to(dev)
     xb = data_dev[:b_full]
@@ -3766,6 +4209,14 @@ def main() -> int:
     paper_s = time.perf_counter() - t_paper
     print(f"paper comparison phase: {paper_s:.3f} s [{card}]")
 
+    # ----------------------------------------------------- distributed phase
+    # the sharded EM step: NCCL at a world of 1 against make_em_step, then
+    # two ranks on the card over gloo against one process
+    t_dist = time.perf_counter()
+    dist_out = dist_phase(card, dev, compare_stats)
+    dist_s = time.perf_counter() - t_dist
+    print(f"distributed phase: {dist_s:.3f} s [{card}]")
+
     # ------------------------------------------------------------- report
     # the main paths: serving, and training in both plans (full EM
     # included), of einet_rat and of einet_pd
@@ -3790,7 +4241,9 @@ def main() -> int:
              "training graphs (warm-ups and captures)": {
                  k: tgraphs["counts"][k] for k in serve_counts},
              "paper comparison (EiNet side)": {
-                 k: paper["counts"][k] for k in serve_counts}}
+                 k: paper["counts"][k] for k in serve_counts},
+             "distributed EM (sharded steps, warm-ups and captures)": {
+                 k: dist_out["counts"][k] for k in serve_counts}}
     for name, c in paths.items():
         print(f"launches on the {name} path: " + ", ".join(
             f"{k} {v}" for k, v in c.items()) + f" [{card}]")
@@ -3809,7 +4262,7 @@ def main() -> int:
                soft["shapes"], mix_full["shapes"], mix_ll_shapes,
                mix_serve_shapes, *(g["shapes"] for g in graphs.values()),
                *(run["shapes"] for run in evals.values()),
-               tgraphs["shapes"]):
+               tgraphs["shapes"], dist_out["shapes"]):
         path_shapes.update(sh)
     for (name, *shape), n in sorted(path_shapes.items()):
         print(f"{name} launches at (B, L, K_out, K) = {tuple(shape)} on the "
@@ -4094,6 +4547,28 @@ def compare() -> int:
     return 0
 
 
+def dist_only() -> int:
+    """``--dist``: builds the kernels and runs only the distributed phase
+    (the quickest check of the sharded EM path on the card)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build, ops
+
+    build.build(force=True)
+    card = smi_line()
+    record_shapes(ops.log_einsum_exp)
+    record_shapes(ops.log_einsum_exp_bwd)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    dist_phase(card, torch.device("cuda"), compare_stats)
+    print(f"distributed phase: {time.perf_counter() - t0:.3f} s [{card}]")
+    print(card)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit({"--compare": compare, "--pool": pool_probe}.get(
-        " ".join(sys.argv[1:]), main)())
+    sys.exit({"--compare": compare, "--pool": pool_probe,
+              "--dist": dist_only}.get(" ".join(sys.argv[1:]), main)())

@@ -3,7 +3,8 @@
 The port's counterpart of the reference's ``repro/checkpoint/checkpoint.py``.
 Layout:  <dir>/step_<N>/
             meta.json      -- leaf paths, shapes, dtypes, step, process count
-            shard_0.npz    -- the leaves, named a0, a1, ... in path order
+            shard_<r>.npz  -- process r's leaves, named a0, a1, ... in path
+                              order
 
 A state is a tree of dicts and lists (``repro_torch.tree``): dict keys in
 sorted order, paths joined with ``/``, the strings and array names the
@@ -19,8 +20,13 @@ Guarantees:
     memory before it returns (the training step then writes the module's
     parameters in place), and a thread writes the files; ``wait()`` joins
     it before the next save or a restore.
-  * one process writes one shard file, ``shard_0.npz``; several processes
-    are later work.
+  * each process (rank r of a ``torch.distributed`` job, 0 without one)
+    writes its own ``shard_<r>.npz`` and restores from it, as each process
+    of the reference does.  With several processes, rank 0 commits: each
+    rank marks its shard written (``done_<r>``), rank 0 waits for every
+    mark, writes ``meta.json`` and renames; every writer finishes only once
+    the step is committed, so after ``wait()`` every rank sees the same
+    newest step.  The ranks share the directory.
 """
 
 from __future__ import annotations
@@ -29,14 +35,25 @@ import json
 import os
 import shutil
 import threading
+import time
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tree_lib
 
-PROCESS = 0  # this process's index; one process writes every checkpoint
+COMMIT_TIMEOUT_S = 600.0  # how long a writer waits for the other ranks
+_POLL_S = 0.02
+
+
+def process_index() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def _host(leaf) -> np.ndarray:
@@ -58,11 +75,34 @@ def _restored(ref, arr: np.ndarray):
     return arr
 
 
+def _wait_for(done, what: str) -> None:
+    deadline = time.monotonic() + COMMIT_TIMEOUT_S
+    while not done():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"checkpoint: no {what} after "
+                               f"{COMMIT_TIMEOUT_S:.0f} s")
+        time.sleep(_POLL_S)
+
+
+def _fsynced(path: str, text: str) -> None:
+    with open(path, "w") as f:
+        f.write(text)
+        f.flush()
+        os.fsync(f.fileno())
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, async_write: bool = True):
+    """Checkpoints of one process under ``directory``: ``rank`` and
+    ``world`` default to the ``torch.distributed`` job's (0 and 1 without
+    one)."""
+
+    def __init__(self, directory: str, keep: int = 3, async_write: bool = True,
+                 rank: Optional[int] = None, world: Optional[int] = None):
         self.directory = directory
         self.keep = keep
         self.async_write = async_write
+        self.rank = process_index() if rank is None else rank
+        self.world = process_count() if world is None else world
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -91,14 +131,24 @@ class CheckpointManager:
                 "paths": paths,
                 "shapes": [list(a.shape) for a in host],
                 "dtypes": [str(a.dtype) for a in host],
-                "num_processes": 1,
+                "num_processes": self.world,
             }
-            np.savez(os.path.join(tmp, f"shard_{PROCESS}.npz"),
+            np.savez(os.path.join(tmp, f"shard_{self.rank}.npz"),
                      **{f"a{i}": a for i, a in enumerate(host)})
-            with open(os.path.join(tmp, "meta.json"), "w") as f:
-                json.dump(meta, f)
-                f.flush()
-                os.fsync(f.fileno())
+            if self.world > 1:
+                _fsynced(os.path.join(tmp, f"done_{self.rank}"), "")
+                if self.rank != 0:
+                    # done once rank 0 has committed the step (renamed tmp)
+                    _wait_for(lambda: not os.path.exists(tmp),
+                              f"commit of step {step} by rank 0")
+                    return
+                marks = [os.path.join(tmp, f"done_{r}")
+                         for r in range(self.world)]
+                _wait_for(lambda: all(os.path.exists(m) for m in marks),
+                          f"shards of step {step} from every rank")
+                for m in marks:
+                    os.remove(m)
+            _fsynced(os.path.join(tmp, "meta.json"), json.dumps(meta))
             if os.path.exists(final):
                 shutil.rmtree(final)
             os.rename(tmp, final)  # atomic commit
@@ -148,7 +198,7 @@ class CheckpointManager:
         d = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
-        with np.load(os.path.join(d, f"shard_{PROCESS}.npz")) as data:
+        with np.load(os.path.join(d, f"shard_{self.rank}.npz")) as data:
             arrays = [data[f"a{i}"] for i in range(len(meta["paths"]))]
         paths, _ = tree_lib.flatten(tree_like)
         assert paths == meta["paths"], (

@@ -248,15 +248,22 @@ class StagedStep:
     The step writes its model's parameters in place and returns output
     tensors (a mean LL, a health vector).  With ``num_microbatches`` n:
 
-      * n == 1: ``finish(model, None, x)`` is the whole step on batch x;
-      * n > 1: ``start(model)`` makes the accumulators (a tree of tensors,
-        set to zero before every step), ``body(model, acc, xb)`` adds one
-        microbatch's E-step statistics into them in place, and ``finish(model,
-        acc, x)`` runs the rest of the step (M-step, blend, writes) on the
-        whole batch x.
+      * n == 1 and no ``reduce``: ``finish(model, None, x)`` is the whole
+        step on batch x;
+      * otherwise (staged): ``start(model)`` makes the accumulators (a tree
+        of tensors, set to zero before every step), ``body(model, acc,
+        xb)`` writes one microbatch's E-step statistics into them in place
+        (once a microbatch, in order), ``reduce(model, acc)`` (if given)
+        combines them with other ranks' in place, and ``finish(model, acc,
+        x)`` runs the rest of the step (M-step, blend, writes) on the whole
+        batch x.
 
-    ``finish`` returns a tuple of tensors; ``result`` maps (copies of) them
-    to what a call of the step returns.
+    ``gather(model)`` (if given) runs after ``finish``: it completes the
+    parameters from other ranks' blocks.  ``reduce`` and ``gather`` hold
+    the collectives, so a step program runs them eagerly between its
+    captured graphs, never inside one.  ``finish`` returns a tuple of
+    tensors; ``result`` maps (copies of) them to what a call of the step
+    returns.
     """
 
     finish: Callable[[Any, Any, torch.Tensor], Tuple[torch.Tensor, ...]]
@@ -264,6 +271,14 @@ class StagedStep:
     start: Optional[Callable[[Any], Any]] = None
     body: Optional[Callable[[Any, Any, torch.Tensor], None]] = None
     result: Callable[[Tuple[torch.Tensor, ...]], Any] = tuple
+    reduce: Optional[Callable[[Any, Any], None]] = None
+    gather: Optional[Callable[[Any], None]] = None
+
+    @property
+    def staged(self) -> bool:
+        """Whether the statistics run as ``body`` stages apart from
+        ``finish``."""
+        return self.num_microbatches > 1 or self.reduce is not None
 
     def microbatch_rows(self, x: torch.Tensor) -> int:
         n, b = self.num_microbatches, x.shape[0]
@@ -273,15 +288,20 @@ class StagedStep:
         return b // n
 
     def run_eager(self, anchor, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """The step op by op: the microbatches' bodies in order, then
-        ``finish``."""
-        if self.num_microbatches == 1:
+        """The step op by op: the microbatches' bodies in order, ``reduce``,
+        ``finish``, ``gather``."""
+        if not self.staged:
             return tuple(self.finish(anchor, None, x))
         rows = self.microbatch_rows(x)
         acc = self.start(anchor)
         for xb in x.split(rows):
             self.body(anchor, acc, xb)
-        return tuple(self.finish(anchor, acc, x))
+        if self.reduce is not None:
+            self.reduce(anchor, acc)
+        out = tuple(self.finish(anchor, acc, x))
+        if self.gather is not None:
+            self.gather(anchor)
+        return out
 
 
 class EagerStepProgram:
@@ -301,14 +321,15 @@ class EagerStepProgram:
 @dataclasses.dataclass
 class StepGraphs:
     """One input shape's captured step: the static batch ``x`` (and
-    microbatch ``xb``), the accumulators, the static outputs, the replays of
-    the body graph (n > 1) and of the finish graph, the pointers of the
-    tensors the model read at capture, and the memory pool both graphs
-    were captured into (released with them)."""
+    microbatch ``xb``), the accumulators (tree and leaves), the static
+    outputs, the replays of the body graph (staged steps) and of the finish
+    graph, the pointers of the tensors the model read at capture, and the
+    memory pool both graphs were captured into (released with them)."""
 
     pool: Any
     x: torch.Tensor
     xb: Optional[torch.Tensor]
+    acc: Any
     acc_leaves: List[torch.Tensor]
     outs: List[torch.Tensor]
     body: Optional[Callable[[], None]]
@@ -325,19 +346,23 @@ class StepProgram:
       1. copies the batch into a static buffer and makes the accumulators
          and a microbatch buffer, all outside any capture (so they live
          outside the graph pool, for the program's life);
-      2. warms up: runs one microbatch body (n > 1) and ``finish`` for real
-         on a side stream, after snapshotting every parameter of the model,
-         and copies the snapshot back afterwards -- the step writes the
-         M-step into the parameters, so without this the warm-up would
-         advance the model and the first call would be two steps;
-      3. captures the body graph (n > 1), which adds into the accumulators,
-         and the finish graph, which writes the parameters and copies the
-         outputs into static buffers (a capture executes nothing).
+      2. warms up: runs one microbatch body (staged steps) and ``finish``
+         for real on a side stream, after snapshotting every parameter of
+         the model, and copies the snapshot back afterwards -- the step
+         writes the M-step into the parameters, so without this the warm-up
+         would advance the model and the first call would be two steps;
+      3. captures the body graph (staged steps), which writes into the
+         accumulators, and the finish graph, which writes the parameters and
+         copies the outputs into static buffers (a capture executes
+         nothing).
 
     A call copies the batch in, sets the accumulators to zero, replays the
     body once a microbatch (each after copying its rows into the microbatch
-    buffer, in order, so the sums are the eager loop's bit for bit),
-    replays the finish graph and hands back copies of the outputs.  As for
+    buffer, in order, so the sums are the eager loop's bit for bit), runs
+    ``reduce``, replays the finish graph, runs ``gather`` and hands back
+    copies of the outputs.  The collectives stay out of the graphs: gloo
+    cannot be captured, and NCCL inside a captured graph is a hazard
+    (a replay's collective must line up with every other rank's).  As for
     :class:`GraphProgram`, a tensor the model reads that has moved (a
     replaced parameter) makes that shape recapture; an in-place write
     (``load_params``, a restored checkpoint) does not.  Each capture
@@ -358,13 +383,13 @@ class StepProgram:
 
     def _capture(self, anchor, x: torch.Tensor) -> StepGraphs:
         fn = self._fn
-        n = fn.num_microbatches
+        staged = fn.staged
         rows = fn.microbatch_rows(x)
         device = x.device
         xs = torch.empty(x.shape, dtype=x.dtype, device=device).copy_(x)
         xb = acc = None
         acc_leaves: List[torch.Tensor] = []
-        if n > 1:
+        if staged:
             xb = torch.empty((rows,) + tuple(x.shape[1:]), dtype=x.dtype,
                              device=device)
             acc = fn.start(anchor)
@@ -376,8 +401,10 @@ class StepProgram:
                        key=repr((self.key, tuple(x.shape)))) as t:
             saved = [p.clone() for p in written]
 
+            # the warm-up runs no collective (``reduce``, ``gather``): it
+            # is local, and its writes are undone below
             def warm_up():
-                if n > 1:
+                if staged:
                     xb.copy_(xs[:rows])
                     fn.body(anchor, acc, xb)
                 return tuple(fn.finish(anchor, acc, xs))
@@ -398,7 +425,7 @@ class StepProgram:
             # keep the model alive
             ref = self._anchor
             body = None
-            if n > 1:
+            if staged:
                 body, _ = capture(lambda: fn.body(_alive(ref), acc, xb),
                                   device, pool)
 
@@ -407,7 +434,8 @@ class StepProgram:
                     o.copy_(v)
 
             finish, _ = capture(finish_run, device, pool)
-        return StepGraphs(pool=pool, x=xs, xb=xb, acc_leaves=acc_leaves,
+        return StepGraphs(pool=pool, x=xs, xb=xb, acc=acc,
+                          acc_leaves=acc_leaves,
                           outs=outs, body=body, finish=finish,
                           pointers=_pointers(anchor), capture_s=t.seconds)
 
@@ -436,16 +464,23 @@ class StepProgram:
         return self._fn.result(tuple(o.clone() for o in g.outs))
 
     def replay(self, g: StepGraphs, x: torch.Tensor) -> None:
-        """The device work of one step on ``x`` through ``g``'s graphs."""
+        """The device work of one step on ``x`` through ``g``'s graphs, with
+        the step's ``reduce`` and ``gather`` run eagerly around the finish
+        graph."""
+        fn = self._fn
         g.x.copy_(x)
         if g.body is not None:
             rows = g.xb.shape[0]
             for t in g.acc_leaves:
                 t.zero_()
-            for i in range(self._fn.num_microbatches):
+            for i in range(fn.num_microbatches):
                 g.xb.copy_(g.x[i * rows: (i + 1) * rows])
                 g.body()
+        if fn.reduce is not None:
+            fn.reduce(_alive(self._anchor), g.acc)
         g.finish()
+        if fn.gather is not None:
+            fn.gather(_alive(self._anchor))
 
     @property
     def capture_s(self) -> float:

@@ -19,14 +19,14 @@ Two training modes:
 Parameters are the ``EiNet`` module's own; the updates here return new
 parameter dicts in the reference's layout (``phi``, ``einsum``, ``mixing``,
 ``class_prior``) and change nothing.  ``load_params`` writes one into the
-module.  The reference's psum over data axes is not carried here
-(distribution is later work).
+module.  The reference's psum over data axes is the sharded step's
+``reduce`` stage (``repro_torch.train.pipeline.make_sharded_em_step``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -151,8 +151,13 @@ def em_statistics(model: EiNet, x: torch.Tensor) -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def m_step(model: EiNet, stats: Dict[str, Any], cfg: EMConfig) -> Dict[str, Any]:
-    """Exact M-step from accumulated statistics."""
+def m_step(model: EiNet, stats: Dict[str, Any], cfg: EMConfig,
+           mix_masks: Optional[List[torch.Tensor]] = None) -> Dict[str, Any]:
+    """Exact M-step from accumulated statistics.  Each block is normalised
+    along its non-leading axes only, so the M-step of a leading-axis block
+    of the statistics (a rank's model shard) is that block of the full
+    M-step; ``mix_masks`` then gives the same block of each pair's mixing
+    mask (default: the model's whole masks)."""
     alpha = cfg.laplace_alpha
     einsum_w = [normalize_einsum_weights(n + alpha, floor=cfg.stat_floor)
                 for n in stats["n_einsum"]]
@@ -161,7 +166,8 @@ def m_step(model: EiNet, stats: Dict[str, Any], cfg: EMConfig) -> Dict[str, Any]
         if spec.mix_global is None:
             mixing_v.append(n)
         else:
-            mask = model._table(i, "mix_mask")
+            mask = (model._table(i, "mix_mask") if mix_masks is None
+                    else mix_masks[i])
             mixing_v.append(normalize_mixing_weights(
                 n + alpha * mask[:, :, None], mask, floor=cfg.stat_floor))
     den = torch.clamp(stats["s_den"], min=cfg.stat_floor)
@@ -221,16 +227,18 @@ def accumulate_statistics(acc: Dict[str, Any],
     return out
 
 
-def zeros_like_statistics(model: EiNet) -> Dict[str, Any]:
-    dev = model.device
+def zeros_like_statistics(model: EiNet, device=None) -> Dict[str, Any]:
+    """Zero statistics of ``model`` on ``device`` (default the model's; the
+    "meta" device gives their shapes alone)."""
+    dev = model.device if device is None else device
     d, k, r = model.phi.shape[:3]
     tdim = model.ef.num_stats
     return {
-        "n_einsum": [torch.zeros_like(w) for w in model.einsum],
-        "n_mixing": [torch.zeros_like(v) for v in model.mixing],
+        "n_einsum": [torch.zeros(w.shape, device=dev) for w in model.einsum],
+        "n_mixing": [torch.zeros(v.shape, device=dev) for v in model.mixing],
         "s_phi": torch.zeros((d, k, r, tdim), device=dev),
         "s_den": torch.zeros((d, k, r), device=dev),
-        "n_class": torch.zeros_like(model.class_prior),
+        "n_class": torch.zeros(model.class_prior.shape, device=dev),
         "ll": torch.zeros((), device=dev),
         "count": torch.zeros((), device=dev),
     }

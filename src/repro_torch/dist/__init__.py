@@ -1,7 +1,11 @@
-"""Distribution subsystem of the port: so far the fault-tolerant training
-loop (``fault_tolerance``).  Sharding and elasticity over several cards
-are later work."""
+"""Distribution subsystem of the port.
 
-from repro_torch.dist import fault_tolerance
+  sharding         logical-axis rules -> placements on a DeviceMesh, and
+                   the statistics reduction of the sharded EM step
+  fault_tolerance  checkpoint-restart training loop + straggler detection
+  elastic          re-place state on a grown or shrunk mesh
+"""
 
-__all__ = ["fault_tolerance"]
+from repro_torch.dist import elastic, fault_tolerance, sharding
+
+__all__ = ["elastic", "fault_tolerance", "sharding"]

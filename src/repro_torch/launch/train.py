@@ -1,8 +1,8 @@
 """Training CLI: the reference's production training launcher
-(``repro.launch.train``) on one device -- EM steps on a registered
-architecture, one EiNet or a mixture of them (§4.2), inside the
-fault-tolerant loop with checkpoints and, with health on, the divergence
-flight recorder.
+(``repro.launch.train``) -- EM steps on a registered architecture, one
+EiNet or a mixture of them (§4.2), inside the fault-tolerant loop with
+checkpoints and, with health on, the divergence flight recorder; one
+EiNet also over several processes (``--dist-em``, ``--model-parallel``).
 
 The data is the reference's (``repro.launch.train`` ``einet_train_data``):
 ``--dataset synthetic`` (the default) cycles through white noise
@@ -41,12 +41,25 @@ the flight recorder, which dumps an incident bundle under
 continues (``--on-divergence``).  ``--trace`` and ``--metrics`` export the
 obs spans and metrics at exit.
 
+Under torchrun (several processes) or with ``--dist-em`` the step is the
+sharded one (``make_sharded_em_step``) on a (data, ``--model-parallel``)
+mesh (``launch/mesh.py``): each rank reads its disjoint rows of every
+global batch of ``--batch`` rows, the E-step statistics are all-reduced
+over the data dim, and at ``--model-parallel`` 2 or more each rank runs the
+M-step on its model shard.  Health is off there, and ``--mixture`` is
+refused, as in the reference.  Each rank writes its own checkpoint shard
+(``shard_<rank>.npz``).  A CUDA job joins with NCCL, a CPU one with gloo:
+
+  torchrun --nproc_per_node 2 -m repro_torch.launch.train --smoke \
+      --dist-em --device cpu --ckpt-dir /tmp/ck_dist
+
 Runs on CUDA unless ``--device cpu``.  Prints the execution plan, the
 float32 settings, the k-means cluster counts (hard mixtures), the median
 ms/step, the first and last mean LL, the kernel launches of the last step
 (a graph replay launches through no wrapper, so 0 on the card after the
 first step), then the reference's closing lines: ms/step with the
-restarts, and the objective first -> last.
+restarts (and ``dp_shards``, the data-parallel ranks), and the objective
+first -> last.
 """
 
 from __future__ import annotations
@@ -68,6 +81,12 @@ from repro_torch.data import datasets as ds_lib
 from repro_torch.data import gaussian_mixture_images
 from repro_torch.kernels import ops
 from repro_torch.launch.cells import build_einet, build_mixture
+from repro_torch.launch.mesh import (
+    dp_index,
+    dp_shards,
+    init_distributed,
+    make_mesh_for,
+)
 from repro_torch.dist import fault_tolerance as ft
 from repro_torch.mixture import (
     MixtureTrainConfig,
@@ -76,7 +95,7 @@ from repro_torch.mixture import (
 )
 from repro_torch.mixture.train import load_mixture_params, mixture_params_of
 from repro_torch.obs import health as health_lib
-from repro_torch.train import TrainConfig, make_em_step
+from repro_torch.train import TrainConfig, make_em_step, make_sharded_em_step
 from repro_torch.train.pipeline import resolve_step_health
 
 NUM_ROWS = 4096  # the reference's synthetic training sets
@@ -165,7 +184,7 @@ def _float32() -> tuple:
 
 def _loop(step, batches, steps: int, device: torch.device, params_of_model,
           load, ckpt_dir: str, checkpoint_every: int,
-          watcher=None, spec=None) -> dict:
+          watcher=None, spec=None, mgr=None) -> dict:
     """``steps`` calls of ``step`` on ``batches(i)`` inside
     ``ft.run_training``: each call timed to the end of its work on the
     device, its launches counted, a checkpoint committed every
@@ -173,8 +192,9 @@ def _loop(step, batches, steps: int, device: torch.device, params_of_model,
     gives the model's parameters (views), ``load(params)`` writes a
     parameter tree into the model in place.  With a health ``watcher``
     the step returns (LL, health vector) and each vector is published and
-    watched.  Returns the report."""
-    mgr = CheckpointManager(ckpt_dir)
+    watched.  ``mgr`` defaults to a ``CheckpointManager`` of ``ckpt_dir``
+    for this process.  Returns the report."""
+    mgr = mgr or CheckpointManager(ckpt_dir)
     times, launches, lls = [], [], []
     first = {}
 
@@ -226,32 +246,73 @@ def train_einet(arch: str, steps: int, batch=None, microbatches: int = 1,
                 data_dir: str = ds_lib.DEFAULT_DATA_DIR,
                 ckpt_dir: str = DEFAULT_CKPT_DIR, checkpoint_every: int = 25,
                 health=None, on_divergence: str = "abort",
-                cfg: EinetConfig = None) -> dict:
+                cfg: EinetConfig = None, dist_em: bool = False,
+                model_parallel: int = 1) -> dict:
     """Build ``arch`` (or ``cfg``) from ``seed`` and run ``steps`` EM steps
     on the ``dataset`` rows in the fault-tolerant loop; ``health`` None
-    defers to the model's knob (``REPRO_HEALTH``).  Returns the report."""
-    device = resolve_device(device)
-    tf32 = _float32()
-    cfg = cfg or get_config(arch)
-    batch = batch or cfg.batch_size
-    model = build_einet(cfg, device=device, seed=seed, grouped=grouped)
-    data = torch.from_numpy(
-        train_data(cfg, model.num_vars, dataset, data_dir)).to(device)
-    tcfg = TrainConfig(em=EMConfig(), mode=mode,
-                       num_microbatches=microbatches, health=health)
-    health_on = resolve_step_health(model, tcfg)
-    watcher = (health_lib.HealthWatcher(model, health_lib.HealthPolicy(
-        on_incident=on_divergence)) if health_on else None)
-    step = make_em_step(model, tcfg)
-    run = _loop(step, lambda i: batch_at(data, i, batch), steps, device,
-                lambda: params_of(model), lambda p: load_params(model, p),
-                os.path.join(ckpt_dir, cfg.name.replace("/", "_")),
-                checkpoint_every, watcher, model.health_spec)
-    return {"arch": cfg.name, "device": str(device), "batch": batch,
-            "microbatches": microbatches, "mode": mode,
-            "plan": model.grouping_summary()["segments"], "tf32": tf32,
-            "health": health_on, "program": step.kind,
-            "incidents": watcher.incidents if watcher else [], **run}
+    defers to the model's knob (``REPRO_HEALTH``).  Returns the report.
+
+    Under several processes (torchrun's environment, or a process group
+    the caller made) or with ``dist_em``, the step is the sharded one
+    (``make_sharded_em_step``) on a (data, ``model_parallel``) mesh: each
+    rank reads its disjoint rows of each global batch of ``batch`` rows
+    (``array_loader`` shard ``dp_index`` of ``dp_shards``) and health is
+    off, as in the reference.  A rank left out of the mesh trains nothing
+    and reports ``"idle": True``."""
+    owns_group = not torch.distributed.is_initialized()
+    rank, world, device = init_distributed(device)
+    try:
+        dist = dist_em or world > 1
+        tf32 = _float32()
+        cfg = cfg or get_config(arch)
+        batch = batch or cfg.batch_size
+        mesh = make_mesh_for(world, model_parallel, device_type=device.type)
+        report = {"arch": cfg.name, "device": str(device), "batch": batch,
+                  "microbatches": microbatches, "mode": mode, "tf32": tf32,
+                  "dist": dist, "rank": rank, "world": world,
+                  "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                  "dp_shards": dp_shards(mesh)}
+        if mesh.get_coordinate() is None:
+            return {**report, "idle": True}
+        model = build_einet(cfg, device=device, seed=seed, grouped=grouped)
+        rows = train_data(cfg, model.num_vars, dataset, data_dir)
+        tcfg = TrainConfig(em=EMConfig(), mode=mode,
+                           num_microbatches=microbatches,
+                           health=False if dist else health)
+        health_on = resolve_step_health(model, tcfg)
+        watcher = (health_lib.HealthWatcher(model, health_lib.HealthPolicy(
+            on_incident=on_divergence)) if health_on else None)
+        ckpt = os.path.join(ckpt_dir, cfg.name.replace("/", "_"))
+        if dist:
+            step = make_sharded_em_step(model, tcfg, mesh)
+            loader = ds_lib.array_loader(rows, batch,
+                                         num_shards=dp_shards(mesh),
+                                         shard_id=dp_index(mesh))
+
+            def batches(i):
+                return torch.from_numpy(loader.batch_at(i)["x"]).to(device)
+
+            # the mesh's ranks write the checkpoints (a rank left out of
+            # the mesh writes none)
+            mgr = CheckpointManager(ckpt, rank=mesh.get_rank(),
+                                    world=mesh.size())
+        else:
+            step = make_em_step(model, tcfg)
+            data = torch.from_numpy(rows).to(device)
+            mgr = None
+
+            def batches(i):
+                return batch_at(data, i, batch)
+
+        run = _loop(step, batches, steps, device, lambda: params_of(model),
+                    lambda p: load_params(model, p), ckpt, checkpoint_every,
+                    watcher, model.health_spec, mgr)
+        return {**report, "plan": model.grouping_summary()["segments"],
+                "health": health_on, "program": step.kind, "idle": False,
+                "incidents": watcher.incidents if watcher else [], **run}
+    finally:
+        if owns_group and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 def train_mixture(arch: str, num_components: int, steps: int, batch=None,
@@ -296,7 +357,9 @@ def train_mixture(arch: str, num_components: int, steps: int, batch=None,
             "program": step.kind, "incidents": [], **run}
 
 
-def main():
+def main(argv=None) -> dict:
+    """The CLI on ``argv`` (default ``sys.argv[1:]``); returns the run's
+    report."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
                     help="registered EiNet config (required unless --smoke)")
@@ -347,13 +410,26 @@ def main():
                     help="write the metrics snapshot JSON (train.health.* "
                          "gauges included) to this path at exit")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    args = ap.parse_args()
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks on the mesh's model dim (data = world // "
+                         "this); at 2 or more the sharded step runs the "
+                         "M-step on each rank's model shard")
+    ap.add_argument("--dist-em", action="store_true",
+                    help="the sharded EM step: statistics all-reduced over "
+                         "the mesh's data dim (implied by several "
+                         "processes; health off)")
+    args = ap.parse_args(argv)
     if args.arch is None and not args.smoke:
         ap.error("--arch is required (or pass --smoke)")
     if args.steps is None:
         args.steps = 8 if args.smoke else 20
     if args.health and args.mixture >= 2:
         ap.error("--health needs a single EiNet (no --mixture)")
+    multi = (torch.distributed.is_initialized()
+             or int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    if args.mixture >= 2 and (args.dist_em or multi):
+        raise SystemExit("--mixture does not compose with --dist-em / "
+                         "multi-process yet; run single-process")
     obs.cli_begin(args.trace)
     if args.mixture >= 2:
         r = train_mixture(args.arch, args.mixture, args.steps, args.batch,
@@ -370,7 +446,14 @@ def main():
                         checkpoint_every=args.checkpoint_every,
                         health=True if (args.smoke or args.health) else None,
                         on_divergence=args.on_divergence,
-                        cfg=SMOKE_CONFIG if args.smoke else None)
+                        cfg=SMOKE_CONFIG if args.smoke else None,
+                        dist_em=args.dist_em,
+                        model_parallel=args.model_parallel)
+        if r["idle"]:
+            print(f"rank {r['rank']} of {r['world']} is not in the mesh "
+                  f"{r['mesh']}: idle")
+            obs.cli_end(args.trace, args.metrics)
+            return r
     where = r["device"]
     if where.startswith("cuda"):
         where += f" ({torch.cuda.get_device_name(torch.device(where))})"
@@ -381,6 +464,9 @@ def main():
     print(f"{r['arch']} on {where}: plan {r['plan']}, {what} in "
           f"{r['microbatches']} microbatch(es); {r['program']} step program"
           f", health {'on' if r['health'] else 'off'}")
+    if r.get("dist"):
+        print(f"[dist] rank {r['rank']} of {r['world']}, mesh {r['mesh']}, "
+              f"sharded EM step; {r['batch'] // r['dp_shards']} rows a rank")
     print(f"float32: matmul allow_tf32={r['tf32'][0]}, "
           f"cudnn allow_tf32={r['tf32'][1]}")
     if r.get("kmeans") is not None:
@@ -398,11 +484,13 @@ def main():
                           in r["launches_per_step"].items()))
     ran = max(args.steps - r["resumed_at"], 0)
     print(f"{r['arch']}: {ran} steps, {r['run_s'] / max(ran, 1) * 1e3:.0f} "
-          f"ms/step, restarts={r['restarts']}")
+          f"ms/step, dp_shards={r.get('dp_shards', 1)}, "
+          f"restarts={r['restarts']}")
     if lls:
         print(f"objective: first {np.mean(lls[:5]):.3f} -> last "
               f"{np.mean(lls[-5:]):.3f}")
     obs.cli_end(args.trace, args.metrics)
+    return r
 
 
 if __name__ == "__main__":

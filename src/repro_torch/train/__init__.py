@@ -5,6 +5,7 @@ from repro_torch.train.pipeline import (
     em_update_microbatched,
     fit,
     make_em_step,
+    make_sharded_em_step,
     microbatched_em_statistics,
     stochastic_em_update_microbatched,
 )
@@ -14,6 +15,7 @@ __all__ = [
     "em_update_microbatched",
     "fit",
     "make_em_step",
+    "make_sharded_em_step",
     "microbatched_em_statistics",
     "stochastic_em_update_microbatched",
 ]

@@ -13,6 +13,10 @@ step writes the new parameters into the module in place (``copy_``),
 which is what donation bought the reference, so the graphs and any
 serving programs of the model stay valid.
 
+:func:`make_sharded_em_step` is the multi-rank form: the same stages with
+the statistics all-reduced over the mesh's data dims between the E-step
+graph and the M-step graph, never inside a graph.
+
 The op-by-op updates (:func:`stochastic_em_update_microbatched`,
 :func:`em_update_microbatched`, with ``em.load_params``) stay: they are
 the oracle the step programs are held against.
@@ -27,7 +31,7 @@ first microbatch otherwise, as in the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -45,6 +49,7 @@ from repro_torch.core.em import (
     params_of,
     zeros_like_statistics,
 )
+from repro_torch.dist import sharding as shlib
 from repro_torch.obs import health as health_lib
 
 
@@ -67,6 +72,9 @@ class TrainConfig:
     step output.  None defers to the model's ``health`` knob (which itself
     defers to ``REPRO_HEALTH``); the resolved flag is part of the step's
     registry key, so toggling it selects another cached program."""
+    axis_names: Optional[Sequence[str]] = None
+    """Mesh dims the sharded step sums the statistics over
+    (:func:`make_sharded_em_step`); None: every data dim of the mesh."""
 
 
 def split_microbatches(x: torch.Tensor, num_microbatches: int):
@@ -163,7 +171,8 @@ def em_stages(cfg: TrainConfig, health: bool) -> compile_lib.StagedStep:
 def _step_key(cfg: TrainConfig, tag: str, health: bool) -> tuple:
     """Registry key of one training step: the step kind and every config
     field that changes the program."""
-    return (tag, cfg.mode, cfg.num_microbatches, cfg.em, health)
+    return (tag, cfg.mode, cfg.num_microbatches,
+            tuple(cfg.axis_names) if cfg.axis_names else None, cfg.em, health)
 
 
 def resolve_step_health(model: EiNet, cfg: TrainConfig) -> bool:
@@ -185,10 +194,145 @@ def make_em_step(model: EiNet, cfg: TrainConfig = TrainConfig(),
     shape); on a CPU model it runs op by op."""
     if cfg.mode not in ("stochastic", "full"):
         raise ValueError(f"unknown mode {cfg.mode!r}; 'stochastic' or 'full'")
+    if cfg.axis_names:
+        raise ValueError("axis_names names mesh dims to sum the statistics "
+                         "over; use make_sharded_em_step")
     health = resolve_step_health(model, cfg)
     reg = registry if registry is not None else compile_lib.REGISTRY
     return reg.jit(model, _step_key(cfg, "em_step", health),
                    em_stages(cfg, health))
+
+
+def sharded_em_stages(model: EiNet, cfg: TrainConfig,
+                      mesh) -> compile_lib.StagedStep:
+    """The sharded step of ``cfg`` on ``mesh`` as the stages its program
+    captures and runs.
+
+    * ``body`` (a graph): one microbatch's E-step statistics, written (one
+      microbatch) or added into the ``stats`` accumulators.
+    * ``reduce`` (eager, the collective): ``reduce_like_params`` of the
+      totals -- one ``all_reduce`` a data dim of this rank's block of every
+      leaf -- copied into the ``shard`` accumulators.
+    * ``finish`` (a graph): the M-step and blend of this rank's blocks,
+      written into its blocks of the module's parameters.
+    * ``gather`` (eager, the collective; only where a parameter is
+      sharded): the other ranks' blocks, ``all_gather``-ed over the model
+      dim into the parameters.
+
+    At a (data, 1) mesh every block is the whole leaf, and the stages
+    compute what ``em_stages`` does, op for op, around the sum."""
+    n = cfg.num_microbatches
+    axes = shlib.data_dims(mesh, cfg.axis_names)
+    shapes = zeros_like_statistics(model, "meta")
+    stat_sh = shlib.tree_shardings(mesh, shapes)
+    stat_placed = tree_lib.leaves_like(shapes, stat_sh)
+    param_sh = shlib.tree_shardings(mesh, params_of(model))
+    param_placed = tree_lib.leaves_like(params_of(model), param_sh)
+    mix_placed = param_sh["mixing"]
+
+    def blocks(tree, placed):
+        _, leaves = tree_lib.flatten(tree)
+        out = [shlib.local_shard(x, p, mesh) for x, p in zip(leaves, placed)]
+        return tree_lib.unflatten_like(tree, out, lambda _, new: new)
+
+    def start(model):
+        stats = zeros_like_statistics(model)
+        _, leaves = tree_lib.flatten(stats)
+        shard = [torch.zeros(shlib.local_shard(x, p, mesh).shape,
+                             device=x.device)
+                 for x, p in zip(leaves, stat_placed)]
+        return {"stats": stats, "shard": tree_lib.unflatten_like(
+            stats, shard, lambda _, new: new)}
+
+    def body(model, acc, xb):
+        stats = em_statistics(model, xb)
+        with torch.no_grad():
+            for a, b in zip(tree_lib.flatten(acc["stats"])[1],
+                            tree_lib.flatten(stats)[1]):
+                if n == 1:
+                    a.copy_(b)
+                else:
+                    a.add_(b)
+
+    def reduce(model, acc):
+        red = shlib.reduce_like_params(acc["stats"], mesh, stat_sh, axes)
+        with torch.no_grad():
+            for a, b in zip(tree_lib.flatten(acc["shard"])[1],
+                            tree_lib.flatten(red)[1]):
+                a.copy_(b)
+
+    def finish(model, acc, x):
+        stats = acc["shard"]
+        masks = [shlib.local_shard(model._table(i, "mix_mask"), p, mesh)
+                 if spec.mix_global is not None else None
+                 for i, (spec, p) in enumerate(zip(model.pair_specs,
+                                                   mix_placed))]
+        mini = m_step(model, stats, cfg.em, masks)
+        own = blocks(params_of(model), param_placed)
+        new = (mini if cfg.mode == "full" else
+               blend_params(model, own, mini, cfg.em.step_size))
+        with torch.no_grad():
+            for p, v in zip(tree_lib.flatten(own)[1],
+                            tree_lib.flatten(new)[1]):
+                p.copy_(v)
+        return (stats["ll"] / stats["count"],)
+
+    def gather(model):
+        with torch.no_grad():
+            for p, pl in zip(tree_lib.flatten(params_of(model))[1],
+                             param_placed):
+                if shlib.is_sharded(pl):
+                    p.copy_(shlib.gather_full(shlib.local_shard(p, pl, mesh),
+                                              pl, mesh))
+
+    sharded = any(shlib.is_sharded(p) for p in param_placed)
+    return compile_lib.StagedStep(
+        finish=finish, num_microbatches=n, start=start, body=body,
+        result=lambda outs: float(outs[0]), reduce=reduce,
+        gather=gather if sharded else None)
+
+
+def mesh_key(mesh) -> tuple:
+    """A mesh as a registry key: its dim names, shape and ranks."""
+    return (tuple(mesh.mesh_dim_names), tuple(mesh.shape),
+            tuple(mesh.mesh.flatten().tolist()))
+
+
+def make_sharded_em_step(model: EiNet, cfg: TrainConfig, mesh,
+                         registry: Optional[compile_lib.ProgramRegistry] = None):
+    """The multi-rank form of :func:`make_em_step`: ``step(x) -> mean LL``
+    over the rows of every data-parallel rank, where ``x`` is this rank's
+    rows.
+
+    Each rank computes its microbatched E-step totals; then ONE sum over
+    the data dims (``cfg.axis_names``, default every data dim of ``mesh``)
+    runs on the totals, not once a microbatch, as in the reference
+    (``repro.train.pipeline.make_sharded_em_step``, a ``psum`` inside
+    ``shard_map``).  Each rank sums only its block of every leaf under the
+    parameter placements (``repro_torch.dist.sharding``): at a model dim
+    above 1 it runs the M-step and blend on its model shard and the new
+    parameters are all-gathered into the module; at 1 every rank runs the
+    whole M-step on identical totals, so the parameters stay replicated by
+    construction.  On a CUDA model the statistics and the finish are
+    captured graphs, with the collectives run eagerly between them
+    (``repro_torch.compile.StepProgram``).
+
+    Health telemetry is not supported on this path, as in the reference:
+    ``cfg.health`` True raises, and the model's knob is not read."""
+    if cfg.mode not in ("stochastic", "full"):
+        raise ValueError(f"unknown mode {cfg.mode!r}; 'stochastic' or 'full'")
+    if cfg.health:
+        raise ValueError("health telemetry is not supported on the sharded "
+                         "EM step; run it with health off")
+    if not shlib.data_dims(mesh, cfg.axis_names):
+        raise ValueError(
+            f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} has no data "
+            "dim to shard the EM batch over; use make_em_step")
+    if mesh.get_coordinate() is None:
+        raise ValueError("this rank is not in the mesh")
+    reg = registry if registry is not None else compile_lib.REGISTRY
+    return reg.jit(model, _step_key(cfg, "sharded_em_step", False)
+                   + (mesh_key(mesh),), sharded_em_stages(model, cfg, mesh))
 
 
 def fit(model: EiNet, batches: Iterable[Any], cfg: TrainConfig = TrainConfig(),

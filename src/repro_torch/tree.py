@@ -61,6 +61,26 @@ def unflatten_like(template: Any, leaves: List[Any],
     return build(template)
 
 
+def leaves_like(template: Any, tree: Any) -> List[Any]:
+    """The subtrees of ``tree`` at the places of ``template``'s leaves, in
+    flatten order: ``tree`` has ``template``'s structure down to those
+    places, and anything (a tuple, a dict) below them."""
+    out: List[Any] = []
+
+    def walk(node, other) -> None:
+        if node is None:
+            return
+        if _is_node(node):
+            for (key, child), (_, sub) in zip(_children(node),
+                                              _children(other)):
+                walk(child, sub)
+            return
+        out.append(other)
+
+    walk(template, tree)
+    return out
+
+
 def structure(tree: Any) -> str:
     """The tree's shape with ``*`` for each leaf, in the format of the
     reference's ``str(treedef)``, e.g. ``PyTreeDef({'a': [*, *], 'b': *})``."""

@@ -269,6 +269,55 @@ def _x(b, seed=0):
         np.random.RandomState(seed).randn(b, D).astype(np.float32))
 
 
+@pytest.mark.parametrize("microbatches", [1, 3])
+def test_step_runs_reduce_and_gather_eagerly_between_graphs(microbatches):
+    """A staged step with ``reduce`` and ``gather``: the body is captured
+    even at one microbatch, and a call replays the body once a microbatch,
+    then runs ``reduce`` (not captured), replays ``finish``, runs
+    ``gather`` -- in that order, the same order as the eager program."""
+    events, captured = [], []
+
+    def capture(run, device, pool):
+        captured.append(run)
+        return (lambda: (events.append("replay"), run())), None
+
+    def start(model):
+        return {"s": torch.zeros(())}
+
+    def body(model, acc, xb):
+        events.append("body")
+        acc["s"].add_(xb.sum())
+
+    def reduce(model, acc):
+        events.append("reduce")
+
+    def finish(model, acc, x):
+        events.append("finish")
+        return (acc["s"].clone(),)
+
+    def gather(model):
+        events.append("gather")
+
+    step = compile_lib.StagedStep(
+        finish=finish, num_microbatches=microbatches, start=start, body=body,
+        result=lambda outs: float(outs[0]), reduce=reduce, gather=gather)
+    assert step.staged
+    net = _net()
+    reg = compile_lib.ProgramRegistry(capture_fn=capture)
+    prog = reg.jit(net, ("staged", microbatches), step)
+    x = _x(6)
+    events.clear()
+    out = prog(x)
+    assert len(captured) == 2  # body and finish, even at one microbatch
+    call = events[events.index("reduce") - 2 * microbatches:]
+    assert call == ["replay", "body"] * microbatches + [
+        "reduce", "replay", "finish", "gather"]
+    eager = compile_lib.ProgramRegistry().jit(net, ("staged",), step)
+    events.clear()
+    assert eager(x) == out == pytest.approx(float(x.sum()))
+    assert events == ["body"] * microbatches + ["reduce", "finish", "gather"]
+
+
 def test_step_programs_get_distinct_pools(pool_seam):
     reg, seam, _ = pool_seam
     net = _net()

@@ -191,7 +191,10 @@ def test_port_imports_neither_jax_nor_reference():
              if "src" in p.parts}
     assert {"repro_torch/compile.py", "repro_torch/core/philox.py",
             "repro_torch/obs/events.py",
-            "repro_torch/serve/benchmark.py"} <= names
+            "repro_torch/serve/benchmark.py",
+            "repro_torch/dist/sharding.py", "repro_torch/dist/elastic.py",
+            "repro_torch/launch/mesh.py", "repro_torch/optim/adamw.py",
+            "repro_torch/optim/compression.py"} <= names
 
 
 def test_port_imports_with_jax_blocked():
