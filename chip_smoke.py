@@ -117,7 +117,8 @@
    every (tables, B) the two runs launched them at (counted by wrapping
    the ops' kernels): the training batches (B = 128, and 64 a component),
    every engine bucket (1 to 32) and the direct calls.
-12. Graph-serving phase: serve.run_benchmark (256 requests, max_batch 64,
+12. Graph-serving phase: the serve bench's bench.serve.bench_model
+   (serve.run_benchmark with the bench's gates; 256 requests, max_batch 64,
    reps 3, a fresh program registry) on einet_rat, einet_pd and einet_celeba
    x 8 (all six kinds, and the ten mixture kinds), each batch and each
    direct request a replay of a captured CUDA graph, the eager one-request
@@ -204,8 +205,31 @@
    parameters bit for bit equal; the (1, 2) parameters resharded onto
    (2, 1) and back bit for bit; compressed_psum within 5% of the exact
    sum and bit for bit the CPU's.  NCCL across cards is not exercised.
-16. Prints the launch counts of every main path (each kernel must have run
-   on them; the paper phase's EiNet side and the sharded steps among them) and the shapes (B, L, K_out, K) K1 and K2 were launched at
+16. Production-bench phase (bench_phase): the four production benches of
+   repro_torch.bench at their full profiles (the reference's cells), with
+   tracing on, into chiprun_out/bench, serve and train at their card
+   profiles (``--card``: the sizes slo_torch.json's budgets hold): serve
+   at einet_rat and einet_pd (256 requests, max_batch 64; parity within
+   1e-5, the grouped plan) in a CompileSentry (engine captures at most
+   kinds x buckets, one direct program a kind, no key captured twice);
+   train (einet_rat B=2048 in 4 microbatches, einet_rat_large B=256 in 2,
+   einet_pd B=512 in 2: the step program against the eager per-step path,
+   K2 against autograd through the plain forward within 1e-4, each cell's
+   segment breakdown) in a CompileSentry wrapping each step program (one
+   signature and one capture event over all its calls, no recapture, no
+   finding, the plan grouped); mixture and eval at the reference's cells
+   (a launch-bound 32-variable component; a 16x16x3 PD net): mixture (C = 4, 16, 32: one
+   make_mixture_em_step graph against a loop of C make_em_step programs,
+   parameters within 1e-6), its graph pools at C = 32 one a program, all
+   distinct, released after the cell; eval (512 rows of a 16x16x3 PD net,
+   engine against eager dense chunks, 0 parity mismatches).  Then the
+   phase's trace and metrics validated by repro_torch.obs.check, slo
+   --check against slo_torch.json, and dryrun --verify over every
+   registered arch (health probes on the card); K5 and K6 held against
+   their plain versions at every (tables, B) the benches launched them at.
+17. Prints the launch counts of every main path (each kernel must have run
+   on them; the paper phase's EiNet side, the sharded steps and the
+   production benches among them) and the shapes (B, L, K_out, K) K1 and K2 were launched at
    there (counted by wrapping the ops' kernels, whose launch counters stay
    as they are); times K1 and K2 at each of those shapes (and K1 at
    einet_pd's pairs at B = 64) on fresh inputs with their geometry, K2's
@@ -241,6 +265,12 @@ tree).
   python3 chip_smoke.py --dist
 
 builds the kernels and runs only the distributed phase (15).
+
+  python3 chip_smoke.py --bench
+
+builds the kernels and runs the production-bench phase (16) three times
+(chiprun_out/bench/run0-2), then slo --check on each run: the calibration
+of slo_torch.json.
 """
 
 from __future__ import annotations
@@ -975,7 +1005,8 @@ ROW_NOISE_SEEDS = (0, 1, 2 ** 31, 2 ** 63 - 1)
 def graph_phase(card: str, dev, models: dict) -> dict:
     """Serving through captured CUDA graphs at full width.  ``models`` maps
     a name to (model, requests, in-place EM step, its batch).  For each:
-    ``serve.run_benchmark`` (256 requests, max_batch 64, a fresh registry;
+    ``bench.serve.bench_model`` (the serve bench's ``serve.run_benchmark``
+    with its grouped gate; 256 requests, max_batch 64, a fresh registry;
     the launch counters set to 0 just before and read just after; they
     count the wrappers' calls, so the warm-up runs and captures, and no
     replay), its parity against the direct and the eager paths, then the
@@ -994,9 +1025,10 @@ def graph_phase(card: str, dev, models: dict) -> dict:
     from torch import nn
 
     from repro_torch import compile as compile_lib
+    from repro_torch.bench import serve as serve_bench
     from repro_torch.core.einet import EiNet
     from repro_torch.kernels import ops
-    from repro_torch.serve import ServeEngine, format_report, run_benchmark
+    from repro_torch.serve import ServeEngine, format_report
     from repro_torch.serve.engine import assemble_batch, run_query
 
     # (e) counter-based noise: the same bits on the card and the CPU
@@ -1026,9 +1058,11 @@ def graph_phase(card: str, dev, models: dict) -> dict:
         torch.cuda.synchronize()
         reset(ops)
         t0 = time.perf_counter()
-        rep = run_benchmark(model, reqs, max_batch=GRAPH_MAX_BATCH, reps=3,
-                            registry=reg)
+        rep = serve_bench.bench_model(model, reqs, name, GRAPH_MAX_BATCH,
+                                      reps=3, registry=reg, profile="card")
         bench_s = time.perf_counter() - t0
+        if not rep["grouped_ok"]:
+            raise AssertionError(f"{name}: the plan is not grouped")
         counts, shapes = counts_of(ops), collections.Counter(SHAPES)
         gather_shapes = collections.Counter(GATHER_SHAPES)
         print(f"graph serve {name}:\n" + format_report(rep) + f" [{card}]")
@@ -2556,6 +2590,301 @@ def dist_phase(card: str, dev, compare_stats) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+# the production-bench phase: the four benches' full profiles and their
+# gates, into chiprun_out/bench (serve's second arch into einet_pd/)
+BENCH_DIR = os.path.join(ROOT, "chiprun_out", "bench")
+BENCH_SERVE_ARCHS = ("einet_rat", "einet_pd")
+# a calibration call (--bench) runs the phase this many times
+BENCH_RUNS = 3
+
+
+def bench_phase(card: str, dev, out_dir: str = BENCH_DIR,
+                slo_check: bool = True) -> dict:
+    """The production benches (``repro_torch.bench.{serve,train,mixture,
+    eval}``) at full size, with tracing on, writing their BENCH files
+    under ``out_dir`` (history rows under ``artifacts/bench_history_torch``):
+
+      * serve's card profile at einet_rat (``out_dir``) and einet_pd
+        (``out_dir/einet_pd``) inside a ``CompileSentry``: the engine's
+        captures at most kinds x buckets, one direct program a kind, and
+        no key captured twice;
+      * train's card profile inside a ``CompileSentry`` wrapping each
+        cell's step program: one capture event a program over all its
+        calls, no recapture, no finding, the plan grouped;
+      * mixture, its pools inspected at C=32 (one pool a step program, the
+        mixture's and each of the C loop models', all distinct), and all
+        released once the cell's models are gone;
+      * eval;
+
+    then the trace of the phase and the metrics snapshot validated by
+    ``obs.check``, ``slo --check`` against ``slo_torch.json`` on both
+    directories (unless ``slo_check`` is False: a calibration call checks
+    after all its runs), and ``dryrun --verify`` over every registered arch
+    (health probes on the card).  The launch counters are set to 0 just
+    before the benches and read just after.  Returns the reports, counts,
+    K1/K2 shapes, K5/K6 (tables, B) and seconds."""
+    import gc
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.analysis import CompileSentry
+    from repro_torch.bench import eval as eval_bench
+    from repro_torch.bench import mixture as mixture_bench
+    from repro_torch.bench import serve as serve_bench
+    from repro_torch.bench import train as train_bench
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.obs import check as check_lib
+    from repro_torch.obs import slo as slo_lib
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    out = {"reports": {}, "seconds": {}}
+    # the phase's own trace and metrics: the earlier phases' (the flight
+    # recorder's NaN health gauges among them) are not this phase's export
+    obs.reset()
+    obs.METRICS.reset()
+    obs.configure(trace=True)
+    torch.cuda.synchronize()
+    reset(ops)
+    try:
+        # ---- serve, at both archs
+        for arch in BENCH_SERVE_ARCHS:
+            d = out_dir if arch == BENCH_SERVE_ARCHS[0] else \
+                os.path.join(out_dir, arch)
+            t0 = time.perf_counter()
+            with CompileSentry() as sentry:
+                rep = serve_bench.main(
+                    arch=arch, out=os.path.join(d, "BENCH_torch_serve.json"),
+                    device=dev, card=True)
+            out["seconds"][f"serve {arch}"] = time.perf_counter() - t0
+            if not rep:
+                raise AssertionError(f"bench serve {arch}: a gate failed")
+            keys = [e["key"] for e in sentry.compile_events]
+            direct = [k for k in keys if k.startswith("('direct'")]
+            engine = len(keys) - len(direct)
+            bound = len(rep["kinds"]) * len(rep["buckets"])
+            if (engine > bound or len(direct) != len(rep["kinds"])
+                    or len(set(keys)) != len(keys)
+                    or rep["program_cache"]["registry_compiles"] != engine):
+                raise AssertionError(
+                    f"bench serve {arch}: {engine} engine captures (bound "
+                    f"kinds x buckets = {bound}), {len(direct)} direct, "
+                    f"the engine's registry {rep['program_cache']}, keys "
+                    f"{keys}")
+            out["reports"][f"serve {arch}"] = rep
+            print(f"bench serve {arch}: engine {rep['engine_qps']:.1f} req/s, "
+                  f"p99 " + ", ".join(f"{k} {v['p99']:.3f} ms" for k, v in
+                                      sorted(rep["latency_ms"].items()))
+                  + f"; {rep['speedup_vs_jitted']:.2f}x per-request "
+                  f"programs, {rep['speedup']:.2f}x eager; parity "
+                  f"{rep['parity_max_abs_diff']:.3e}; sentry: {engine} engine "
+                  f"captures <= kinds x buckets = {bound}, {len(direct)} "
+                  f"direct, no key twice [{card}]")
+            gc.collect()
+            torch.cuda.empty_cache()
+        # ---- train
+        t0 = time.perf_counter()
+        with CompileSentry() as sentry:
+            rep = train_bench.main(
+                out=os.path.join(out_dir, "BENCH_torch_train.json"),
+                device=dev, card=True, sentry=sentry)
+        out["seconds"]["train"] = time.perf_counter() - t0
+        if not rep:
+            raise AssertionError("bench train: a gate failed")
+        for row in rep["results"]:
+            # one signature, one capture event over all the program's calls
+            # (the first call's included), no recapture; and grouped, which
+            # the bench's own gate does not hold a waived arch to
+            name = f"em_step[{row['arch_id']}]"
+            g = row["grouping"]
+            if (sentry.compiles(name) != 1 or sentry.captures(name) != 1
+                    or sentry.recaptures(name)
+                    or not (g["fused_groups"] or g["gather_groups"])):
+                raise AssertionError(
+                    f"bench train {row['arch_id']}: {sentry.compiles(name)} "
+                    f"signatures, {sentry.captures(name)} capture events, "
+                    f"{sentry.recaptures(name)} recaptures of its step "
+                    f"program; grouping {g}\n" + sentry.report())
+        sentry.assert_no_leaks()
+        out["reports"]["train"] = rep
+        for row in rep["results"]:
+            print(f"bench train {row['arch_id']} (B={row['batch']}, "
+                  f"{row['microbatches']} microbatches): step program "
+                  f"{row['fused_ms_per_step']:.2f} ms/step, per-step path "
+                  f"{row['per_step_ms_per_step']:.2f} ms/step "
+                  f"({row['speedup']:.2f}x), first step with capture "
+                  f"{row['compile_fused_s']:.2f} s; update parity "
+                  f"{row['update_parity_max_abs_diff']:.3e}, K2 against "
+                  f"autograd {row['grad_parity_max_abs_diff']:.3e}; sentry: "
+                  f"1 capture, 0 recaptures"
+                  + (f"; speedup waived: {row['speedup_waiver']}"
+                     if row["speedup_waiver"] else "") + f" [{card}]")
+            print(f"segment breakdown {row['arch_id']} (one eager forward, "
+                  f"each segment synchronised): " + ", ".join(
+                      f"{k}: {v['launches']} segment(s) {v['eager_ms']:.3f} ms"
+                      for k, v in sorted(row["segment_breakdown"].items()))
+                  + f" [{card}]")
+        ls = rep["leaf_scatter"]
+        print(f"bench train leaf scatter ({ls['arch']}, B={ls['batch']}): "
+              f"{ls['leaf_scatter_ms']:.3f} ms of {ls['em_statistics_ms']:.3f}"
+              f" ms em_statistics ({100 * ls['scatter_fraction']:.2f}%) "
+              f"[{card}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- mixture, the pools at C = 32
+        pools = {}
+
+        def inspect(mix, nets, reg):
+            if mix.num_components != 32:
+                return
+            held = [reg.pools(m) for m in [mix] + nets]
+            flat = [tuple(h) for hs in held for h in hs]
+            if any(len(hs) != 1 for hs in held) or len(set(flat)) != len(flat):
+                raise AssertionError(
+                    f"bench mixture C=32: pools a step program "
+                    f"{[len(hs) for hs in held]}, {len(set(flat))} distinct")
+            pools["bytes"] = [reg.pool_bytes(m) for m in [mix] + nets]
+            pools["ids"] = set(flat)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rep = mixture_bench.main(
+            out=os.path.join(out_dir, "BENCH_torch_mixture.json"),
+            device=dev, inspect=inspect)
+        out["seconds"]["mixture"] = time.perf_counter() - t0
+        if not rep:
+            raise AssertionError("bench mixture: the parity gate failed")
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        left = set(pool_segments()) & pools["ids"]
+        if not pools.get("bytes") or left:
+            raise AssertionError(f"bench mixture C=32: pools {pools}, still "
+                                 f"held after the cell: {left}")
+        out["reports"]["mixture"] = rep
+        for row in rep["results"]:
+            print(f"bench mixture {row['cell']}: one mixture step program "
+                  f"{row['vmapped_ms_per_step']:.2f} ms/step, a loop of "
+                  f"{row['num_components']} step programs "
+                  f"{row['looped_ms_per_step']:.2f} ms/step "
+                  f"({row['speedup']:.2f}x); parameter parity "
+                  f"{row['param_parity_max_abs_diff']:.3e} [{card}]")
+        mb = [b / 2 ** 20 for b in pools["bytes"]]
+        print(f"bench mixture C=32 pools: {len(mb)} step programs (the "
+              f"mixture's and 32 loop models'), one pool each, all distinct: "
+              f"mixture {mb[0]:.2f} MiB, loop models {min(mb[1:]):.2f}-"
+              f"{max(mb[1:]):.2f} MiB ({sum(mb[1:]):.1f} MiB together); all "
+              f"released after the cell [{card}]")
+        # ---- eval
+        t0 = time.perf_counter()
+        rep = eval_bench.main(
+            out=os.path.join(out_dir, "BENCH_torch_eval.json"), device=dev)
+        out["seconds"]["eval"] = time.perf_counter() - t0
+        if not rep:
+            raise AssertionError("bench eval: parity mismatches")
+        out["reports"]["eval"] = rep
+        print(f"bench eval {rep['arch']}: engine {rep['engine_rows_per_s']:.1f}"
+              f" rows/s, dense direct {rep['direct_rows_per_s']:.1f} rows/s "
+              f"({rep['engine_vs_direct']:.3f}x), inpainting "
+              f"{rep['inpaint_requests_per_s']:.1f} req/s, parity mismatches "
+              f"{rep['parity_mismatches']} [{card}]")
+    finally:
+        obs.configure(trace=False)
+    torch.cuda.synchronize()
+    out["counts"] = counts_of(ops)
+    out["shapes"] = collections.Counter(SHAPES)
+    out["gather_shapes"] = collections.Counter(GATHER_SHAPES)
+    print("bench phase launches: " + ", ".join(
+        f"{k} {v}" for k, v in out["counts"].items()) + f" [{card}]")
+    if not all(out["counts"].values()):
+        raise AssertionError(f"bench phase: a kernel never ran: "
+                             f"{out['counts']}")
+
+    # ---- the trace and the metrics, by obs.check
+    trace = obs.export_trace(os.path.join(out_dir, "trace.json"))
+    metrics = os.path.join(out_dir, "metrics.json")
+    with open(metrics, "w") as f:
+        json.dump(obs.METRICS.snapshot(), f)
+    problems = (check_lib.validate_trace(
+        trace, ("serve.", "plan.", "compile.", "bench.", "eval."))
+        + check_lib.validate_metrics_file(metrics))
+    if problems:
+        raise AssertionError(f"bench phase trace/metrics: {problems[:5]}")
+    n_events = obs.num_events()
+    print(f"bench phase trace: {n_events} events ({obs.dropped_events()} "
+          f"dropped), {sum(1 for e in obs.trace_events() if e['name'] == 'plan.segment')}"
+          f" plan.segment spans; trace and metrics valid by obs.check "
+          f"[{card}]")
+    obs.reset()
+
+    # ---- slo --check, dryrun --verify
+    if slo_check:
+        bench_slo_check([out_dir])
+    t0 = time.perf_counter()
+    if dryrun.main(["--verify", "--all", "--health-dir",
+                    os.path.join(out_dir, "health")]) != 0:
+        raise AssertionError("dryrun --verify failed")
+    out["seconds"]["dryrun --verify"] = time.perf_counter() - t0
+    print(f"dryrun --verify: {len(REGISTRY)} archs clean, health probes on "
+          f"the card [{card}]")
+    print("bench phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["seconds"].items()) + f" [{card}]")
+    return out
+
+
+def bench_slo_check(dirs) -> None:
+    """``python -m repro_torch.obs.slo --check`` against slo_torch.json on
+    each bench directory (the serve-only einet_pd one included); raises on
+    any breach."""
+    from repro_torch.obs import slo as slo_lib
+
+    slo = os.path.join(ROOT, "slo_torch.json")
+    bad = []
+    for d in dirs:
+        for sub in (d, os.path.join(d, BENCH_SERVE_ARCHS[1])):
+            if slo_lib.main(["--check", "--dir", sub, "--slo", slo]):
+                bad.append(sub)
+    if bad:
+        raise AssertionError(f"slo --check failed in {bad}")
+
+
+def bench_only() -> int:
+    """``--bench``: builds the kernels and runs the production-bench phase
+    BENCH_RUNS times (into chiprun_out/bench/run<i>), then ``slo --check``
+    on every run: the calibration of slo_torch.json."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build, ops
+
+    build.build(force=True)
+    card = smi_line()
+    print(f"card: {card}")
+    record_shapes(ops.log_einsum_exp)
+    record_shapes(ops.log_einsum_exp_bwd)
+    record_gather_shapes(ops.gather_grouped_log_einsum_exp)
+    record_gather_shapes(ops.gather_grouped_log_einsum_exp_bwd)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dirs = []
+    for i in range(BENCH_RUNS):
+        t0 = time.perf_counter()
+        d = os.path.join(BENCH_DIR, f"run{i}")
+        bench_phase(card, torch.device("cuda"), d, slo_check=False)
+        dirs.append(d)
+        print(f"bench phase run {i}: {time.perf_counter() - t0:.3f} s "
+              f"[{card}]")
+    bench_slo_check(dirs)
+    print(card)
+    return 0
 
 
 def assert_ll(got, want, what: str) -> float:
@@ -4121,51 +4450,68 @@ def main() -> int:
     # training batches, every engine bucket, the direct calls), on fresh
     # inputs made from the seed, held against their plain versions; the
     # launches counted above are untouched
+    def hold_gather(gather, label):
+        """K5 and K6 against their plain versions at every (tables, B) in
+        ``gather`` (GATHER_SHAPES of a run), on fresh inputs made from the
+        seed (two calls bitwise); returns (K5 max |diff|, K6 gw errors, K6
+        gx errors)."""
+        k5_name = ops.gather_grouped_log_einsum_exp.name
+        k6_name = ops.gather_grouped_log_einsum_exp_bwd.name
+        k5_e, k6_w, k6_x, held = 0.0, [], [], []
+        with torch.no_grad():
+            for (op_name, b, tables), n in gather.items():
+                if op_name != k5_name:
+                    continue
+                k = tables.k
+                ws_, vs_ = rand_wv(tables, k)
+                # the special rows (masked, -inf, saturated) from B = 8 up
+                x = rand_x(b, tables.num_in_rows, k) if b >= 8 else \
+                    rand_x(b + 4, tables.num_in_rows, k)[4:]
+                what = (f"{label} cells={[len(l) for l in tables.left]} "
+                        f"K={k} B={b}")
+                k5_e = max(k5_e, check_k5(tables, ws_, vs_, x, f"K5 {what}"))
+                n6 = gather.get((k6_name, b, tables), 0)
+                if n6:
+                    errs, e = check_k6(tables, ws_, vs_, x,
+                                       rand_g(b, tables.num_new_rows, k),
+                                       f"K6 {what}")
+                    k6_w += errs
+                    k6_x.append(e)
+                held.append(f"B={b} K={k} (K5 {n}, K6 {n6} launches)")
+        k5_keys, k6_keys = ({(b, t) for op_name, b, t in gather
+                             if op_name == name}
+                            for name in (k5_name, k6_name))
+        if not k6_keys or k6_keys - k5_keys:
+            raise AssertionError(f"{label}: K6 held at "
+                                 f"{len(k6_keys & k5_keys)} of its "
+                                 f"{len(k6_keys)} (tables, B)")
+        print(f"{label} K5 and K6 against their plain versions at every "
+              f"(tables, B) the {label} runs launched them at: "
+              + "; ".join(held)
+              + f" (two calls bitwise; K5 max |diff| {k5_e:.3e}, K6 gx "
+              f"max |diff| {worst(k6_x, 'abs'):.3e}, gw max |diff| "
+              f"{worst(k6_w, 'abs'):.3e}) [{card}]")
+        return k5_e, k6_w, k6_x
+
+    def by_tables(gather):
+        """GATHER_SHAPES keyed by the tables themselves."""
+        out = collections.Counter()
+        for (op_name, b, tid), n in gather.items():
+            out[(op_name, b, TABLES[tid])] += n
+        return out
+
     eval_gather = collections.Counter()
     for run in evals.values():
-        for (op_name, b, tid), n in run["gather_shapes"].items():
-            eval_gather[(op_name, b, TABLES[tid])] += n
-    k5_name = ops.gather_grouped_log_einsum_exp.name
-    k6_name = ops.gather_grouped_log_einsum_exp_bwd.name
-    eval_k5_err, eval_k6_w, eval_k6_x, held = 0.0, [], [], []
-    with torch.no_grad():
-        for (op_name, b, tables), n in eval_gather.items():
-            if op_name != k5_name:
-                continue
-            k = tables.k
-            ws_, vs_ = rand_wv(tables, k)
-            # the special rows (masked, -inf, saturated) from B = 8 up
-            x = rand_x(b, tables.num_in_rows, k) if b >= 8 else \
-                rand_x(b + 4, tables.num_in_rows, k)[4:]
-            what = (f"eval cells={[len(l) for l in tables.left]} K={k} "
-                    f"B={b}")
-            eval_k5_err = max(eval_k5_err,
-                              check_k5(tables, ws_, vs_, x, f"K5 {what}"))
-            n6 = eval_gather.get((k6_name, b, tables), 0)
-            if n6:
-                errs, e = check_k6(tables, ws_, vs_, x,
-                                   rand_g(b, tables.num_new_rows, k),
-                                   f"K6 {what}")
-                eval_k6_w += errs
-                eval_k6_x.append(e)
-            held.append(f"B={b} K={k} (K5 {n}, K6 {n6} launches)")
-    k5_keys, k6_keys = ({(b, t) for op_name, b, t in eval_gather
-                         if op_name == name} for name in (k5_name, k6_name))
-    if not k6_keys or k6_keys - k5_keys:
-        raise AssertionError(f"eval: K6 held at {len(k6_keys & k5_keys)} "
-                             f"of its {len(k6_keys)} (tables, B)")
+        eval_gather.update(by_tables(run["gather_shapes"]))
+    eval_k5_err, eval_k6_w, eval_k6_x = hold_gather(eval_gather, "eval")
     k5_err = max(k5_err, eval_k5_err)
     k6_w_errs += eval_k6_w
     k6_x_errs += eval_k6_x
-    print(f"eval K5 and K6 against their plain versions at every (tables, "
-          f"B) the eval runs launched them at: " + "; ".join(held)
-          + f" (two calls bitwise; K5 max |diff| {eval_k5_err:.3e}, K6 gx "
-          f"max |diff| {worst(eval_k6_x, 'abs'):.3e}, gw max |diff| "
-          f"{worst(eval_k6_w, 'abs'):.3e}) [{card}]")
 
     # ------------------------------------------------ graph-serving phase
-    # run_benchmark on each full-width model through captured CUDA graphs,
-    # with the program gates (a)-(e); one in-place EM step a model
+    # the serve bench's run_benchmark on each full-width model through
+    # captured CUDA graphs, with the program gates (a)-(e); one in-place EM
+    # step a model
     t_graph = time.perf_counter()
     graphs = graph_phase(card, dev, {
         "einet_rat": (model, mixed_requests(model.num_vars, GRAPH_REQUESTS,
@@ -4217,6 +4563,20 @@ def main() -> int:
     dist_s = time.perf_counter() - t_dist
     print(f"distributed phase: {dist_s:.3f} s [{card}]")
 
+    # ----------------------------------------------- production-bench phase
+    # the four production benches' full profiles and their gates (sentry,
+    # pools, trace and metrics, slo --check, dryrun --verify); then K5 and
+    # K6 held at every (tables, B) the benches launched them at
+    t_bench = time.perf_counter()
+    benches = bench_phase(card, dev)
+    b_k5_err, b_k6_w, b_k6_x = hold_gather(
+        by_tables(benches["gather_shapes"]), "bench")
+    k5_err = max(k5_err, b_k5_err)
+    k6_w_errs += b_k6_w
+    k6_x_errs += b_k6_x
+    bench_s = time.perf_counter() - t_bench
+    print(f"production-bench phase: {bench_s:.3f} s [{card}]")
+
     # ------------------------------------------------------------- report
     # the main paths: serving, and training in both plans (full EM
     # included), of einet_rat and of einet_pd
@@ -4243,7 +4603,9 @@ def main() -> int:
              "paper comparison (EiNet side)": {
                  k: paper["counts"][k] for k in serve_counts},
              "distributed EM (sharded steps, warm-ups and captures)": {
-                 k: dist_out["counts"][k] for k in serve_counts}}
+                 k: dist_out["counts"][k] for k in serve_counts},
+             "production benches (serve, train, mixture, eval)": {
+                 k: benches["counts"][k] for k in serve_counts}}
     for name, c in paths.items():
         print(f"launches on the {name} path: " + ", ".join(
             f"{k} {v}" for k, v in c.items()) + f" [{card}]")
@@ -4262,7 +4624,7 @@ def main() -> int:
                soft["shapes"], mix_full["shapes"], mix_ll_shapes,
                mix_serve_shapes, *(g["shapes"] for g in graphs.values()),
                *(run["shapes"] for run in evals.values()),
-               tgraphs["shapes"], dist_out["shapes"]):
+               tgraphs["shapes"], dist_out["shapes"], benches["shapes"]):
         path_shapes.update(sh)
     for (name, *shape), n in sorted(path_shapes.items()):
         print(f"{name} launches at (B, L, K_out, K) = {tuple(shape)} on the "
@@ -4571,4 +4933,5 @@ def dist_only() -> int:
 
 if __name__ == "__main__":
     sys.exit({"--compare": compare, "--pool": pool_probe,
-              "--dist": dist_only}.get(" ".join(sys.argv[1:]), main)())
+              "--dist": dist_only, "--bench": bench_only}.get(
+                  " ".join(sys.argv[1:]), main)())

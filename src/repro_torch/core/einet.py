@@ -28,12 +28,14 @@ bits, and a captured CUDA graph takes the seeds as a device tensor.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.core import philox
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import region_graph as rg_lib
@@ -88,6 +90,19 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     return dev
+
+
+def _sync_segment(out: torch.Tensor) -> None:
+    """``obs.sync`` on a plan segment's output.  A sync hook (a device
+    synchronise) inside a CUDA-graph capture would invalidate the capture,
+    so a walk being captured with a hook installed raises instead."""
+    if (obs.has_sync() and torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError(
+            "an obs.set_sync hook is installed while a CUDA graph is being "
+            "captured: synchronising inside a capture invalidates it; "
+            "clear the hook (obs.set_sync(None)) before capturing")
+    obs.sync(out)
 
 
 @dataclasses.dataclass
@@ -150,6 +165,7 @@ class EiNet(nn.Module):
         device=None,
         seed: int = 0,
         health: Optional[bool] = None,
+        verify: Optional[str] = None,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -192,6 +208,24 @@ class EiNet(nn.Module):
         self.to(device)  # the static tables
         if device.type != "meta":
             self.init_params(torch.Generator().manual_seed(int(seed)))
+        # static verification (repro_torch.analysis.verify): the ctor knob
+        # wins, else the REPRO_VERIFY environment variable ("off" |
+        # "report" | "raise")
+        self.verify_report = None
+        mode = verify if verify is not None else os.environ.get(
+            "REPRO_VERIFY", "off").strip().lower()
+        if mode in ("off", "", "0"):
+            return
+        if mode not in ("report", "raise"):
+            raise ValueError(
+                f"verify={mode!r}; expected 'off', 'report' or 'raise'")
+        from repro_torch.analysis.verify import VerifyError, verify_einet
+
+        self.verify_report = verify_einet(self)
+        if not self.verify_report.ok:
+            if mode == "raise":
+                raise VerifyError(self.verify_report)
+            print(self.verify_report.format_report())
 
     # ------------------------------------------------------------------ build
     def _build(self) -> None:
@@ -532,28 +566,39 @@ class EiNet(nn.Module):
     def _forward_planned(self, leaf_rows: torch.Tensor) -> torch.Tensor:
         """The depth-grouped bottom-up pass over an all-canonical plan:
         "fused" segments are one grouped launch, "layer" segments the
-        per-layer op on the previous layer's two static slices."""
+        per-layer op on the previous layer's two static slices.
+
+        Each segment counts one ``plan.segment.traces`` (kind label) and is
+        one ``plan.segment`` span (kind, start, stop), as in the reference.
+        The walk runs once an eager call and once a CUDA-graph capture, so
+        the counter counts walks and a replay adds nothing; the span is
+        host time unless an ``obs.set_sync`` hook makes each segment wait
+        for its output (:func:`_sync_segment`)."""
         prev_out = leaf_rows
         root_out = None
         for seg in self.exec_plan:
             last = self.pair_specs[seg.stop - 1]
-            if seg.fused:
-                ws = [self.einsum[t] for t in range(seg.start, seg.stop)]
-                s = ops.grouped_log_einsum_exp(ws, prev_out)
-            else:
-                half = last.num_partitions
-                s = self.pair_log_einsum_exp(
-                    self.einsum[seg.start],
-                    prev_out[:, :half, :],
-                    prev_out[:, half: 2 * half, :],
-                )
-            health_lib.tap_segment(s)
-            mix_out = None
-            if last.mix_global is not None:
-                i = seg.stop - 1
-                ln = s[:, self._table(i, "mix_child"), :]
-                mix_out = log_mix_exp(self.mixing[i], ln,
-                                      self._table(i, "mix_mask"))
+            obs.METRICS.counter("plan.segment.traces", kind=seg.kind).inc()
+            with obs.span("plan.segment", kind=seg.kind, start=seg.start,
+                          stop=seg.stop):
+                if seg.fused:
+                    ws = [self.einsum[t] for t in range(seg.start, seg.stop)]
+                    s = ops.grouped_log_einsum_exp(ws, prev_out)
+                else:
+                    half = last.num_partitions
+                    s = self.pair_log_einsum_exp(
+                        self.einsum[seg.start],
+                        prev_out[:, :half, :],
+                        prev_out[:, half: 2 * half, :],
+                    )
+                health_lib.tap_segment(s)
+                mix_out = None
+                if last.mix_global is not None:
+                    i = seg.stop - 1
+                    ln = s[:, self._table(i, "mix_child"), :]
+                    mix_out = log_mix_exp(self.mixing[i], ln,
+                                          self._table(i, "mix_mask"))
+                _sync_segment(s if mix_out is None else mix_out)
             if last.is_final:
                 root_out = mix_out if last.mix_global is not None else s[:, 0, :]
             else:
@@ -570,31 +615,39 @@ class EiNet(nn.Module):
         inside the kernel) whose new rows append in global order; a "layer"
         segment is the per-pair op on the buffer's gathered children, then
         its mixing.  The planner emits no "fused" segment here: it would
-        skip interior rows and leave holes in the buffer."""
+        skip interior rows and leave holes in the buffer.  Segments are
+        counted and spanned as in :meth:`_forward_planned`."""
         buffer = leaf_rows
         root_out = None
         for seg in self.exec_plan:
+            obs.METRICS.counter("plan.segment.traces", kind=seg.kind).inc()
             if seg.kind == "gather":
-                span = range(seg.start, seg.stop)
-                ws = [self.einsum[t] for t in span]
-                vs = [self.mixing[t] for t in span
-                      if self.pair_specs[t].mix_global is not None]
-                new = ops.gather_grouped_log_einsum_exp(seg.tables, ws, vs,
-                                                        buffer)
-                health_lib.tap_segment(new)
-                buffer = torch.cat([buffer, new], dim=1)
+                with obs.span("plan.segment", kind=seg.kind,
+                              start=seg.start, stop=seg.stop):
+                    span = range(seg.start, seg.stop)
+                    ws = [self.einsum[t] for t in span]
+                    vs = [self.mixing[t] for t in span
+                          if self.pair_specs[t].mix_global is not None]
+                    new = ops.gather_grouped_log_einsum_exp(seg.tables, ws,
+                                                            vs, buffer)
+                    health_lib.tap_segment(new)
+                    buffer = torch.cat([buffer, new], dim=1)
+                    _sync_segment(buffer)
                 continue
-            i = seg.start
-            spec = self.pair_specs[i]
-            s = self.pair_log_einsum_exp(
-                self.einsum[i], buffer[:, self._table(i, "left"), :],
-                buffer[:, self._table(i, "right"), :])
-            health_lib.tap_segment(s)
-            mix_out = None
-            if spec.mix_global is not None:
-                ln = s[:, self._table(i, "mix_child"), :]
-                mix_out = log_mix_exp(self.mixing[i], ln,
-                                      self._table(i, "mix_mask"))
+            with obs.span("plan.segment", kind=seg.kind, start=seg.start,
+                          stop=seg.stop):
+                i = seg.start
+                spec = self.pair_specs[i]
+                s = self.pair_log_einsum_exp(
+                    self.einsum[i], buffer[:, self._table(i, "left"), :],
+                    buffer[:, self._table(i, "right"), :])
+                health_lib.tap_segment(s)
+                mix_out = None
+                if spec.mix_global is not None:
+                    ln = s[:, self._table(i, "mix_child"), :]
+                    mix_out = log_mix_exp(self.mixing[i], ln,
+                                          self._table(i, "mix_mask"))
+                _sync_segment(s if mix_out is None else mix_out)
             if spec.is_final:
                 root_out = mix_out if spec.mix_global is not None else s[:, 0, :]
             else:

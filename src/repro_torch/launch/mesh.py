@@ -58,8 +58,8 @@ def init_distributed(device=None) -> Tuple[int, int, torch.device]:
 
 def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...],
           device_type: Optional[str]) -> DeviceMesh:
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    # no type given: CUDA, as every entry point (raises with no card)
+    device_type = resolve_device(device_type).type
     ranks = torch.arange(math.prod(shape)).reshape(shape)
     if dist.is_initialized():
         return DeviceMesh(device_type, ranks, mesh_dim_names=names)

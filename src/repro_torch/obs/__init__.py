@@ -43,22 +43,28 @@ from repro_torch.obs.trace import (
     Timed,
     configure,
     dropped_events,
+    enabled,
     event,
     export_trace,
+    has_sync,
     now,
     num_events,
     reset,
+    set_sync,
     span,
+    sync,
     timed,
+    trace_events,
 )
 
 __all__ = [
     "METRICS", "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "Span", "Timed", "cache_event", "cli_begin", "cli_end",
-    "compile_event", "configure", "dropped_events", "event",
-    "export_trace", "format_summary", "now", "num_events", "on_compile",
-    "percentile_from_counts", "remove_compile_listener", "reset", "span",
-    "summary", "timed",
+    "compile_event", "configure", "dropped_events", "enabled", "event",
+    "export_trace", "format_summary", "has_sync", "now", "num_events",
+    "on_compile", "percentile_from_counts", "remove_compile_listener",
+    "reset", "set_sync", "span", "summary", "sync", "timed",
+    "trace_events",
 ]
 
 

@@ -33,7 +33,7 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 # trace-time clock origin: event ts are microseconds since process start
 _T0_NS = time.perf_counter_ns()
@@ -44,10 +44,11 @@ _MAX_EVENTS = 1_000_000
 
 
 class _TraceState:
-    __slots__ = ("enabled", "lock", "events", "dropped")
+    __slots__ = ("enabled", "sync_fn", "lock", "events", "dropped")
 
     def __init__(self):
         self.enabled = False
+        self.sync_fn: Optional[Callable[[Any], Any]] = None
         self.lock = threading.Lock()
         self.events: List[Dict[str, Any]] = []
         self.dropped = 0
@@ -63,9 +64,37 @@ def configure(trace: bool) -> None:
     _STATE.enabled = bool(trace)
 
 
+def enabled() -> bool:
+    return _STATE.enabled
+
+
 def now() -> float:
     """The obs clock (monotonic host seconds)."""
     return time.perf_counter()
+
+
+def set_sync(fn: Optional[Callable[[Any], Any]]) -> None:
+    """Install a synchronization callback for :func:`sync` (e.g. one that
+    calls ``torch.cuda.synchronize()`` while timing an eager plan walk).
+    ``None`` (the default) makes :func:`sync` a no-op, so instrumented
+    library code pays nothing in production."""
+    _STATE.sync_fn = fn
+
+
+def has_sync() -> bool:
+    """Whether a :func:`set_sync` callback is installed."""
+    return _STATE.sync_fn is not None
+
+
+def sync(value: Any) -> Any:
+    """Synchronize ``value`` through the installed callback (no-op by
+    default).  Instrumented compute sites call this just before their span
+    closes so that an eager profile charges device time to the right
+    span."""
+    fn = _STATE.sync_fn
+    if fn is not None:
+        fn(value)
+    return value
 
 
 def _append(event: Dict[str, Any]) -> None:

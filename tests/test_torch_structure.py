@@ -160,6 +160,19 @@ def test_entry_points_default_to_cuda():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_mesh_defaults_to_cuda():
+    """A mesh without a device type is a CUDA mesh, as every entry point
+    runs: with no card it raises instead of building a CPU mesh."""
+    from repro_torch.launch.mesh import make_mesh_for, mesh_sizes
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_mesh_for()
+    mesh = make_mesh_for(device_type="cpu")
+    assert mesh.device_type == "cpu"
+    assert mesh_sizes(mesh) == {"data": 1, "model": 1}
+
+
 # ------------------------------------------------------------ import boundary
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
