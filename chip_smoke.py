@@ -227,9 +227,26 @@
    --check against slo_torch.json, and dryrun --verify over every
    registered arch (health probes on the card); K5 and K6 held against
    their plain versions at every (tables, B) the benches launched them at.
-17. Prints the launch counts of every main path (each kernel must have run
-   on them; the paper phase's EiNet side, the sharded steps and the
-   production benches among them) and the shapes (B, L, K_out, K) K1 and K2 were launched at
+17. Dry-run phase (dryrun_phase): ``launch.dryrun.run_cell`` for every
+   registered arch on the 16x16 and 2x16x16 meshes (one data rank's rows
+   of the config's batch; einet_rat_large in 1,024-row microbatches),
+   forced: no cell fails, each cell's counted flops and bytes equal the
+   CPU count of the same cell at 2 and 4 rows a microbatch extrapolated
+   to its rows, einet_rat_large's 16x16 pool at most 1.10x the same
+   program captured into a fresh model; prints the H100 roofline, the
+   dominant term per arch, each cell's pool GiB and capture seconds.
+   Then EXPERIMENTS_torch.md (every section from its artifacts); einet_pd's
+   256-request mix through ServeEngine(rules=serve_rules()) under NCCL at
+   a world of 1 and in two ranks on the card over gloo with CUDA tensors
+   (buckets split over the data dim), each bit for bit the engine without
+   rules, with req/s; the three examples at their default sizes
+   (quickstart's LL rises, inpainting keeps observed pixels exactly,
+   train_density killed at step 120 ends at the uninterrupted LL bit for
+   bit); and ``python -m repro_torch.analysis.lint`` clean.  Records and
+   the report go to chiprun_out/dryrun.
+18. Prints the launch counts of every main path (each kernel must have run
+   on them; the paper phase's EiNet side, the sharded steps, the
+   production benches and the dry-run phase among them) and the shapes (B, L, K_out, K) K1 and K2 were launched at
    there (counted by wrapping the ops' kernels, whose launch counters stay
    as they are); times K1 and K2 at each of those shapes (and K1 at
    einet_pd's pairs at B = 64) on fresh inputs with their geometry, K2's
@@ -265,6 +282,11 @@ tree).
   python3 chip_smoke.py --dist
 
 builds the kernels and runs only the distributed phase (15).
+
+  python3 chip_smoke.py --dryrun
+
+builds the kernels and runs only the dry-run phase (17), its EXPERIMENTS
+check held to the verify, dry-run and roofline sections.
 
   python3 chip_smoke.py --bench
 
@@ -372,14 +394,13 @@ def assert_grad_close(got, want, what: str, weight: bool = False) -> dict:
             "rel": diff.max().item() / scale if scale else 0.0}
 
 
-def bwd_cost(b, cells, k, k_out):
-    """(bytes, flops) of one pair's backward: ln_l, ln_r and g read, gl and
-    gr written, W read and gw written once; the three contractions (s, the
-    c = ginv W of the input gradients, dW) at 2 K^2 K_out flops each and the
-    row and column sums of c at 4 K^2, per cell and row."""
-    n_bytes = 4 * (4 * b * cells * k + b * cells * k_out
-                   + 2 * cells * k_out * k * k)
-    return n_bytes, b * cells * (6 * k * k * k_out + 4 * k * k)
+def cost(op_name, *args):
+    """(bytes, flops) of one launch of a kernel op on ``args``: the one
+    count of ``repro_torch.kernels.cost.launch_cost`` (each input read and
+    each output written once; the contractions' flops)."""
+    from repro_torch.kernels.cost import launch_cost
+
+    return launch_cost(op_name, *args)
 
 
 def bound(n_bytes, flops):
@@ -1228,9 +1249,8 @@ def serve_bucket_times(card: str, dev, pd) -> list:
     vs = [pd.mixing[t].detach() for t in span
           if pd.pair_specs[t].mix_global is not None]
     w1 = pd.einsum[pd.exec_plan[1].start].detach()
-    cells, k_out = w1.shape[0], w1.shape[1]
+    cells = w1.shape[0]
     k = pd.K
-    n_w = sum(w.numel() for w in ws) + sum(v.numel() for v in vs)
     rows = []
     with torch.no_grad():
         for b in (1, 2, 4, 8, 16, 32, 64):
@@ -1241,12 +1261,10 @@ def serve_bucket_times(card: str, dev, pd) -> list:
             cases = (
                 ("K5", lambda x=x: gather_grouped_log_einsum_exp_cuda(
                     tab, ws, vs, x),
-                 4 * (x.numel() + n_w + b * tab.num_new_rows * k),
-                 sum(2 * b * len(l) * k ** 3 for l in tab.left)),
+                 *cost("gather_grouped_log_einsum_exp", tab, ws, vs, x)),
                 ("K1", lambda lr=lr: log_einsum_exp_cuda(
                     w1, lr[:, :cells], lr[:, cells:]),
-                 4 * (2 * b * cells * k + w1.numel() + b * cells * k_out),
-                 2 * b * cells * k_out * k * k),
+                 *cost("log_einsum_exp", w1, lr[:, :cells], lr[:, cells:])),
             )
             for name, fn, n_bytes, flops in cases:
                 b_ms, b_by = bound(n_bytes, flops)
@@ -2842,17 +2860,20 @@ def bench_phase(card: str, dev, out_dir: str = BENCH_DIR,
 def bench_slo_check(dirs) -> None:
     """``python -m repro_torch.obs.slo --check`` against slo_torch.json on
     each bench directory (the serve-only einet_pd one included); raises on
-    any breach."""
+    any breach, naming each one (the error reaches standard error, where
+    the breaches printed on standard output may be out of reach)."""
     from repro_torch.obs import slo as slo_lib
 
     slo = os.path.join(ROOT, "slo_torch.json")
-    bad = []
+    bad = {}
     for d in dirs:
         for sub in (d, os.path.join(d, BENCH_SERVE_ARCHS[1])):
             if slo_lib.main(["--check", "--dir", sub, "--slo", slo]):
-                bad.append(sub)
+                bad[sub] = [f"{kind}: {p}" for kind, problems in
+                            slo_lib.check_all(sub, slo_path=slo).items()
+                            for p in problems]
     if bad:
-        raise AssertionError(f"slo --check failed in {bad}")
+        raise AssertionError(f"slo --check failed: {bad}")
 
 
 def bench_only() -> int:
@@ -2883,6 +2904,488 @@ def bench_only() -> int:
         print(f"bench phase run {i}: {time.perf_counter() - t0:.3f} s "
               f"[{card}]")
     bench_slo_check(dirs)
+    print(card)
+    return 0
+
+
+# ------------------------------------------------------------ dry-run phase
+DRYRUN_OUT = os.path.join(ROOT, "chiprun_out", "dryrun")
+# the dry run's records, the EXPERIMENTS report's source (cwd-relative, as
+# the eval, health and history artifacts the report also reads)
+DRYRUN_ART = os.path.join("artifacts", "dryrun_torch")
+# the microbatch rows of the CPU counts each card count is held against:
+# a cell's counts are affine in its microbatch rows at a fixed microbatch
+# count, so two reduced counts give the full one exactly
+DRYRUN_CPU_ROWS = (2, 4)
+DRYRUN_CPU_THREADS = 6  # the child process's, beside the card's cells
+DRYRUN_POOL_FACTOR = 1.10  # --pool's gate: a fresh capture's pool, at most
+SERVE_RULES_ARCH = "einet_pd"
+SERVE_RULES_REQUESTS = 256
+SERVE_RULES_MAX_BATCH = 64
+
+
+def serve_rules_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of the dry-run phase's sharded serving: einet_pd (seed 0)
+    on the card, ``ServeEngine(rules=serve_rules())`` over gloo with CUDA
+    tensors (the engine's mesh: the ranks on the data dim), the
+    256-request mix served once warm and once timed.  Writes the values,
+    the split buckets and req/s to ``serve_<r>.pt``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import compile as compile_lib
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import serve_rules
+    from repro_torch.launch.cells import build_einet
+    from repro_torch.serve import ServeEngine, mixed_requests
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        model = build_einet(get_config(SERVE_RULES_ARCH), device=dev, seed=0)
+        reqs = mixed_requests(model.num_vars, SERVE_RULES_REQUESTS, seed=0)
+        engine = ServeEngine(model, max_batch=SERVE_RULES_MAX_BATCH,
+                             rules=serve_rules(),
+                             registry=compile_lib.ProgramRegistry())
+        engine.run(reqs)
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = engine.run(reqs)
+        seconds = time.perf_counter() - t0
+        torch.save({"values": {i: np.asarray(r.value) for i, r in out.items()},
+                    "split": [b for b in engine.buckets
+                              if engine._split(b) is not None],
+                    "mesh": tuple(engine.mesh.shape),
+                    "qps": len(reqs) / seconds},
+                   os.path.join(tmp, f"serve_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def cpu_cell_counts(path: str, threads: int) -> None:
+    """The dry-run cells' flops and bytes counted on the CPU, for the card's
+    to be held against (run in a child process beside the card's cells):
+    a single-stage cell's whole step at DRYRUN_CPU_ROWS rows, a staged
+    cell's microbatch body at those rows and its finish counted apart (each
+    graph's work, shared by the two meshes, whose cells differ only in
+    microbatches), each extrapolated affinely to the cell's rows.  Writes
+    {"<arch> <mesh>": {key: count, ..., "how": ...}, "seconds": s} to
+    ``path``."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import REGISTRY, get_config
+    from repro_torch.launch import cells
+    from repro_torch.launch import cost as cost_lib
+    from repro_torch.launch.cells import build_einet
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.pipeline import em_stages
+
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    m1, m2 = DRYRUN_CPU_ROWS
+    out = {}
+    for arch in sorted(REGISTRY):
+        cfg = get_config(arch)
+        cpu_model = build_einet(cfg, device="cpu", seed=0)
+        parts = None
+        for mesh_kind in ("single", "multi"):
+            rows = cells.cell_rows(cfg, mesh_kind)
+            n = cells.cell_microbatches(cfg, rows)
+            full = rows // n
+            if n == 1:
+                pts = [cells.capture_einet_cell(
+                    cfg, mesh_kind, rows=m, microbatches=1, capture=False,
+                    model=cpu_model)["cost"] for m in (m1, m2)]
+                fixed = None
+                how = f"its step at {m1} and {m2} rows"
+            else:
+                if parts is None:
+                    stages = em_stages(TrainConfig(num_microbatches=2,
+                                                   health=False), False)
+                    xs = torch.from_numpy(cells.domain_data(cpu_model, m2))
+                    b1, fin = cost_lib.count_stages(cpu_model, stages,
+                                                    xs[:m1])
+                    b2, _ = cost_lib.count_stages(cpu_model, stages, xs,
+                                                  finish=False)
+                    parts = (b1, b2, fin)
+                pts, fixed = parts[:2], parts[2]
+                how = (f"its microbatch body at {m1} and {m2} rows and its "
+                       f"finish, as {n} bodies and a finish")
+            rec = {"how": how, "rows": rows, "microbatches": n}
+            for key, attr in (("flops_per_device", "flops"),
+                              ("bytes_written_per_device", "bytes_written")):
+                lo, hi = getattr(pts[0], attr), getattr(pts[1], attr)
+                slope, rem = divmod(hi - lo, m2 - m1)
+                want = lo + slope * (full - m1)
+                if fixed is not None:
+                    want = n * want + getattr(fixed, attr)
+                rec[key] = None if rem else want
+            out[f"{cfg.name} {mesh_kind}"] = rec
+        del cpu_model, parts
+        gc.collect()
+    out["seconds"] = time.perf_counter() - t0
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def example_module(name: str):
+    """``examples/<name>_torch.py`` as a module (its ``main(argv)``)."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples", f"{name}_torch.py")
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def dryrun_phase(card: str, dev, sources=None) -> dict:
+    """Phase 17: the capture-only dry run, its roofline and the EXPERIMENTS
+    report, serving under a rule table, the three examples and the lint.
+
+    (a) ``launch.dryrun.run_cell`` for every registered arch on ``single``
+    (16x16) and ``multi`` (2x16x16), forced, on the card: no cell may fail.
+    Each cell's counted flops and bytes must equal the CPU count of the
+    same cell at DRYRUN_CPU_ROWS rows a microbatch, extrapolated affinely
+    to the cell's rows, exactly (a staged cell's body and finish counted
+    apart, as its two graphs run).  einet_rat_large's
+    single cell (4,096 rows in 1,024-row microbatches) must hold at most
+    DRYRUN_POOL_FACTOR x the pool of the same program captured into a
+    fresh model.  Prints the roofline table, the dominant term per arch
+    and each cell's pool GiB and capture seconds.
+    (b) ``bench.experiments`` renders EXPERIMENTS_torch.md from a report
+    root under DRYRUN_OUT that gathers this phase's records and, with
+    ``sources`` (the earlier phases' artifacts: {"bench": the bench
+    phase's BENCH directory, "health": its health probe records,
+    "history": the bench history, "eval": the eval phase's metrics
+    records}), theirs: then every section must come from its artifacts;
+    without it, the verify and dry-run sections.
+    (c) einet_pd's 256-request mix through ``ServeEngine(rules=
+    serve_rules())``: NCCL at a world of 1 bit for bit the engine without
+    rules, then two ranks on the one card over gloo with CUDA tensors
+    (buckets split over the data dim) bit for bit; req/s of each beside the
+    plain engine's.
+    (d) The three examples at their default sizes through ``main(argv)``:
+    quickstart's last-epoch LL above its first, inpainting keeping every
+    observed pixel, train_density killed at step 120 ending at the
+    uninterrupted run's LL bit for bit.
+    (e) ``python -m repro_torch.analysis.lint``: no violation.
+
+    The launch counters are set to 0 just before (a) and read after (d);
+    the CPU counts run the plain versions.  Returns the counts, K1/K2
+    shapes, the records and the figures."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch import compile as compile_lib
+    from repro_torch.bench import experiments, roofline
+    from repro_torch.configs import REGISTRY, get_config
+    from repro_torch.dist.sharding import serve_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.launch.cells import build_einet
+    from repro_torch.serve import ServeEngine, mixed_requests
+    from repro_torch.train import TrainConfig, make_em_step
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    os.makedirs(DRYRUN_OUT)
+    shutil.rmtree(DRYRUN_ART, ignore_errors=True)
+    out = {"seconds": {}}
+    # the CPU's counts of the same cells, in a child process beside the
+    # card's cells (the timed parts below start after it has ended)
+    cpu_path = os.path.join(DRYRUN_OUT, "cpu_counts.json")
+    cpu = mp.get_context("spawn").Process(
+        target=cpu_cell_counts, args=(cpu_path, DRYRUN_CPU_THREADS))
+    cpu.start()
+    try:
+        torch.cuda.synchronize()
+        reset(ops)
+
+        # ---- (a) the cells on the card
+        t0 = time.perf_counter()
+        recs = {}
+        for mesh_kind in ("single", "multi"):
+            for arch in sorted(REGISTRY):
+                rec = dryrun.run_cell(arch, mesh_kind, DRYRUN_ART,
+                                      skip_existing=False, device=dev)
+                if "error" in rec:
+                    raise AssertionError(f"dryrun {arch} {mesh_kind}: "
+                                         f"{rec['traceback']}")
+                recs[(arch, mesh_kind)] = rec
+                gc.collect()
+                torch.cuda.empty_cache()
+        out["seconds"]["cells"] = time.perf_counter() - t0
+        # the pool gate: einet_rat_large's single cell against the same program
+        # captured into a fresh model
+        large = get_config("einet_rat_large")
+        rec = recs[(large.name, "single")]
+        fresh = build_einet(large, device=dev, seed=0)
+        x = torch.from_numpy(cells.domain_data(fresh, rec["rows_per_device"])
+                             ).to(dev)
+        make_em_step(fresh, TrainConfig(num_microbatches=rec["microbatches"],
+                                        health=False)).capture(x)
+        fresh_pool = compile_lib.REGISTRY.pool_bytes(fresh)
+        del fresh, x
+        gc.collect()
+        torch.cuda.empty_cache()
+        cell_pool = rec["memory"]["pool_bytes"]
+        if cell_pool > DRYRUN_POOL_FACTOR * fresh_pool:
+            raise AssertionError(
+                f"dryrun {large.name} 16x16: pool {cell_pool / 2 ** 30:.3f} GiB "
+                f"> {DRYRUN_POOL_FACTOR} x a fresh capture's "
+                f"{fresh_pool / 2 ** 30:.3f} GiB")
+        print(f"dryrun {large.name} 16x16 ({rec['rows_per_device']} rows in "
+              f"{rec['microbatches']} microbatches): pool "
+              f"{cell_pool / 2 ** 30:.3f} GiB, {cell_pool / fresh_pool:.3f}x a "
+              f"fresh capture's {fresh_pool / 2 ** 30:.3f} GiB (gate "
+              f"{DRYRUN_POOL_FACTOR}x) [{card}]")
+        out["pool"] = {"cell": cell_pool, "fresh": fresh_pool}
+        # the counts against the CPU's at reduced rows, counted in the child
+        # process meanwhile
+        cpu.join(timeout=DIST_TIMEOUT_S)
+        if cpu.is_alive() or cpu.exitcode:
+            raise AssertionError(f"the CPU counts: exit code {cpu.exitcode}"
+                                 + (" (timed out)" if cpu.is_alive() else ""))
+        with open(cpu_path) as f:
+            cpu_counts = json.load(f)
+        for (arch, mesh_kind), rec in sorted(recs.items()):
+            want = cpu_counts[f"{arch} {mesh_kind}"]
+            n = rec["microbatches"]
+            for key in ("flops_per_device", "bytes_written_per_device"):
+                if (want["rows"], want["microbatches"]) != (
+                        rec["rows_per_device"], n) or rec[key] != want[key]:
+                    raise AssertionError(
+                        f"dryrun {arch} {rec['mesh']}: {key} {rec[key]} on the "
+                        f"card, {want[key]} from the CPU counts of "
+                        f"{want['how']} ({want})")
+            print(f"dryrun {arch} {rec['mesh']}: {rec['rows_per_device']} rows "
+                  f"in {n} microbatch(es), {rec['flops_per_device']:,} flops and "
+                  f"{rec['bytes_written_per_device']:,} bytes a device, equal to "
+                  f"the CPU count of {want['how']}, extrapolated to "
+                  f"{rec['rows_per_device'] // n} rows a microbatch; pool "
+                  f"{rec['memory']['pool_bytes'] / 2 ** 30:.3f} GiB, capture "
+                  f"{rec['capture_s']:.2f} s, peak "
+                  f"{(rec['memory']['peak_allocated_bytes'] or 0) / 2 ** 30:.3f}"
+                  f" GiB [{card}]")
+        out["seconds"]["cpu counts (child process)"] = cpu_counts["seconds"]
+        rows = roofline.build_table(DRYRUN_ART, None)
+        table = roofline.to_markdown(rows)
+        print(f"roofline on the H100 (67 TFLOP/s fp32, 3.35 TB/s, 50 GB/s a "
+              f"NIC) [{card}]:\n{table}")
+        for arch in sorted(REGISTRY):
+            doms = {r["mesh"]: r["dominant"] for r in rows if r["arch"] == arch}
+            print(f"dryrun {arch}: dominant term {doms} [{card}]")
+        out["records"] = {f"{a} {m}": r for (a, m), r in recs.items()}
+        out["roofline"] = table
+
+        # ---- (b) EXPERIMENTS_torch.md, from a report root that gathers
+        # the phases' artifacts where the report reads them
+        root = os.path.join(DRYRUN_OUT, "report")
+        art = os.path.join(root, "artifacts")
+        shutil.copytree(DRYRUN_ART, os.path.join(art, "dryrun_torch"))
+        if sources:
+            shutil.copytree(sources["health"],
+                            os.path.join(art, "health_torch"))
+            shutil.copytree(sources["history"],
+                            os.path.join(art, "bench_history_torch"))
+            for rec in sources["eval"]:
+                d = os.path.join(art, "eval_torch", rec["run_name"])
+                os.makedirs(d)
+                with open(os.path.join(d, "metrics.json"), "w") as f:
+                    json.dump(rec, f, indent=1)
+        text, status = experiments.render(
+            root, sources["bench"] if sources else None)
+        for path in (experiments.OUT, os.path.join(root, experiments.OUT)):
+            with open(path, "w") as f:
+                f.write(text)
+        required = (list(status) if sources else
+                    [k for k in status if "Dry-run" in k or "Roofline" in k
+                     or "verification" in k])
+        missing = [k for k in required if not status[k]]
+        if missing:
+            raise AssertionError(f"EXPERIMENTS_torch.md: sections {missing} not "
+                                 "rendered from their artifacts")
+        print(f"EXPERIMENTS_torch.md: {len(text)} bytes, sections from their "
+              f"artifacts: {sum(status.values())} of {len(status)} "
+              f"({', '.join(k for k, v in status.items() if v)})")
+
+        # ---- (c) serving under serve_rules() at einet_pd
+        t0 = time.perf_counter()
+        pd = build_einet(get_config(SERVE_RULES_ARCH), device=dev, seed=0)
+        reqs = mixed_requests(pd.num_vars, SERVE_RULES_REQUESTS, seed=0)
+
+        def serve(engine):
+            engine.run(reqs)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = engine.run(reqs)
+            return ({i: np.asarray(r.value) for i, r in res.items()},
+                    len(reqs) / (time.perf_counter() - t))
+
+        def same(got, want, what):
+            bad = [i for i in want if got[i].dtype != want[i].dtype
+                   or got[i].tobytes() != want[i].tobytes()]
+            if sorted(got) != sorted(want) or bad:
+                raise AssertionError(f"{what}: {len(bad)} results differ from "
+                                     f"the engine without rules (first "
+                                     f"{bad[:5]})")
+
+        plain, plain_qps = serve(ServeEngine(
+            pd, max_batch=SERVE_RULES_MAX_BATCH,
+            registry=compile_lib.ProgramRegistry()))
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+        try:
+            dist.init_process_group(
+                "nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1),
+                rank=0, world_size=1)
+            try:
+                engine = ServeEngine(pd, max_batch=SERVE_RULES_MAX_BATCH,
+                                     rules=serve_rules(),
+                                     registry=compile_lib.ProgramRegistry())
+                nccl, nccl_qps = serve(engine)
+                backend = dist.get_backend()
+                split = [b for b in engine.buckets
+                         if engine._split(b) is not None]
+            finally:
+                dist.destroy_process_group()
+            same(nccl, plain, f"serve_rules() under {backend} at a world of 1")
+            if split:
+                raise AssertionError(f"a world of 1 split buckets {split}")
+            del engine
+            torch.cuda.empty_cache()
+            ctx = mp.start_processes(serve_rules_rank, args=(2, tmp), nprocs=2,
+                                     start_method="spawn", join=False)
+            deadline = time.monotonic() + DIST_TIMEOUT_S
+            try:
+                while not ctx.join(timeout=1.0):
+                    if time.monotonic() > deadline:
+                        raise AssertionError(
+                            "serve rules: the two ranks did not finish in "
+                            f"{DIST_TIMEOUT_S} s")
+            finally:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                        p.join(timeout=10)
+            ranks = [torch.load(os.path.join(tmp, f"serve_{r}.pt"),
+                                weights_only=False) for r in range(2)]
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        for r, got in enumerate(ranks):
+            same(got["values"], plain, f"serve_rules() rank {r} of 2 over gloo")
+            if got["mesh"] != (2, 1) or not got["split"]:
+                raise AssertionError(
+                    f"serve rules rank {r}: mesh {got['mesh']}, split "
+                    f"buckets {got['split']}")
+        print(f"serve_rules() {SERVE_RULES_ARCH}: {len(reqs)} requests, "
+              f"max_batch {SERVE_RULES_MAX_BATCH}; engine without rules "
+              f"{plain_qps:.1f} req/s; {backend} at a world of 1 {nccl_qps:.1f} "
+              f"req/s, bit for bit; two ranks over gloo with CUDA tensors "
+              + ", ".join(f"{g['qps']:.1f}" for g in ranks)
+              + f" req/s, buckets {ranks[0]['split']} split over the data dim, "
+              f"every result bit for bit [{card}]")
+        out["serve"] = {"plain_qps": plain_qps, "nccl_qps": nccl_qps,
+                        "gloo_qps": [g["qps"] for g in ranks]}
+        del pd
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["seconds"]["serve rules"] = time.perf_counter() - t0
+
+        # ---- (d) the examples at their default sizes
+        t0 = time.perf_counter()
+        quick = example_module("quickstart").main([])
+        if not quick["epoch_lls"][-1] > quick["epoch_lls"][0]:
+            raise AssertionError(f"quickstart: LL {quick['epoch_lls']}")
+        inpaint = example_module("image_inpainting").main([])
+        if not all(m["observed_kept"] for m in inpaint["masks"].values()):
+            raise AssertionError(f"image_inpainting: {inpaint['masks']}")
+        density = example_module("train_density")
+        ck = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            whole = density.main(["--ckpt-dir", os.path.join(ck, "a")])
+            killed = density.main(["--kill-at", "120",
+                                   "--ckpt-dir", os.path.join(ck, "b")])
+        finally:
+            shutil.rmtree(ck, ignore_errors=True)
+        if killed["restarts"] != 1 or killed["final_test_ll"] != \
+                whole["final_test_ll"] or killed["lls"] != whole["lls"]:
+            raise AssertionError(
+                f"train_density --kill-at 120: final LL "
+                f"{killed['final_test_ll']}"
+                f" against {whole['final_test_ll']} uninterrupted, restarts "
+                f"{killed['restarts']}")
+        print(f"examples: quickstart LL {quick['epoch_lls'][0]:.3f} -> "
+              f"{quick['epoch_lls'][-1]:.3f} over {len(quick['epoch_lls'])} "
+              f"epochs ({quick['train_s']:.2f} s); image_inpainting MSE "
+              + ", ".join(f"{k} {m['mse']:.4f} (mean-fill "
+                          f"{m['mean_fill_mse']:.4f})"
+                          for k, m in inpaint["masks"].items())
+              + f", observed pixels kept, train {inpaint['train_s']:.2f} s; "
+              f"train_density {whole['num_params']:,} parameters, LL "
+              f"{whole['first10']:.2f} -> {whole['last10']:.2f}, final test LL "
+              f"{whole['final_test_ll']:.4f} ({whole['train_s']:.2f} s), killed "
+              f"at 120: {killed['final_test_ll']:.4f} after "
+              f"{killed['restarts']} restart, bit for bit [{card}]")
+        out["examples"] = {"quickstart": quick["epoch_lls"],
+                           "inpainting": inpaint["masks"],
+                           "train_density": whole["final_test_ll"]}
+        out["seconds"]["examples"] = time.perf_counter() - t0
+        out["counts"] = counts_of(ops)
+        out["shapes"] = collections.Counter(SHAPES)
+
+        # ---- (e) the lint
+        lint = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis.lint"], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+            capture_output=True, text=True, timeout=300)
+        if lint.returncode:
+            raise AssertionError(f"lint:\n{lint.stdout}{lint.stderr}")
+        print(lint.stdout.strip().splitlines()[-1])
+        out["seconds"]["phase"] = time.perf_counter() - t_phase
+        print(f"dry-run phase: {out['seconds']['phase']:.3f} s ("
+              + ", ".join(f"{k} {v:.1f} s" for k, v in out["seconds"].items()
+                          if k != "phase") + f") [{card}]")
+        return out
+    finally:
+        if cpu.is_alive():
+            cpu.kill()
+            cpu.join(timeout=10)
+
+
+def dryrun_only() -> int:
+    """``--dryrun``: builds the kernels and runs only the dry-run phase
+    (17), its EXPERIMENTS check held to the sections this phase makes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build, ops
+
+    build.build(force=True)
+    card = smi_line()
+    print(f"card: {card}")
+    record_shapes(ops.log_einsum_exp)
+    record_shapes(ops.log_einsum_exp_bwd)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = dryrun_phase(card, torch.device("cuda"))
+    print("launches on the dry-run path: " + ", ".join(
+        f"{k} {v}" for k, v in out["counts"].items()) + f" [{card}]")
     print(card)
     return 0
 
@@ -3080,10 +3583,7 @@ def main() -> int:
         check_k3_bits(ws, leaf, got, "K3 einet_rat fused[0,4)",
                       (0, 1, 3, 37, 200, b_full - 1))
         frames = [frame(l, r) for _, l, r in inputs]
-        n_bytes = 4 * (leaf.numel() + sum(w.numel() for w in ws)
-                       + got.numel())
-        flops = sum(2 * b_full * w.shape[0] * w.shape[1] * w.shape[2] ** 2
-                    for w in ws)
+        n_bytes, flops = cost("grouped_log_einsum_exp", ws, leaf)
         k3_row = {
             "shape": f"B={b_full} x={tuple(leaf.shape)} G={len(ws)} "
                      f"K_out={[w.shape[1] for w in ws]}",
@@ -3182,10 +3682,7 @@ def main() -> int:
         g_out = rand_g(b_full, ws[-1].shape[0], ws[-1].shape[1])
         errs = check_k4(ws, leaf, g_out, "K4 fused[0,4)")
         k4_w_errs, k4_x_errs = errs[:-1], errs[-1:]
-        n_bytes = 4 * (2 * leaf.numel() + g_out.numel()
-                       + 2 * sum(w.numel() for w in ws))
-        flops = sum(b_full * w.shape[0] * (6 * w.shape[2] ** 2 * w.shape[1]
-                                           + 4 * w.shape[2] ** 2) for w in ws)
+        n_bytes, flops = cost("grouped_log_einsum_exp_bwd", ws, leaf, g_out)
         k4_row = {
             "shape": k3_row["shape"],
             "ms": time_ms(lambda: grouped_log_einsum_exp_bwd_cuda(
@@ -3403,7 +3900,6 @@ def main() -> int:
         # summed): no single call computes K5.  The per-layer plan's
         # launches at the same pairs (K1, and log_mix_exp) and its K2
         # launches stand beside K5 and K6.
-        n_w = sum(w.numel() for w in pd_ws) + sum(v.numel() for v in pd_vs)
         k5_rows = []
         for b_row in (b_pd, 64):
             x_row = pd_leaf[:b_row]
@@ -3431,7 +3927,6 @@ def main() -> int:
                     fchain += mix_ms
                     sv = torch.cat([sv, log_mix_exp(pd_vs[0], ln, mask)], 1)
                 buf = torch.cat([buf, sv], 1)
-            n_new = b_row * pd_tab.num_new_rows * pd.K
             k5_rows.append({
                 "shape": f"B={b_row} x={tuple(x_row.shape)} "
                          f"cells={[len(l) for l in pd_tab.left]} K={pd.K}",
@@ -3443,9 +3938,9 @@ def main() -> int:
                                         pd_tab, pd_ws, pd_vs, x_row)),
                 "einsum_chain_ms": yard,
                 "chain_ms": fchain,
-                "bytes": 4 * (x_row.numel() + n_w + n_new),
-                "flops": sum(2 * b_row * len(l) * pd.K ** 3
-                             for l in pd_tab.left),
+                **dict(zip(("bytes", "flops"), cost(
+                    "gather_grouped_log_einsum_exp", pd_tab, pd_ws, pd_vs,
+                    x_row))),
             })
             if b_row == b_pd:
                 k6_chain = chain
@@ -3474,9 +3969,9 @@ def main() -> int:
                 "library_ms": time_ms(autograd_yardstick(
                     lambda x, *wv: einsum_gather(pd_tab, wv[:2], wv[2:], x),
                     (x_row, *pd_ws, *pd_vs), g_row)),
-                "bytes": 4 * (2 * x_row.numel() + g_row.numel() + 2 * n_w),
-                "flops": sum(b_row * len(l) * (6 * pd.K ** 3 + 4 * pd.K ** 2)
-                             for l in pd_tab.left),
+                **dict(zip(("bytes", "flops"), cost(
+                    "gather_grouped_log_einsum_exp_bwd", pd_tab, pd_ws, pd_vs,
+                    x_row, g_row))),
             })
         k6_row = k6_rows[0]
         k6_row["chain_ms"] = k6_chain
@@ -3953,10 +4448,8 @@ def main() -> int:
                     "lkij,bli,blj->blk", w, f[0], f[1]), iters=2, warmup=1)
                 for w, l, r in big_in),
             "chain_ms": k1_chain_ms(big_in, iters=2, warmup=1),
-            "bytes": 4 * (big_leaf.numel() + sum(w.numel() for w in big_ws)
-                          + got.numel()),
-            "flops": sum(2 * b_big * w.shape[0] * w.shape[1] * w.shape[2] ** 2
-                         for w in big_ws),
+            **dict(zip(("bytes", "flops"), cost(
+                "grouped_log_einsum_exp", big_ws, big_leaf))),
             "launches": 0,
         }
         k4_big_row = {
@@ -3972,12 +4465,8 @@ def main() -> int:
                 lambda w=w, l=l, r=r, g=rand_g(b_big, w.shape[0], w.shape[1]):
                 log_einsum_exp_bwd_cuda(w, l, r, g), iters=2, warmup=1)
                 for w, l, r in big_in),
-            "bytes": 4 * (2 * big_leaf.numel() + big_g.numel()
-                          + 2 * sum(w.numel() for w in big_ws)),
-            "flops": sum(b_big * w.shape[0] * (6 * w.shape[2] ** 2
-                                                * w.shape[1]
-                                                + 4 * w.shape[2] ** 2)
-                         for w in big_ws),
+            **dict(zip(("bytes", "flops"), cost(
+                "grouped_log_einsum_exp_bwd", big_ws, big_leaf, big_g))),
             "launches": 0,
         }
         del got, big_leaf, big_g, big_in, cur
@@ -4577,6 +5066,15 @@ def main() -> int:
     bench_s = time.perf_counter() - t_bench
     print(f"production-bench phase: {bench_s:.3f} s [{card}]")
 
+    # ------------------------------------------------------ dry-run phase
+    # the capture-only dry run of every arch's EM-step cell with its
+    # roofline and the EXPERIMENTS report, einet_pd served under
+    # serve_rules(), the three examples, the lint
+    drys = dryrun_phase(card, dev, sources={
+        "bench": BENCH_DIR, "health": os.path.join(BENCH_DIR, "health"),
+        "history": os.path.join("artifacts", "bench_history_torch"),
+        "eval": [run["record"] for run in evals.values()]})
+
     # ------------------------------------------------------------- report
     # the main paths: serving, and training in both plans (full EM
     # included), of einet_rat and of einet_pd
@@ -4605,7 +5103,9 @@ def main() -> int:
              "distributed EM (sharded steps, warm-ups and captures)": {
                  k: dist_out["counts"][k] for k in serve_counts},
              "production benches (serve, train, mixture, eval)": {
-                 k: benches["counts"][k] for k in serve_counts}}
+                 k: benches["counts"][k] for k in serve_counts},
+             "dry run (cells, serving under rules, examples)": {
+                 k: drys["counts"][k] for k in serve_counts}}
     for name, c in paths.items():
         print(f"launches on the {name} path: " + ", ".join(
             f"{k} {v}" for k, v in c.items()) + f" [{card}]")
@@ -4624,7 +5124,8 @@ def main() -> int:
                soft["shapes"], mix_full["shapes"], mix_ll_shapes,
                mix_serve_shapes, *(g["shapes"] for g in graphs.values()),
                *(run["shapes"] for run in evals.values()),
-               tgraphs["shapes"], dist_out["shapes"], benches["shapes"]):
+               tgraphs["shapes"], dist_out["shapes"], benches["shapes"],
+               drys["shapes"]):
         path_shapes.update(sh)
     for (name, *shape), n in sorted(path_shapes.items()):
         print(f"{name} launches at (B, L, K_out, K) = {tuple(shape)} on the "
@@ -4653,7 +5154,7 @@ def main() -> int:
                 ms = time_ms(lambda: log_einsum_exp_bwd_cuda(w, l, r, g))
                 plain_ms = time_ms(lambda: log_einsum_exp_bwd_plain(w, l, r, g))
                 lib_ms = time_ms(autograd_yardstick(einsum_pair, (w, l, r), g))
-                n_bytes, flops = bwd_cost(b, l_cells, k, k_out)
+                n_bytes, flops = cost("log_einsum_exp_bwd", w, l, r, g)
                 print(f"K2 B={b} L={l_cells} K={k} K_out={k_out}: rows "
                       f"kernel (tile, subtiles, rows, K_out tile) "
                       f"{launch_geometry(b, l_cells, k, k_out, True)}, dW "
@@ -4672,9 +5173,7 @@ def main() -> int:
                 plain_ms = time_ms(lambda: log_einsum_exp_plain(w, l, r))
                 lib_ms = time_ms(lambda: torch.einsum(
                     "lkij,bli,blj->blk", w, el, er))
-                n_bytes = 4 * (2 * b * l_cells * k + w.numel()
-                               + b * l_cells * k_out)
-                flops = 2 * b * l_cells * k_out * k * k
+                n_bytes, flops = cost("log_einsum_exp", w, l, r)
             b_ms, b_by = bound(n_bytes, flops)
             rows.append({"shape": what, "max_abs_err": err,
                          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -4933,5 +5432,6 @@ def dist_only() -> int:
 
 if __name__ == "__main__":
     sys.exit({"--compare": compare, "--pool": pool_probe,
-              "--dist": dist_only, "--bench": bench_only}.get(
+              "--dist": dist_only, "--bench": bench_only,
+              "--dryrun": dryrun_only}.get(
                   " ".join(sys.argv[1:]), main)())

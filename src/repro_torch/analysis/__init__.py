@@ -13,8 +13,12 @@ recompile (recapture) sentry.
     storms, so "one capture per (kind, bucket)" and "one capture per step
     program" are assertable for serve, train and the mixture step.
 
-The reference's third module, its repository lint, has no counterpart
-here yet.
+  * :mod:`repro_torch.analysis.lint` -- the port's AST lint (``python -m
+    repro_torch.analysis.lint``): the reference's rules in the port's
+    idiom (kernels only through the ``KernelOp``s, programs only through
+    the registry, timing only through ``obs``) and two of its own (no
+    atomic accumulation on a row path, no CPU default).  Not imported
+    here: the CLI runs it as ``__main__``.
 """
 
 from repro_torch.analysis.sentry import CompileSentry

@@ -1,8 +1,7 @@
 """Benchmarks of the port, on the card.
 
 The paper's comparison: the port of the reference's
-``benchmarks/bench_{table1,fig3,fig6,fig4}.py`` and ``benchmarks/run.py``
-(without the roofline, which is cast in TPU terms).
+``benchmarks/bench_{table1,fig3,fig6,fig4}.py`` and ``benchmarks/run.py``.
 
   python -m repro_torch.bench.run [--full] [--only table1|fig3|fig6|fig4]
                                   [--device cpu]

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch import tree as tree_lib
 
 COMMIT_TIMEOUT_S = 600.0  # how long a writer waits for the other ranks
@@ -76,9 +77,10 @@ def _restored(ref, arr: np.ndarray):
 
 
 def _wait_for(done, what: str) -> None:
-    deadline = time.monotonic() + COMMIT_TIMEOUT_S
+    # a timeout, not a measurement: the obs clock is monotonic
+    deadline = obs.now() + COMMIT_TIMEOUT_S
     while not done():
-        if time.monotonic() > deadline:
+        if obs.now() > deadline:
             raise TimeoutError(f"checkpoint: no {what} after "
                                f"{COMMIT_TIMEOUT_S:.0f} s")
         time.sleep(_POLL_S)

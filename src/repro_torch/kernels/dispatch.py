@@ -14,13 +14,33 @@ in a ``torch.autograd.Function``.
 
 Each op counts its kernel launches and its plain-version calls in plain
 integers, so a run can show which path it went through.
+
+:func:`launch_hook` installs an observer of launches for a block: each
+launch then runs inside ``hook(op, args)``, a context manager (the step
+cost counter, ``repro_torch.launch.cost``, counts a launch's work there
+and keeps the ops inside it out of its count).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterator
+import contextlib
+from typing import Callable, Iterator, List
 
 import torch
+
+# the installed launch observers, innermost last
+_HOOKS: List[Callable] = []
+
+
+@contextlib.contextmanager
+def launch_hook(hook: Callable):
+    """Run every kernel-op launch of the block inside ``hook(op, args)``
+    (a context manager factory)."""
+    _HOOKS.append(hook)
+    try:
+        yield hook
+    finally:
+        _HOOKS.remove(hook)
 
 
 def _tensors(args) -> Iterator[torch.Tensor]:
@@ -57,13 +77,21 @@ class KernelOp:
                 f"{self.name}: tensors on several devices "
                 f"{sorted({str(t.device) for t in tensors})}"
             )
+        if device.type not in ("cuda", "cpu"):
+            raise ValueError(f"{self.name}: unsupported device {device}")
+        if not _HOOKS:
+            return self._run(device, args)
+        with contextlib.ExitStack() as stack:
+            for hook in _HOOKS:
+                stack.enter_context(hook(self, args))
+            return self._run(device, args)
+
+    def _run(self, device: torch.device, args):
         if device.type == "cuda":
             out = self.kernel(*args)
             self.launches += 1
             return out
-        if device.type == "cpu":
-            self.plain_calls += 1
-            return self.plain(*args)
-        raise ValueError(f"{self.name}: unsupported device {device}")
+        self.plain_calls += 1
+        return self.plain(*args)
 
     __call__ = launch

@@ -67,7 +67,6 @@ from __future__ import annotations
 import argparse
 import os
 import statistics
-import time
 
 import numpy as np
 import torch
@@ -201,12 +200,12 @@ def _loop(step, batches, steps: int, device: torch.device, params_of_model,
     def step_fn(state, x):
         ops.reset_counts()
         _sync(device)
-        t0 = time.perf_counter()
-        with obs.timed("train.step", metric="train.step.seconds"):
+        # the device has finished the step when the timed region closes
+        with obs.timed("train.step", metric="train.step.seconds") as t:
             out = step(x)
             ll, hv = out if watcher is not None else (out, None)
-        _sync(device)
-        times.append(time.perf_counter() - t0)
+            _sync(device)
+        times.append(t.seconds)
         launches.append({op.name: (op.launches, op.plain_calls)
                          for op in ops.KERNEL_OPS})
         obs.METRICS.counter("train.examples.count").inc(

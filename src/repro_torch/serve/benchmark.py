@@ -19,8 +19,8 @@ one-request-at-a-time paths, ported from the reference's
     engine.
 
 Differences from the reference: the model holds its own parameters, so
-there is no ``params`` argument; there are no sharding rules (one card);
-``registry`` isolates the program counts (the reference's engines always
+there is no ``params`` argument; ``rules`` go to the engine, which splits its micro-batches over the data ranks of a job
+(``ServeEngine``); ``registry`` isolates the program counts (the reference's engines always
 use the process-wide registry); the report's ``program_cache``
 ``registry_compiles`` counts every program kind (``"graph"`` on the card,
 ``"eager"`` on the CPU, where the reference counts ``"aot"``); and the
@@ -40,6 +40,7 @@ import numpy as np
 
 from repro_torch import compile as compile_lib
 from repro_torch import obs
+from repro_torch.dist import sharding as shlib
 from repro_torch.obs import METRICS, percentile_from_counts
 from repro_torch.serve.engine import LL_KINDS, Request, ServeEngine
 from repro_torch.serve.workload import direct_call, legacy_call, parity
@@ -65,6 +66,7 @@ def run_benchmark(
     max_batch: int = 0,
     reps: int = 3,
     registry: Optional[compile_lib.ProgramRegistry] = None,
+    rules: Optional[shlib.Rules] = None,
 ) -> Dict[str, Any]:
     """Serve ``requests`` through a ``ServeEngine`` over ``model``: one
     warm-up pass, ``reps`` timed passes, then each baseline once warm and
@@ -75,7 +77,8 @@ def run_benchmark(
         raise ValueError("run_benchmark needs at least one request")
     reps = max(1, int(reps))
     max_batch = max_batch or max(1, min(32, n))
-    engine = ServeEngine(model, max_batch=max_batch, registry=registry)
+    engine = ServeEngine(model, max_batch=max_batch, rules=rules,
+                         registry=registry)
     kinds = sorted({r.kind for r in requests})
     cache0 = _program_cache_counts()
 

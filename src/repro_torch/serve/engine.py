@@ -24,6 +24,25 @@ the eager ``model.query`` call.
     serves, so ``num_programs`` and ``stats`` are per engine.  ``warmup``
     captures programs ahead of a timed drain.
 
+  * Sharded execution (the reference's ``rules=``): pass a
+    ``repro_torch.dist.sharding`` rule table (``sharding.serve_rules()``)
+    and, where the job has ``n > 1`` data ranks, the engine runs SPMD:
+    every rank runs the same engine over the same request stream, each
+    micro-batch's bucket rows are split over the mesh's data dims as
+    ``sharding.batch_shardings`` splits them (a bucket that does not
+    divide is replicated, as the rule does), each rank replays its own
+    program at its share of the rows, and the results are all-gathered
+    in rank order between replays (no collective inside a captured graph).
+    Row independence (per-row seeds, ``EiNet.row_noise``) makes every kind
+    exact under the split, sampling and MPE included.  The mesh puts every
+    rank of the job on the data dim (``launch.mesh.make_mesh_for(
+    model_parallel=1)``): serving keeps the parameters whole on every
+    rank, as the forward of the sharded EM step does, so a "model" dim
+    would only repeat the work.  Without a process group, or at a data
+    dim of 1, the rules change nothing but the program keys, which carry
+    them (``_rules_key``), and the results are the engine's without rules
+    bit for bit.
+
 The engine records the reference's serve metrics (``repro_torch.obs``):
 queue depth, per-request queue wait and end-to-end latency, coalesce and
 execute times, program-cache hits and misses.
@@ -37,10 +56,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import compile as compile_lib
 from repro_torch import obs
 from repro_torch.core.einet import QUERY_KINDS
+from repro_torch.dist import sharding as shlib
 from repro_torch.obs import METRICS
 from repro_torch.serve.queue import RequestQueue, SlotManager
 
@@ -120,16 +141,29 @@ def query_fn(kind: str, component: Optional[int] = None
 
 class ServeEngine:
     """Batched exact-inference serving engine over one EiNet, or one
-    ``EiNetMixture`` (its ``query_kinds`` and ``component_kinds``)."""
+    ``EiNetMixture`` (its ``query_kinds`` and ``component_kinds``); with
+    ``rules`` in a job of ``n > 1`` ranks each micro-batch is split over
+    them."""
 
     def __init__(
         self,
         model,
         max_batch: int = 64,
         buckets: Optional[Sequence[int]] = None,
+        rules: Optional[shlib.Rules] = None,
         registry: Optional[compile_lib.ProgramRegistry] = None,
     ):
         self.model = model
+        self.rules = rules
+        # every rank of the job on the data dim (None without rules or a
+        # process group: nothing to split over)
+        self.mesh = None
+        if rules is not None and dist.is_initialized():
+            from repro_torch.launch.mesh import make_mesh_for
+
+            self.mesh = make_mesh_for(model_parallel=1,
+                                      device_type=model.device.type)
+        self._placements: Dict[int, Optional[tuple]] = {}
         if buckets is None:
             buckets = []
             b = 1
@@ -218,6 +252,37 @@ class ServeEngine:
                 return b
         return self.buckets[-1]
 
+    def _rules_key(self):
+        """The rule table as a hashable part of the program key (None
+        without rules), as in the reference."""
+        if self.rules is None:
+            return None
+        return tuple(sorted(
+            (k, tuple(v) if isinstance(v, (list, tuple)) else v)
+            for k, v in self.rules.items()))
+
+    def _split(self, bucket: int) -> Optional[tuple]:
+        """The placement of a bucket's rows on the mesh under the rules
+        (``batch_shardings``), or None when they are not split: no rules,
+        no mesh, a data dim of 1, or a bucket that does not divide."""
+        if self.mesh is None:
+            return None
+        if bucket not in self._placements:
+            rows = torch.empty((bucket, self.model.num_vars), device="meta")
+            with shlib.use_rules(self.rules):
+                pl = shlib.batch_shardings(self.mesh, {"x": rows})["x"]
+            self._placements[bucket] = pl if shlib.is_sharded(pl) else None
+        return self._placements[bucket]
+
+    def _local(self, batch: Dict[str, torch.Tensor], bucket: int
+               ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a bucket's batch (all of them unsplit)."""
+        pl = self._split(bucket)
+        if pl is None:
+            return batch
+        return {k: shlib.local_shard(v, pl, self.mesh).contiguous()
+                for k, v in batch.items()}
+
     def _program(self, kind: str, bucket: int,
                  component: Optional[int] = None) -> compile_lib.Program:
         key = self._key(kind, bucket, component)
@@ -231,8 +296,9 @@ class ServeEngine:
         before = (self.registry.stats["compiles"],
                   self.registry.stats["compile_s"])
         prog = self.registry.capture(
-            self.model, key, query_fn(kind, component),
-            assemble_batch(self.model, [], bucket))
+            self.model, key + (self._rules_key(),),
+            query_fn(kind, component),
+            self._local(assemble_batch(self.model, [], bucket), bucket))
         if self.registry.stats["compiles"] > before[0]:
             self.stats["compile_s"] += (
                 self.registry.stats["compile_s"] - before[1])
@@ -281,11 +347,16 @@ class ServeEngine:
                        kind=kind, bucket=bucket):
             batch = assemble_batch(self.model, reqs, bucket)
         # the copy to the host waits for the device, so the execute time
-        # covers the work
+        # covers the work; a split batch's rows are gathered after the
+        # replay, never inside it
         with obs.timed("serve.execute", metric="serve.execute.seconds",
                        kind=kind, bucket=bucket):
             prog = self._program(kind, bucket, component)
-            out = prog(batch).cpu().numpy()
+            out = prog(self._local(batch, bucket))
+            pl = self._split(bucket)
+            if pl is not None:
+                out = shlib.gather_full(out, pl, self.mesh)
+            out = out.cpu().numpy()
         out = out[: len(reqs)]
         self.stats["padded_rows"] += bucket - len(reqs)
         self.stats["requests"] += len(reqs)

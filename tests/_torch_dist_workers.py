@@ -166,3 +166,22 @@ def launcher_worker(rank, world, tmp, argv):
     with contextlib.redirect_stdout(buf):
         report = train.main(argv)
     return buf.getvalue(), report
+
+
+def serve_worker(rank, world, tmp, state, n_requests, max_batch, seed):
+    """The mixed stream of ``n_requests`` through ``ServeEngine(rules=
+    serve_rules())``: every rank runs the same engine over the same stream;
+    returns each request's value, the engine's mesh and stats and which
+    buckets the engine split."""
+    from repro_torch.dist.sharding import serve_rules
+    from repro_torch.serve import ServeEngine, mixed_requests
+
+    model = small_einet(state)
+    engine = ServeEngine(model, max_batch=max_batch, rules=serve_rules())
+    reqs = mixed_requests(model.num_vars, n_requests, seed=seed)
+    out = engine.run(reqs)
+    return {"values": {i: np.asarray(r.value) for i, r in out.items()},
+            "split": sorted(b for b in engine.buckets
+                            if engine._split(b) is not None),
+            "mesh": tuple(engine.mesh.shape),
+            "requests": engine.stats["requests"]}

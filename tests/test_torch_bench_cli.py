@@ -74,8 +74,15 @@ def test_dryrun_verify_cli(tmp_path):
     assert recs["einet-rat-large"]["skipped"]
     assert all(not r["skipped"] and r["ll_nonfinite"] == 0
                for k, r in recs.items() if k != "einet-rat-large")
-    out = _run(["repro_torch.launch.dryrun"], tmp_path)
-    assert out.returncode != 0 and "--verify" in out.stderr
+    # without --verify the dry run captures its cells
+    out = _run(["repro_torch.launch.dryrun", "--arch", "einet_rat",
+                "--device", "cpu", "--out", str(tmp_path / "dryrun")],
+               tmp_path)
+    assert out.returncode == 0, out.stdout + out.stderr
+    rec = json.loads((tmp_path / "dryrun" / "einet-rat__em_step__16x16.json")
+                     .read_text())
+    assert rec["arch"] == "einet-rat" and rec["flops_per_device"] > 0
+    assert "dry-run complete" in out.stdout
 
 
 def _ref_param_count(cfg):

@@ -980,3 +980,75 @@ def test_forward_sweep_reads_hit_distinct_banks(k):
                         rows = [min(rg + v * nrg, nb - 1) for _, rg in lanes]
                         assert _banks([r * kq + i for r in rows])  # el
                         assert _banks([r * kq + k for r in rows])  # maxes
+
+
+# ------------------------------------------------------- launch_cost
+def _chip_smoke_costs(name, b):
+    """The bytes and flops chip_smoke.py's bounds used inline before
+    ``kernels.cost.launch_cost`` (K1 at every pair, K2's ``bwd_cost``, K3
+    and K4 at a fused run, K5 and K6 at a gather run), each beside the
+    launch's arguments, on the "meta" device at arch ``name``'s shapes."""
+    model = build_einet(get_config(name), device="meta")
+    m = torch.device("meta")
+    out = []
+    for i, sp in enumerate(model.pair_specs):
+        w = model.einsum[i].detach()
+        cells, k_out, k = w.shape[:3]
+        lr = torch.empty(b, cells, k, device=m)
+        g = torch.empty(b, cells, k_out, device=m)
+        out.append(("log_einsum_exp", (w, lr, lr),
+                    4 * (2 * b * cells * k + w.numel() + b * cells * k_out),
+                    2 * b * cells * k_out * k * k))
+        out.append(("log_einsum_exp_bwd", (w, lr, lr, g),
+                    4 * (4 * b * cells * k + b * cells * k_out
+                         + 2 * cells * k_out * k * k),
+                    b * cells * (6 * k * k * k_out + 4 * k * k)))
+    for seg in model.exec_plan:
+        span = range(seg.start, seg.stop)
+        ws = [model.einsum[t].detach() for t in span]
+        if seg.kind == "fused":
+            x = torch.empty(b, 2 * ws[0].shape[0], model.K, device=m)
+            got = torch.empty(b, ws[-1].shape[0], ws[-1].shape[1], device=m)
+            g = torch.empty_like(got)
+            out.append(("grouped_log_einsum_exp", (ws, x),
+                        4 * (x.numel() + sum(w.numel() for w in ws)
+                             + got.numel()),
+                        sum(2 * b * w.shape[0] * w.shape[1] * w.shape[2] ** 2
+                            for w in ws)))
+            out.append(("grouped_log_einsum_exp_bwd", (ws, x, g),
+                        4 * (2 * x.numel() + g.numel()
+                             + 2 * sum(w.numel() for w in ws)),
+                        sum(b * w.shape[0] * (6 * w.shape[2] ** 2
+                                              * w.shape[1]
+                                              + 4 * w.shape[2] ** 2)
+                            for w in ws)))
+        elif seg.kind == "gather":
+            tab, k = seg.tables, model.K
+            vs = [model.mixing[t].detach() for t in span
+                  if model.pair_specs[t].mix_global is not None]
+            n_w = sum(w.numel() for w in ws) + sum(v.numel() for v in vs)
+            x = torch.empty(b, tab.num_in_rows, k, device=m)
+            g = torch.empty(b, tab.num_new_rows, k, device=m)
+            out.append(("gather_grouped_log_einsum_exp", (tab, ws, vs, x),
+                        4 * (x.numel() + n_w + b * tab.num_new_rows * k),
+                        sum(2 * b * len(l) * k ** 3 for l in tab.left)))
+            out.append(("gather_grouped_log_einsum_exp_bwd",
+                        (tab, ws, vs, x, g),
+                        4 * (2 * x.numel() + g.numel() + 2 * n_w),
+                        sum(b * len(l) * (6 * k ** 3 + 4 * k ** 2)
+                            for l in tab.left)))
+    return out
+
+
+@pytest.mark.parametrize("name, b", [("einet_rat", 2048), ("einet_rat", 64),
+                                     ("einet_pd", 512), ("einet_pd", 64)])
+def test_launch_cost_is_chip_smokes_formulas(name, b):
+    from repro_torch.kernels.cost import launch_cost
+
+    cases = _chip_smoke_costs(name, b)
+    ops_seen = {op for op, *_ in cases}
+    assert len(ops_seen) >= 4
+    for op, args, n_bytes, flops in cases:
+        assert launch_cost(op, *args) == (n_bytes, flops), op
+    with pytest.raises(KeyError):
+        launch_cost("no_such_op")

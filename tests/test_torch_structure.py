@@ -174,9 +174,13 @@ def test_mesh_defaults_to_cuda():
 
 
 # ------------------------------------------------------------ import boundary
+def _examples():
+    return sorted((ROOT / "examples").glob("*_torch.py"))
+
+
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py"] + _examples()
 
 
 def _forbidden(module: str) -> bool:
@@ -207,7 +211,14 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch/serve/benchmark.py",
             "repro_torch/dist/sharding.py", "repro_torch/dist/elastic.py",
             "repro_torch/launch/mesh.py", "repro_torch/optim/adamw.py",
-            "repro_torch/optim/compression.py"} <= names
+            "repro_torch/optim/compression.py",
+            "repro_torch/analysis/lint.py", "repro_torch/kernels/cost.py",
+            "repro_torch/launch/cost.py", "repro_torch/launch/dryrun.py",
+            "repro_torch/bench/roofline.py",
+            "repro_torch/bench/experiments.py"} <= names
+    assert [p.name for p in _examples()] == [
+        "image_inpainting_torch.py", "quickstart_torch.py",
+        "train_density_torch.py"]
 
 
 def test_port_imports_with_jax_blocked():
@@ -222,9 +233,12 @@ def test_port_imports_with_jax_blocked():
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
-        "import importlib\n"
+        "import importlib, importlib.util\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for i, p in enumerate({[str(p) for p in _examples()]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "print('imported', len(sys.modules))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
