@@ -1,0 +1,14 @@
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+BENCH = os.path.dirname(HERE)
+ROOT = os.path.dirname(BENCH)
+for p in (BENCH, os.path.join(ROOT, "src")):
+    if p not in sys.path:
+        sys.path.insert(0, p)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA GPU; skips on a machine without one")
