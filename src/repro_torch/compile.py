@@ -41,6 +41,17 @@ cost.
     (``stats``) and through ``repro_torch.obs`` (:func:`obs.compile_event`,
     :func:`obs.cache_event`, kind ``"graph"`` or ``"eager"``); the capture
     span is ``compile.graph``.
+  * Each capture of a program runs under a capture observer
+    (``repro_torch.obs.capture``): the program's spans put its graph's
+    nodes down to layers, published as ``compile.graph.nodes{program,
+    span}`` and a layer map.  The program label comes from its key
+    (:func:`query_label`, :func:`step_label`: ``query.joint_ll.64``,
+    ``em_step``, and ``em_step.body`` for a staged step's body graph).
+    Each replay adds one to ``compile.graph.replays{program}``, a counter
+    taken at capture.  A serving program on the card also times each
+    replay on the device between one reused pair of CUDA events
+    (:meth:`GraphProgram.replay_seconds`, read after the caller's own
+    synchronisation).
 
 A graph replays the weights it read at capture by address.  So a
 :class:`GraphProgram` checks, on every call, that every tensor the model
@@ -95,6 +106,31 @@ def read_tensors(model) -> List[torch.Tensor]:
 
 def _pointers(model) -> Tuple[int, ...]:
     return tuple(t.data_ptr() for t in read_tensors(model))
+
+
+def query_label(key: Hashable) -> str:
+    """A serving program's stable label for the capture counters:
+    ``query`` and its key's strings and ints, dot-joined (``("joint_ll",
+    64, None)`` is ``query.joint_ll.64``)."""
+    keys = key if isinstance(key, tuple) else (key,)
+    return ".".join(["query"] + [str(k) for k in keys
+                                 if isinstance(k, str) or type(k) is int])
+
+
+def step_label(key: Hashable) -> str:
+    """A step program's stable label: its key's first entry
+    (``("em_step", "stochastic", 1, ...)`` is ``em_step``)."""
+    return str(key[0] if isinstance(key, tuple) else key)
+
+
+def cuda_node_counter(device: torch.device) -> Callable[[], int]:
+    """The capture observer's node count on the card: the driver's count
+    of the graph the current stream captures into (called inside the
+    capture, where the capture stream is current)."""
+    from repro_torch.kernels import graph_census
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return lambda: graph_census.count_nodes(stream)
 
 
 def capture_cuda_graph(run: Callable[[], torch.Tensor], device: torch.device,
@@ -202,6 +238,13 @@ class GraphProgram:
                             for k, v in example_batch.items()}
         self.device = next(iter(self._static.values())).device
         self.replays = 0
+        self.label = query_label(key)
+        self._replays = obs.METRICS.counter("compile.graph.replays",
+                                            program=self.label)
+        # one reused pair of timing events around each replay, on the card
+        self._events = ((torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+                        if self.device.type == "cuda" else None)
         self.capture_s = self._capture(anchor)
 
     def _capture(self, anchor) -> float:
@@ -215,7 +258,8 @@ class GraphProgram:
             _warm_up(self.device, run)
             capture = self._registry.capture_fn or capture_cuda_graph
             self._replay, self._out = capture(
-                run, self.device, self._registry.pool(anchor, self.device))
+                self._registry.observed(self.label, run, self.device),
+                self.device, self._registry.pool(anchor, self.device))
         self._pointers = _pointers(anchor)
         return t.seconds
 
@@ -236,9 +280,24 @@ class GraphProgram:
         if _pointers(anchor) != self._pointers:
             self._registry._count_compile(self.kind, self.key,
                                           self._capture(anchor))
-        self._replay()
+        if self._events is None:
+            self._replay()
+        else:
+            self._events[0].record()
+            self._replay()
+            self._events[1].record()
         self.replays += 1
+        self._replays.inc()
         return self._out.clone()
+
+    def replay_seconds(self) -> Optional[float]:
+        """Device seconds of the last replay, between its timing events
+        (None off the card).  Read it only once the caller has waited for
+        the replay's output (a copy to the host): it synchronises
+        nothing."""
+        if self._events is None:
+            return None
+        return self._events[0].elapsed_time(self._events[1]) / 1e3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,8 +382,9 @@ class StepGraphs:
     """One input shape's captured step: the static batch ``x`` (and
     microbatch ``xb``), the accumulators (tree and leaves), the static
     outputs, the replays of the body graph (staged steps) and of the finish
-    graph, the pointers of the tensors the model read at capture, and the
-    memory pool both graphs were captured into (released with them)."""
+    graph, the pointers of the tensors the model read at capture, the
+    memory pool both graphs were captured into (released with them), and
+    the two graphs' ``compile.graph.replays`` counters."""
 
     pool: Any
     x: torch.Tensor
@@ -336,6 +396,8 @@ class StepGraphs:
     finish: Callable[[], None]
     pointers: Tuple[int, ...]
     capture_s: float
+    body_replays: Optional[obs.Counter]
+    finish_replays: obs.Counter
 
 
 class StepProgram:
@@ -395,6 +457,8 @@ class StepProgram:
             acc = fn.start(anchor)
             acc_leaves = tree_lib.flatten(acc)[1]
         capture = self._registry.capture_fn or capture_cuda_graph
+        observed = self._registry.observed
+        label = step_label(self.key)
         pool = new_pool(device)
         written = [p.detach() for p in anchor.parameters()]
         with obs.timed("compile.graph",
@@ -426,18 +490,27 @@ class StepProgram:
             ref = self._anchor
             body = None
             if staged:
-                body, _ = capture(lambda: fn.body(_alive(ref), acc, xb),
-                                  device, pool)
+                body, _ = capture(
+                    observed(label + ".body",
+                             lambda: fn.body(_alive(ref), acc, xb), device),
+                    device, pool)
 
             def finish_run():
                 for o, v in zip(outs, fn.finish(_alive(ref), acc, xs)):
                     o.copy_(v)
 
-            finish, _ = capture(finish_run, device, pool)
+            finish, _ = capture(observed(label, finish_run, device), device,
+                                pool)
+        counter = obs.METRICS.counter
         return StepGraphs(pool=pool, x=xs, xb=xb, acc=acc,
                           acc_leaves=acc_leaves,
                           outs=outs, body=body, finish=finish,
-                          pointers=_pointers(anchor), capture_s=t.seconds)
+                          pointers=_pointers(anchor), capture_s=t.seconds,
+                          body_replays=(counter("compile.graph.replays",
+                                                program=label + ".body")
+                                        if staged else None),
+                          finish_replays=counter("compile.graph.replays",
+                                                 program=label))
 
     def capture(self, x: torch.Tensor) -> StepGraphs:
         """The graphs of ``x``'s shape, captured now if there are none yet
@@ -476,9 +549,11 @@ class StepProgram:
             for i in range(fn.num_microbatches):
                 g.xb.copy_(g.x[i * rows: (i + 1) * rows])
                 g.body()
+            g.body_replays.inc(fn.num_microbatches)
         if fn.reduce is not None:
             fn.reduce(_alive(self._anchor), g.acc)
         g.finish()
+        g.finish_replays.inc()
         if fn.gather is not None:
             fn.gather(_alive(self._anchor))
 
@@ -497,10 +572,19 @@ class ProgramRegistry:
     is recorded, and makes programs graphs on any device: the seam a test
     uses to exercise the graph bookkeeping on the CPU.  By default a CUDA
     model's programs are graphs and a CPU model's eager.
+
+    ``node_counter(device)`` is called inside each capture and returns the
+    capture observer's node count (a function of no argument), or None to
+    observe nothing; by default :func:`cuda_node_counter` on the card and
+    None elsewhere.  The seam a test uses to count nodes on the CPU.
     """
 
-    def __init__(self, capture_fn: Optional[CaptureFn] = None):
+    def __init__(self, capture_fn: Optional[CaptureFn] = None,
+                 node_counter: Optional[
+                     Callable[[torch.device], Optional[Callable[[], int]]]
+                 ] = None):
         self.capture_fn = capture_fn
+        self.node_counter = node_counter
         self.clear()
 
     # ------------------------------------------------------------- inspection
@@ -606,6 +690,33 @@ class ProgramRegistry:
         obs.event("compile.jit", key=repr(key))
         table[key] = prog
         return prog
+
+    def observed(self, label: str, run: Callable[[], Any],
+                 device: torch.device) -> Callable[[], Any]:
+        """``run`` under a capture observer of program ``label``
+        (installed for the call, as ``obs.set_sync`` installs a hook): the
+        capture's nodes go to the spans open as they are added, and the
+        finished map is published (``obs.capture.record_capture``).  The
+        function a capture records."""
+        counter = self.node_counter
+        if counter is None:
+            counter = cuda_node_counter if device.type == "cuda" else None
+
+        def observed_run():
+            count = counter(device) if counter is not None else None
+            if count is None:
+                return run()
+            observer = obs.CaptureObserver(label, count)
+            obs.set_capture_observer(observer)
+            try:
+                out = run()
+                layer_map = observer.finish()
+            finally:
+                obs.set_capture_observer(None)
+            obs.record_capture(layer_map)
+            return out
+
+        return observed_run
 
     def _count_compile(self, kind: str, key: Hashable, seconds: float) -> None:
         self.stats["compiles"] += 1

@@ -475,10 +475,13 @@ class EiNet(nn.Module):
     # ---------------------------------------------------------------- forward
     def leaf_log_prob(self, x: torch.Tensor,
                       marg_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """EF tensor E (B, D, K, R), with marginalized variables set to log 1 = 0."""
-        e = self.ef.log_prob(x, self.phi)
-        if marg_mask is not None:
-            e = torch.where(marg_mask[:, :, None, None], e, torch.zeros_like(e))
+        """EF tensor E (B, D, K, R), with marginalized variables set to log 1 = 0.
+        A ``layer.leaf`` span, as :meth:`_leaf_rows` is."""
+        with obs.span("layer.leaf"):
+            e = self.ef.log_prob(x, self.phi)
+            if marg_mask is not None:
+                e = torch.where(marg_mask[:, :, None, None], e,
+                                torch.zeros_like(e))
         return e
 
     def _leaf_rows(self, e: torch.Tensor) -> torch.Tensor:
@@ -488,14 +491,15 @@ class EiNet(nn.Module):
         scope rows plus elementwise adds in scope order, not ``index_add_``:
         on CUDA ``index_add_`` accumulates with atomics in no fixed order,
         and a row's leaf sums must not depend on its neighbours."""
-        b, d, k, r = e.shape
-        e_flat = e.permute(1, 3, 0, 2).reshape(d * r, b, k)
-        e_flat = torch.cat([e_flat, e_flat.new_zeros(1, b, k)])
-        g = e_flat[self.leaf_gather]  # (num_leaves, S, B, K)
-        summed = g[:, 0]
-        for s in range(1, g.shape[1]):
-            summed = summed + g[:, s]
-        return summed.permute(1, 0, 2).contiguous()
+        with obs.span("layer.leaf"):
+            b, d, k, r = e.shape
+            e_flat = e.permute(1, 3, 0, 2).reshape(d * r, b, k)
+            e_flat = torch.cat([e_flat, e_flat.new_zeros(1, b, k)])
+            g = e_flat[self.leaf_gather]  # (num_leaves, S, B, K)
+            summed = g[:, 0]
+            for s in range(1, g.shape[1]):
+                summed = summed + g[:, s]
+            return summed.permute(1, 0, 2).contiguous()
 
     def forward_from_e(
         self,
@@ -511,7 +515,9 @@ class EiNet(nn.Module):
         walks the plan: each fused or gather segment is one grouped
         log-einsum-exp launch.  The sampling path (``return_cache``) needs
         every depth's activations, so it runs per layer, one launch per
-        pair.
+        pair, each pair a ``layer.einsum`` span (no plan walk: no
+        ``plan.segment``).  A segment's or pair's output marks the start
+        of its backward (``obs.grad_boundary``) for a capture observer.
         """
         if leaf_rows is None:
             leaf_rows = self._leaf_rows(e)
@@ -525,30 +531,36 @@ class EiNet(nn.Module):
         prev_out = leaf_rows
         root_out = None
         for i, spec in enumerate(self.pair_specs):
-            if spec.canonical:
-                half = spec.num_partitions
-                n_l = prev_out[:, :half, :]
-                n_r = prev_out[:, half: 2 * half, :]
-            else:
-                n_l = buffer[:, self._table(i, "left"), :]
-                n_r = buffer[:, self._table(i, "right"), :]
-            s = self.pair_log_einsum_exp(self.einsum[i], n_l, n_r)
-            health_lib.tap_segment(s)
-            new_rows = [s]
-            mix_out = None
-            if spec.mix_global is not None:
-                ln = s[:, self._table(i, "mix_child"), :]  # (B, M, C, k_out)
-                mix_out = log_mix_exp(self.mixing[i], ln,
-                                      self._table(i, "mix_mask"))
-                new_rows.append(mix_out)
-            if return_cache:
-                cache["S"].append(s)
-            if spec.is_final:
-                root_out = mix_out if spec.mix_global is not None else s[:, 0, :]
-            else:
-                prev_out = s if mix_out is None else torch.cat([s, mix_out], 1)
-                if build_buffer:
-                    buffer = torch.cat([buffer] + new_rows, dim=1)
+            with obs.span("layer.einsum", pair=i):
+                if spec.canonical:
+                    half = spec.num_partitions
+                    n_l = prev_out[:, :half, :]
+                    n_r = prev_out[:, half: 2 * half, :]
+                else:
+                    n_l = buffer[:, self._table(i, "left"), :]
+                    n_r = buffer[:, self._table(i, "right"), :]
+                s = self.pair_log_einsum_exp(self.einsum[i], n_l, n_r)
+                health_lib.tap_segment(s)
+                new_rows = [s]
+                mix_out = None
+                if spec.mix_global is not None:
+                    # (B, M, C, k_out)
+                    ln = s[:, self._table(i, "mix_child"), :]
+                    mix_out = log_mix_exp(self.mixing[i], ln,
+                                          self._table(i, "mix_mask"))
+                    new_rows.append(mix_out)
+                obs.grad_boundary(s if mix_out is None else mix_out,
+                                  "layer.einsum.bwd", pair=i)
+                if return_cache:
+                    cache["S"].append(s)
+                if spec.is_final:
+                    root_out = (mix_out if spec.mix_global is not None
+                                else s[:, 0, :])
+                else:
+                    prev_out = (s if mix_out is None
+                                else torch.cat([s, mix_out], 1))
+                    if build_buffer:
+                        buffer = torch.cat([buffer] + new_rows, dim=1)
         if root_out.dim() == 3:  # root was a mixing row: (B, 1, num_classes)
             root_out = root_out[:, 0, :]
         if return_cache:
@@ -599,10 +611,15 @@ class EiNet(nn.Module):
                     mix_out = log_mix_exp(self.mixing[i], ln,
                                           self._table(i, "mix_mask"))
                 _sync_segment(s if mix_out is None else mix_out)
-            if last.is_final:
-                root_out = mix_out if last.mix_global is not None else s[:, 0, :]
-            else:
-                prev_out = s if mix_out is None else torch.cat([s, mix_out], 1)
+                obs.grad_boundary(s if mix_out is None else mix_out,
+                                  "plan.segment.bwd", kind=seg.kind,
+                                  start=seg.start, stop=seg.stop)
+                if last.is_final:
+                    root_out = (mix_out if last.mix_global is not None
+                                else s[:, 0, :])
+                else:
+                    prev_out = (s if mix_out is None
+                                else torch.cat([s, mix_out], 1))
         if root_out.dim() == 3:
             root_out = root_out[:, 0, :]
         return root_out
@@ -631,6 +648,8 @@ class EiNet(nn.Module):
                     new = ops.gather_grouped_log_einsum_exp(seg.tables, ws,
                                                             vs, buffer)
                     health_lib.tap_segment(new)
+                    obs.grad_boundary(new, "plan.segment.bwd", kind=seg.kind,
+                                      start=seg.start, stop=seg.stop)
                     buffer = torch.cat([buffer, new], dim=1)
                     _sync_segment(buffer)
                 continue
@@ -648,11 +667,15 @@ class EiNet(nn.Module):
                     mix_out = log_mix_exp(self.mixing[i], ln,
                                           self._table(i, "mix_mask"))
                 _sync_segment(s if mix_out is None else mix_out)
-            if spec.is_final:
-                root_out = mix_out if spec.mix_global is not None else s[:, 0, :]
-            else:
-                new = s if mix_out is None else torch.cat([s, mix_out], 1)
-                buffer = torch.cat([buffer, new], dim=1)
+                obs.grad_boundary(s if mix_out is None else mix_out,
+                                  "plan.segment.bwd", kind=seg.kind,
+                                  start=seg.start, stop=seg.stop)
+                if spec.is_final:
+                    root_out = (mix_out if spec.mix_global is not None
+                                else s[:, 0, :])
+                else:
+                    new = s if mix_out is None else torch.cat([s, mix_out], 1)
+                    buffer = torch.cat([buffer, new], dim=1)
         if root_out.dim() == 3:
             root_out = root_out[:, 0, :]
         return root_out
@@ -693,9 +716,10 @@ class EiNet(nn.Module):
         ``seeds`` is a (B,) int64 tensor or a sequence of ints.  ``lead``
         floats come first, for a choice made before this model's pass (a
         mixture's component)."""
-        seeds = seed_tensor(seeds, self.device)
-        u = philox.uniforms(seeds, int(lead) + self.noise_size)
-        return torch.clamp(u, _U_MIN, 1.0 - _U_MIN)
+        with obs.span("query.noise"):
+            seeds = seed_tensor(seeds, self.device)
+            u = philox.uniforms(seeds, int(lead) + self.noise_size)
+            return torch.clamp(u, _U_MIN, 1.0 - _U_MIN)
 
     def _noise_slice(self, noise: torch.Tensor, key) -> torch.Tensor:
         off, shape = self._noise[key]
@@ -766,9 +790,17 @@ class EiNet(nn.Module):
                     f"({x.shape[0]}, {self.noise_size})")
         else:
             noise = None
+        root, cache = self.forward(x, evidence_mask, return_cache=True)
+        with obs.span("query.topdown"):
+            return self._top_down(x, evidence_mask, noise, mode, root, cache)
+
+    def _top_down(self, x: torch.Tensor, evidence_mask: torch.Tensor,
+                  noise: Optional[torch.Tensor], mode: str,
+                  root: torch.Tensor, cache: Dict[str, Any]) -> torch.Tensor:
+        """The top-down induced-tree pass of :meth:`conditional_sample`
+        from its bottom-up pass's root and cache."""
         dev = x.device
         b = x.shape[0]
-        root, cache = self.forward(x, evidence_mask, return_cache=True)
         buffer = cache["buffer"]
         dummy = self.total_rows
         comp = torch.full((b, self.total_rows + 1), -1, dtype=torch.int64,

@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.einet import EiNet
 from repro_torch.core.layers import (
     normalize_einsum_weights,
@@ -111,6 +112,11 @@ def em_statistics(model: EiNet, x: torch.Tensor) -> Dict[str, Any]:
       n_class:  (num_classes,)
       ll:       scalar summed log-likelihood (for monitoring)
       count:    scalar number of rows
+
+    Under a capture observer the backward's nodes go to the layer whose
+    output gradient completed last (``plan.segment.bwd``, and after the
+    leaf rows' gradient ``layer.leaf.bwd``), and the leaf statistics are a
+    ``layer.leaf.bwd`` span too.
     """
     with torch.no_grad():
         # the leaf rows are an input of the differentiated pass, not a
@@ -121,6 +127,7 @@ def em_statistics(model: EiNet, x: torch.Tensor) -> Dict[str, Any]:
     mixing_v = list(model.mixing)
     with torch.enable_grad():
         lr = leaf_rows.requires_grad_(True)
+        obs.grad_boundary(lr, "layer.leaf.bwd")
         logprior = torch.log(model.class_prior.detach()).requires_grad_(True)
         root = model.forward_from_e(None, leaf_rows=lr)
         val = torch.logsumexp(root + logprior[None, :], dim=-1).sum()
@@ -130,12 +137,13 @@ def em_statistics(model: EiNet, x: torch.Tensor) -> Dict[str, Any]:
     g_einsum, g_mixing = grads[:n], grads[n: 2 * n]
     g_leaf, g_prior = grads[2 * n], grads[2 * n + 1]
     with torch.no_grad():
+        with obs.span("layer.leaf.bwd"):
+            s_phi, s_den = leaf_statistics(
+                model, model.ef.sufficient_statistics(x), g_leaf)
         # sum-node statistics: n = W * dlogP/dW (summed over the batch by AD)
         n_einsum = [w.detach() * g for w, g in zip(einsum_w, g_einsum)]
         n_mixing = [v.detach() * (torch.zeros_like(v) if g is None else g)
                     for v, g in zip(mixing_v, g_mixing)]
-        s_phi, s_den = leaf_statistics(
-            model, model.ef.sufficient_statistics(x), g_leaf)
     return {
         "n_einsum": n_einsum,
         "n_mixing": n_mixing,
@@ -157,28 +165,30 @@ def m_step(model: EiNet, stats: Dict[str, Any], cfg: EMConfig,
     along its non-leading axes only, so the M-step of a leading-axis block
     of the statistics (a rank's model shard) is that block of the full
     M-step; ``mix_masks`` then gives the same block of each pair's mixing
-    mask (default: the model's whole masks)."""
-    alpha = cfg.laplace_alpha
-    einsum_w = [normalize_einsum_weights(n + alpha, floor=cfg.stat_floor)
-                for n in stats["n_einsum"]]
-    mixing_v = []
-    for i, (n, spec) in enumerate(zip(stats["n_mixing"], model.pair_specs)):
-        if spec.mix_global is None:
-            mixing_v.append(n)
-        else:
-            mask = (model._table(i, "mix_mask") if mix_masks is None
-                    else mix_masks[i])
-            mixing_v.append(normalize_mixing_weights(
-                n + alpha * mask[:, :, None], mask, floor=cfg.stat_floor))
-    den = torch.clamp(stats["s_den"], min=cfg.stat_floor)
-    phi = model.ef.project_phi(stats["s_phi"] / den[..., None])
-    prior = stats["n_class"] + alpha
-    return {
-        "phi": phi,
-        "einsum": einsum_w,
-        "mixing": mixing_v,
-        "class_prior": prior / torch.sum(prior),
-    }
+    mask (default: the model's whole masks).  An ``em.mstep`` span."""
+    with obs.span("em.mstep"):
+        alpha = cfg.laplace_alpha
+        einsum_w = [normalize_einsum_weights(n + alpha, floor=cfg.stat_floor)
+                    for n in stats["n_einsum"]]
+        mixing_v = []
+        for i, (n, spec) in enumerate(zip(stats["n_mixing"],
+                                          model.pair_specs)):
+            if spec.mix_global is None:
+                mixing_v.append(n)
+            else:
+                mask = (model._table(i, "mix_mask") if mix_masks is None
+                        else mix_masks[i])
+                mixing_v.append(normalize_mixing_weights(
+                    n + alpha * mask[:, :, None], mask, floor=cfg.stat_floor))
+        den = torch.clamp(stats["s_den"], min=cfg.stat_floor)
+        phi = model.ef.project_phi(stats["s_phi"] / den[..., None])
+        prior = stats["n_class"] + alpha
+        return {
+            "phi": phi,
+            "einsum": einsum_w,
+            "mixing": mixing_v,
+            "class_prior": prior / torch.sum(prior),
+        }
 
 
 def em_update(model: EiNet, x: torch.Tensor, cfg: EMConfig = EMConfig()):
@@ -192,18 +202,22 @@ def em_update(model: EiNet, x: torch.Tensor, cfg: EMConfig = EMConfig()):
 def blend_params(model: EiNet, params: Dict[str, Any], mini: Dict[str, Any],
                  step_size: float) -> Dict[str, Any]:
     """Sato online-EM interpolation (Eqs. 8/9):  p <- (1-l) p + l p_mini,
-    with phi projected back onto its domain afterwards."""
+    with phi projected back onto its domain afterwards.  An ``em.blend``
+    span."""
     lam = step_size
 
     def blend(old, new):
         return (1.0 - lam) * old + lam * new
 
-    return {
-        "phi": model.ef.project_phi(blend(params["phi"], mini["phi"])),
-        "einsum": [blend(o, n) for o, n in zip(params["einsum"], mini["einsum"])],
-        "mixing": [blend(o, n) for o, n in zip(params["mixing"], mini["mixing"])],
-        "class_prior": blend(params["class_prior"], mini["class_prior"]),
-    }
+    with obs.span("em.blend"):
+        return {
+            "phi": model.ef.project_phi(blend(params["phi"], mini["phi"])),
+            "einsum": [blend(o, n) for o, n in zip(params["einsum"],
+                                                   mini["einsum"])],
+            "mixing": [blend(o, n) for o, n in zip(params["mixing"],
+                                                   mini["mixing"])],
+            "class_prior": blend(params["class_prior"], mini["class_prior"]),
+        }
 
 
 def stochastic_em_update(model: EiNet, x: torch.Tensor,

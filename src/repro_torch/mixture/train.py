@@ -130,6 +130,8 @@ def mixture_em_statistics(mix: EiNetMixture,
     mixing_v = list(mix.mixing)
     with torch.enable_grad():
         lrs = [lr.requires_grad_(True) for lr in leaf_rows]
+        for lr in lrs:
+            obs.grad_boundary(lr, "layer.leaf.bwd")
         logprior = torch.log(mix.class_prior.detach()).requires_grad_(True)
         weights = mix.mixture_weights.detach().requires_grad_(True)
         comp_ll = []
@@ -147,14 +149,15 @@ def mixture_em_statistics(mix: EiNetMixture,
     g_leaf = grads[2 * n: 2 * n + c_n]
     g_prior, g_w = grads[-2], grads[-1]
     with torch.no_grad():
+        net = mix.component
+        with obs.span("layer.leaf.bwd"):
+            t = net.ef.sufficient_statistics(x)  # shared across components
+            leaf = [leaf_statistics(net, t, g) for g in g_leaf]
         # dL/dW of the routed mixture LL carries the r[b, c] factor that the
         # top-level log_mix_exp backward hands each component's cotangent
         n_einsum = [w.detach() * g for w, g in zip(einsum_w, g_einsum)]
         n_mixing = [v.detach() * (torch.zeros_like(v) if g is None else g)
                     for v, g in zip(mixing_v, g_mixing)]
-        net = mix.component
-        t = net.ef.sufficient_statistics(x)  # shared across components
-        leaf = [leaf_statistics(net, t, g) for g in g_leaf]
     return {
         "n_einsum": n_einsum,
         "n_mixing": n_mixing,

@@ -1,22 +1,47 @@
 """``repro_torch.obs``: dependency-free tracing and metrics for the port.
 
-Three parts (see the submodule docstrings):
+Four parts (see the submodule docstrings):
 
   * :mod:`repro_torch.obs.trace`   -- nestable ``span(...)`` context
-    managers, ``timed`` regions, Chrome/Perfetto ``trace_event`` export;
+    managers, ``timed`` regions, Chrome/Perfetto ``trace_event`` export on
+    torch.profiler's clock;
   * :mod:`repro_torch.obs.metrics` -- counters / gauges / log-bucket
     histograms with ``percentile(q)``, snapshot-able to plain JSON;
   * :mod:`repro_torch.obs.events`  -- the compile-event hook fed by
     ``repro_torch.compile.ProgramRegistry`` (the one source of program
-    counts).
+    counts);
+  * :mod:`repro_torch.obs.capture` -- the capture observer: a captured
+    graph's nodes put down to the spans that added them.
 
-Instrumented subsystems tag spans and metrics as ``subsystem.verb.unit``:
-``serve.request.seconds{kind,bucket}``, ``serve.queue_wait.seconds{kind}``,
-``serve.coalesce.seconds``, ``serve.execute.seconds``,
-``compile.cache.misses{kind}``, ``train.step.seconds``,
-``eval.inpaint.seconds{mask}``.  The eval and serve CLIs accept ``--trace
-out.json`` and print one ``[obs]`` summary line at exit
-(:func:`format_summary`).
+Spans (emitted when tracing is on; while a graph is captured they also
+mark its layers, on or off): ``serve.step``, ``serve.warmup``,
+``compile.graph``, ``train.step``, ``plan.segment{kind,start,stop}`` (a
+plan segment: einsum layers and mixing), ``layer.einsum{pair}`` (one pair
+of the per-layer pass), ``layer.leaf`` (``EiNet.leaf_log_prob`` and the
+leaf rows), ``query.noise`` (Philox row noise), ``query.topdown`` (the
+sampling and MPE pass), ``em.mstep``, ``em.blend``, and in a captured
+E-step ``plan.segment.bwd``, ``layer.einsum.bwd`` and ``layer.leaf.bwd``
+(the backward after each layer's output gradient is complete).
+
+Always-on metrics, ``subsystem.verb.unit{labels}``:
+
+  * serving: ``serve.request.seconds{kind,bucket}``,
+    ``serve.queue_wait.seconds{kind}`` (histograms),
+    ``serve.queue.depth`` (gauge, set once a step before the pop),
+    ``serve.step.seconds{phase}`` (counters: host seconds of the step's
+    ``assemble``, ``launch``, ``wait`` and ``finish`` phases),
+    ``serve.steps.count``, ``serve.replay.device_seconds`` and
+    ``serve.replay.count`` (the replays' device time, CUDA events),
+    ``serve.program_cache.{hits,misses}{kind}``;
+  * programs: ``compile.cache.{hits,misses}{kind}``,
+    ``compile.programs.seconds{kind}``, ``compile.graph.nodes{program,
+    span}`` (a captured graph's nodes a span), ``compile.graph.replays
+    {program}``, ``plan.segment.traces{kind}``;
+  * training: ``train.step.seconds``, ``train.examples.count``,
+    ``train.ll.last``; eval: ``eval.inpaint.seconds{mask}``.
+
+The eval and serve CLIs accept ``--trace out.json`` and print one
+``[obs]`` summary line at exit (:func:`format_summary`).
 
 Stdlib only: every module of the port may import ``repro_torch.obs``.
 The training step's health telemetry (:mod:`repro_torch.obs.health`) and
@@ -24,6 +49,12 @@ the divergence flight recorder (:mod:`repro_torch.obs.incident`) import
 torch and are imported directly, not re-exported here.
 """
 
+from repro_torch.obs.capture import (
+    CaptureObserver,
+    grad_boundary,
+    layer_maps,
+    record_capture,
+)
 from repro_torch.obs.events import (
     cache_event,
     compile_event,
@@ -39,8 +70,10 @@ from repro_torch.obs.metrics import (
     percentile_from_counts,
 )
 from repro_torch.obs.trace import (
+    BASE_NS,
     Span,
     Timed,
+    capture_observer,
     configure,
     dropped_events,
     enabled,
@@ -50,6 +83,7 @@ from repro_torch.obs.trace import (
     now,
     num_events,
     reset,
+    set_capture_observer,
     set_sync,
     span,
     sync,
@@ -58,13 +92,14 @@ from repro_torch.obs.trace import (
 )
 
 __all__ = [
-    "METRICS", "Counter", "Gauge", "Histogram", "MetricsRegistry",
-    "Span", "Timed", "cache_event", "cli_begin", "cli_end",
-    "compile_event", "configure", "dropped_events", "enabled", "event",
-    "export_trace", "format_summary", "has_sync", "now", "num_events",
-    "on_compile", "percentile_from_counts", "remove_compile_listener",
-    "reset", "set_sync", "span", "summary", "sync", "timed",
-    "trace_events",
+    "BASE_NS", "CaptureObserver", "METRICS", "Counter", "Gauge",
+    "Histogram", "MetricsRegistry", "Span", "Timed", "cache_event",
+    "capture_observer", "cli_begin", "cli_end", "compile_event",
+    "configure", "dropped_events", "enabled", "event", "export_trace",
+    "format_summary", "grad_boundary", "has_sync", "layer_maps", "now",
+    "num_events", "on_compile", "percentile_from_counts", "record_capture",
+    "remove_compile_listener", "reset", "set_capture_observer", "set_sync",
+    "span", "summary", "sync", "timed", "trace_events",
 ]
 
 
@@ -90,6 +125,16 @@ def summary() -> dict:
             f"p{q}": round(percentile_from_counts(req, q) * 1e3, 3)
             for q in (50, 95, 99)
         }
+        waits = [h for _, h in METRICS.find("serve.queue_wait.seconds")]
+        n_wait = sum(h.count for h in waits)
+        if n_wait:
+            out["serve_queue_wait_ms"] = round(
+                sum(h.total for h in waits) / n_wait * 1e3, 3)
+        n_replay = METRICS.value("serve.replay.count")
+        if n_replay:
+            out["serve_replay_ms"] = round(
+                METRICS.value("serve.replay.device_seconds") / n_replay
+                * 1e3, 3)
     steps = METRICS.sum_histogram("train.step.seconds")
     n_steps = sum(steps)
     if n_steps:
@@ -113,10 +158,13 @@ def format_summary() -> str:
     parts = []
     if "serve_requests" in s:
         lm = s["serve_latency_ms"]
-        parts.append(
-            f"serve: {s['serve_requests']} req, p50 {lm['p50']:.2f} ms, "
-            f"p95 {lm['p95']:.2f} ms, p99 {lm['p99']:.2f} ms"
-        )
+        serve = (f"serve: {s['serve_requests']} req, p50 {lm['p50']:.2f} "
+                 f"ms, p95 {lm['p95']:.2f} ms, p99 {lm['p99']:.2f} ms")
+        if "serve_queue_wait_ms" in s:
+            serve += f", queue wait {s['serve_queue_wait_ms']:.2f} ms"
+        if "serve_replay_ms" in s:
+            serve += f", replay {s['serve_replay_ms']:.3f} ms"
+        parts.append(serve)
     if "train_steps" in s:
         ex = f", {s['train_examples']} examples" if "train_examples" in s \
             else ""

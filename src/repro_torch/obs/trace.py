@@ -24,6 +24,23 @@ Both read the host clock.  CUDA work is asynchronous, so a region that
 times device work must end in a synchronisation (``.cpu()``, ``.item()``,
 ``torch.cuda.synchronize``) inside it.
 
+Event ``ts`` are microseconds after :data:`BASE_NS`, an instant on the
+clock torch.profiler stamps its events with (``start_ns()``: Unix-epoch
+nanoseconds), sampled at import beside the monotonic clock the spans read.
+So ``BASE_NS + 1000 * ts`` is an event's start on the profiler's clock,
+and an exported trace carries ``BASE_NS`` as its ``baseTimeNanoseconds``,
+the key torch.profiler's own Chrome traces carry: shifting one file's
+``ts`` by the difference of the two bases (in microseconds) puts both
+files' events on one Perfetto timeline.  Durations stay on the monotonic
+clock (:func:`now`).
+
+While a CUDA graph is captured, ``repro_torch.compile`` installs a capture
+observer (:func:`set_capture_observer`, :mod:`repro_torch.obs.capture`):
+then :func:`span` returns a real span even with tracing off, and its enter
+and exit tell the observer where each layer's graph nodes begin and end.
+The spans never emit a ``torch.profiler`` range: those show on the
+profiler's device timeline, where they would read as device work.
+
 Stdlib only: every layer of the port may import ``repro_torch.obs``.
 """
 
@@ -35,8 +52,10 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
-# trace-time clock origin: event ts are microseconds since process start
+# trace-time clock origin: event ts are microseconds after _T0_NS on the
+# monotonic clock, which is BASE_NS on torch.profiler's (Unix-epoch) clock
 _T0_NS = time.perf_counter_ns()
+BASE_NS = time.time_ns()
 
 # buffer hard cap -- a runaway instrumented loop must not eat the host;
 # events past the cap are counted, not stored
@@ -44,11 +63,13 @@ _MAX_EVENTS = 1_000_000
 
 
 class _TraceState:
-    __slots__ = ("enabled", "sync_fn", "lock", "events", "dropped")
+    __slots__ = ("enabled", "sync_fn", "observer", "lock", "events",
+                 "dropped")
 
     def __init__(self):
         self.enabled = False
         self.sync_fn: Optional[Callable[[Any], Any]] = None
+        self.observer = None
         self.lock = threading.Lock()
         self.events: List[Dict[str, Any]] = []
         self.dropped = 0
@@ -86,6 +107,19 @@ def has_sync() -> bool:
     return _STATE.sync_fn is not None
 
 
+def set_capture_observer(observer) -> None:
+    """Install the observer of a CUDA-graph capture
+    (:class:`repro_torch.obs.capture.CaptureObserver`), or clear it with
+    ``None``; ``repro_torch.compile`` installs one around each capture of a
+    program, as :func:`set_sync` installs a sync callback."""
+    _STATE.observer = observer
+
+
+def capture_observer():
+    """The installed capture observer, or None."""
+    return _STATE.observer
+
+
 def sync(value: Any) -> Any:
     """Synchronize ``value`` through the installed callback (no-op by
     default).  Instrumented compute sites call this just before their span
@@ -119,22 +153,32 @@ def _complete(name: str, t0_ns: int, t1_ns: int,
 
 
 class Span:
-    """One traced region; use via ``with span("name", key=val): ...``."""
+    """One traced region; use via ``with span("name", key=val): ...``.
+    It appends a trace event when tracing is on and marks the installed
+    capture observer's layer boundaries when one is installed."""
 
-    __slots__ = ("name", "args", "_t0")
+    __slots__ = ("name", "args", "_t0", "_observer", "_trace")
 
-    def __init__(self, name: str, args: Dict[str, Any]):
+    def __init__(self, name: str, args: Dict[str, Any], observer=None,
+                 trace: bool = True):
         self.name = name
         self.args = args
         self._t0 = 0
+        self._observer = observer
+        self._trace = trace
 
     def __enter__(self) -> "Span":
+        if self._observer is not None:
+            self._observer.enter(self.name, self.args)
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc) -> bool:
-        _append(_complete(self.name, self._t0, time.perf_counter_ns(),
-                          self.args))
+        if self._trace:
+            _append(_complete(self.name, self._t0, time.perf_counter_ns(),
+                              self.args))
+        if self._observer is not None:
+            self._observer.exit()
         return False
 
 
@@ -154,10 +198,14 @@ _NULL_SPAN = _NullSpan()
 
 
 def span(name: str, **args: Any):
-    """Nestable traced region.  Disabled -> returns a no-op singleton."""
-    if not _STATE.enabled:
-        return _NULL_SPAN
-    return Span(name, args)
+    """Nestable traced region.  Tracing off and no capture observer
+    installed -> returns a no-op singleton."""
+    observer = _STATE.observer
+    if observer is None:
+        if not _STATE.enabled:
+            return _NULL_SPAN
+        return Span(name, args)
+    return Span(name, args, observer, _STATE.enabled)
 
 
 class Timed:
@@ -239,15 +287,23 @@ def reset() -> None:
 
 
 def export_trace(path: str) -> str:
-    """Write the buffer as Chrome ``trace_event`` JSON; returns ``path``."""
+    """Write the buffer as Chrome ``trace_event`` JSON; returns ``path``.
+    ``ts`` are microseconds after the document's ``baseTimeNanoseconds``
+    (:data:`BASE_NS`) on torch.profiler's clock; ``otherData.layer_maps``
+    holds each captured program's layer map
+    (:func:`repro_torch.obs.capture.layer_maps`)."""
+    from repro_torch.obs.capture import layer_maps
+
     with _STATE.lock:
         events = list(_STATE.events)
         dropped = _STATE.dropped
     doc = {
         "traceEvents": events,
         "displayTimeUnit": "ms",
+        "baseTimeNanoseconds": BASE_NS,
         "otherData": {"producer": "repro_torch.obs",
-                      "dropped_events": dropped},
+                      "dropped_events": dropped,
+                      "layer_maps": layer_maps()},
     }
     d = os.path.dirname(path)
     if d:

@@ -44,8 +44,19 @@ the eager ``model.query`` call.
     bit for bit.
 
 The engine records the reference's serve metrics (``repro_torch.obs``):
-queue depth, per-request queue wait and end-to-end latency, coalesce and
-execute times, program-cache hits and misses.
+queue depth (once a step, before the pop), per-request queue wait and
+end-to-end latency, program-cache hits and misses; and, always on, the
+host seconds of each step's four phases, ``serve.step.seconds{phase}``:
+
+  * ``assemble`` -- the pop, and the rows to device tensors;
+  * ``launch``   -- program lookup, static copies and the replay's launch;
+  * ``wait``     -- the host blocked in the copy of the result to it;
+  * ``finish``   -- results and the latency records;
+
+with ``serve.steps.count``, and each replay's device time between the
+program's timing events (``serve.replay.device_seconds`` over
+``serve.replay.count``, on the card).  The engine holds its metric
+handles, taken from ``obs.METRICS`` when it is made.
 """
 
 from __future__ import annotations
@@ -67,6 +78,8 @@ from repro_torch.serve.queue import RequestQueue, SlotManager
 
 LL_KINDS = ("joint_ll", "marginal_ll", "conditional_ll")
 SAMPLE_KINDS = ("sample", "conditional_sample", "mpe")
+# the phases of a step, in order (serve.step.seconds{phase})
+STEP_PHASES = ("assemble", "launch", "wait", "finish")
 
 
 @dataclasses.dataclass
@@ -201,16 +214,23 @@ class ServeEngine:
         # req_id -> enqueue clock, for the queue-wait and end-to-end
         # latency metrics (popped in _execute)
         self._submit_t: Dict[int, float] = {}
+        # metric handles, taken once
+        self._depth = METRICS.gauge("serve.queue.depth")
+        self._phase = [METRICS.counter("serve.step.seconds", phase=p)
+                       for p in STEP_PHASES]
+        self._steps = METRICS.counter("serve.steps.count")
+        self._replay_s = METRICS.counter("serve.replay.device_seconds")
+        self._replay_n = METRICS.counter("serve.replay.count")
+        self._wait_hist: Dict[str, obs.Histogram] = {}
+        self._req_hist: Dict[Tuple[str, int], obs.Histogram] = {}
 
     # ----------------------------------------------------------- submission
     def submit(self, request: Request) -> None:
         self._enqueue(request)
-        METRICS.gauge("serve.queue.depth").set(len(self.queue))
 
     def submit_many(self, requests: Sequence[Request]) -> None:
         for r in requests:
             self._enqueue(r)
-        METRICS.gauge("serve.queue.depth").set(len(self.queue))
 
     def _enqueue(self, request: Request) -> None:
         if request.kind not in self.query_kinds:
@@ -336,40 +356,55 @@ class ServeEngine:
     # ------------------------------------------------------------ execution
     def _execute(self, kind: str, component: Optional[int],
                  reqs: List[Request]) -> List[Result]:
-        bucket = self._bucket_for(len(reqs))
+        """The step's batch from ``reqs``: assemble, launch, wait for the
+        result, finish; each phase's host seconds into
+        ``serve.step.seconds{phase}`` (``step`` adds the pop to
+        ``assemble``)."""
         t_pop = obs.now()
-        wait_hist = METRICS.histogram("serve.queue_wait.seconds", kind=kind)
-        for r in reqs:
-            t_sub = self._submit_t.get(r.req_id)
-            if t_sub is not None:
-                wait_hist.record(t_pop - t_sub)
-        with obs.timed("serve.coalesce", metric="serve.coalesce.seconds",
-                       kind=kind, bucket=bucket):
-            batch = assemble_batch(self.model, reqs, bucket)
-        # the copy to the host waits for the device, so the execute time
-        # covers the work; a split batch's rows are gathered after the
-        # replay, never inside it
-        with obs.timed("serve.execute", metric="serve.execute.seconds",
-                       kind=kind, bucket=bucket):
-            prog = self._program(kind, bucket, component)
-            out = prog(self._local(batch, bucket))
-            pl = self._split(bucket)
-            if pl is not None:
-                out = shlib.gather_full(out, pl, self.mesh)
-            out = out.cpu().numpy()
+        bucket = self._bucket_for(len(reqs))
+        batch = assemble_batch(self.model, reqs, bucket)
+        t_launch = obs.now()
+        # a split batch's rows are gathered after the replay, never inside
+        # it
+        prog = self._program(kind, bucket, component)
+        out = prog(self._local(batch, bucket))
+        pl = self._split(bucket)
+        if pl is not None:
+            out = shlib.gather_full(out, pl, self.mesh)
+        t_wait = obs.now()
+        # the copy to the host waits for the device
+        out = out.cpu().numpy()
+        t_done = obs.now()
+        replay_s = (prog.replay_seconds()
+                    if isinstance(prog, compile_lib.GraphProgram) else None)
+        if replay_s is not None:
+            self._replay_s.inc(replay_s)
+            self._replay_n.inc()
         out = out[: len(reqs)]
         self.stats["padded_rows"] += bucket - len(reqs)
         self.stats["requests"] += len(reqs)
-        t_done = obs.now()
-        req_hist = METRICS.histogram(
-            "serve.request.seconds", kind=kind, bucket=bucket
-        )
+        wait_hist = self._wait_hist.get(kind)
+        if wait_hist is None:
+            wait_hist = METRICS.histogram("serve.queue_wait.seconds",
+                                          kind=kind)
+            self._wait_hist[kind] = wait_hist
+        req_hist = self._req_hist.get((kind, bucket))
+        if req_hist is None:
+            req_hist = METRICS.histogram("serve.request.seconds", kind=kind,
+                                         bucket=bucket)
+            self._req_hist[(kind, bucket)] = req_hist
         results = []
         for i, r in enumerate(reqs):
             t_sub = self._submit_t.pop(r.req_id, None)
             if t_sub is not None:
+                wait_hist.record(t_pop - t_sub)
                 req_hist.record(t_done - t_sub)
             results.append(Result(r.req_id, kind, out[i]))
+        phase = self._phase
+        phase[0].inc(t_launch - t_pop)
+        phase[1].inc(t_wait - t_launch)
+        phase[2].inc(t_done - t_wait)
+        phase[3].inc(obs.now() - t_done)
         return results
 
     def step(self) -> List[Result]:
@@ -377,6 +412,7 @@ class ServeEngine:
         group -- (kind, component) -- riding along every queued request of
         that group that fits the free slots.  Returns the retired results
         (empty when idle/saturated)."""
+        t0 = obs.now()
         group = self.queue.oldest_kind()
         if group is None:
             return []
@@ -384,17 +420,19 @@ class ServeEngine:
         limit = min(self.slots.free, self.buckets[-1])
         if limit == 0:
             return []
+        self._depth.set(len(self.queue))
         reqs = self.queue.pop_kind(group, limit)
-        METRICS.gauge("serve.queue.depth").set(len(self.queue))
         leases = [self.slots.acquire() for _ in reqs]
         try:
             with obs.span("serve.step", kind=kind, n=len(reqs)):
+                self._phase[0].inc(obs.now() - t0)
                 results = self._execute(kind, component, reqs)
         finally:
             for s in leases:
                 if s is not None:
                     self.slots.release(s)
         self.stats["steps"] += 1
+        self._steps.inc()
         return results
 
     def run(self, requests: Optional[Sequence[Request]] = None
