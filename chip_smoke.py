@@ -4,7 +4,7 @@
   python3 chip_smoke.py
 
 1. Prints the card's name and power limit, turns TF32 off (and prints the
-   settings), and builds the six CUDA kernels from
+   settings), and builds the seven CUDA kernels from
    src/repro_torch/kernels/csrc with nvcc (sm_90a), one nvcc process a
    source, all at once.
 2. Forward kernel phase: holds K1 (log_einsum_exp_fwd.cu) and K3
@@ -256,6 +256,15 @@
    "kernels" line with a "rows" list per kernel, the nvidia-smi line, and
    last {"ok": true, "device": {...}}.
 
+19. Leaf-rows phase (leaf_phase, run after the dry-run phase and before
+   the report): the leaf-rows kernel (leaf_rows.cu) bit for bit the plain
+   path on the card on einet_pd, einet_rat, a RAT with padded scopes, a
+   K = 64 RAT, a Binomial and a Categorical leaf model, each unmasked and
+   masked; rows of batches of 16, 64, 512 and 2,000 and rows alone equal
+   their rows in the 2,000; einet_pd's and einet_rat's step graphs bit for
+   bit eager steps; the kernel's device time at the training shapes beside
+   the old layer's and its bound.
+
 The yardsticks, which the port never calls: K1 one torch.einsum on the
 stabilised frame; K2, K4 and K6 torch.autograd.grad through a forward whose
 contraction is one torch.einsum("lkij,bli,blj->blk") a depth on the
@@ -287,6 +296,10 @@ builds the kernels and runs only the distributed phase (15).
 
 builds the kernels and runs only the dry-run phase (17), its EXPERIMENTS
 check held to the verify, dry-run and roofline sections.
+
+  python3 chip_smoke.py --leaf
+
+builds the kernels and runs only the leaf-rows phase (19).
 
   python3 chip_smoke.py --bench
 
@@ -552,6 +565,7 @@ def eval_phase(card: str, dev) -> dict:
 
     k5, k6 = "gather_grouped_log_einsum_exp", "gather_grouped_log_einsum_exp_bwd"
     k1, k2 = "log_einsum_exp", "log_einsum_exp_bwd"
+    leaf = "leaf_rows"
     # part -> (launches, captured a program) of each call
     parts = collections.defaultdict(list)
     # engine joint_ll key -> (model, program, the requests of its first
@@ -630,34 +644,34 @@ def eval_phase(card: str, dev) -> dict:
             if steps != cfg.steps or len(parts["train"]) != 1:
                 raise AssertionError(f"{what}: {steps} EM steps")
             # the training steps are a step program's replays: the wrappers
-            # run in its warm-up and its capture only (K5, K6, K1, K2 once
-            # each a component in each)
+            # run in its warm-up and its capture only (K5, K6, K1, K2 and
+            # the leaf rows once each a component in each)
             exactly(parts["train"][0][0], {k: 2 * n_c for k in
-                                           (k5, k6, k1, k2)},
+                                           (k5, k6, k1, k2, leaf)},
                     f"{what}: {steps} EM steps (a graph step's warm-up and "
                     f"capture)")
             # an engine joint_ll batch replays its program's graph: no
             # wrapper runs, except in the batch that captures the program
-            # (its warm-up run and its capture, K5 and K1 once each a
-            # component in each)
+            # (its warm-up run and its capture, K5, K1 and the leaf rows
+            # once each a component in each)
             ll_batches = parts[prefix + "joint_ll"]
             if not ll_batches:
                 raise AssertionError(f"{what}: no engine joint_ll batch")
             for got, captured in ll_batches:
                 n = 2 * n_c if captured else 0
-                exactly(got, {k5: n, k1: n},
+                exactly(got, {k5: n, k1: n, leaf: n},
                         f"{what}: an engine {prefix}joint_ll batch"
                         + (" (capture)" if captured else ""))
             # what a replay runs: one replay of each joint_ll program
             # against an eager call on its first batch (profiled): the same
-            # bits and kernels, the eager call's ops launching K5 and K1
-            # once each a component
+            # bits and kernels, the eager call's ops launching K5, K1 and
+            # the leaf rows once each a component
             ll_kernels = {}
             for key, (m, prog, rs, comp) in programs.items():
                 got, ll_kernels[key], _ = replay_against_eager(
                     m, prog, assemble_batch(m, rs, key[1]), key[0], comp,
                     f"{what}: engine program {key}")
-                exactly(got, {k5: n_c, k1: n_c},
+                exactly(got, {k5: n_c, k1: n_c, leaf: n_c},
                         f"{what}: the eager call of program {key}")
             if not rec["train_ll_last"] > rec["train_ll_first"]:
                 raise AssertionError(
@@ -1294,7 +1308,8 @@ INCIDENT_FILES = {"incident.json", "metrics.json", "trace.json",
 
 # the port's hand-written kernels, by the CUDA function names of csrc/
 OWN_KERNELS = ("lee_", "grouped_", "gather_", "mix_", "scatter_mix",
-               "accumulate_kernel", "gv_sum", "gx_kernel", "init_kernel")
+               "accumulate_kernel", "gv_sum", "gx_kernel", "init_kernel",
+               "leaf_rows_kernel")
 
 
 def replay_breakdown(replay) -> dict:
@@ -2086,14 +2101,18 @@ def paper_phase(card: str, dev, compare_stats) -> dict:
         return ll, em.em_statistics(m, x)
 
     (ll_n, st_n), naive_counts, naive_s = part(lambda: ll_and_stats(naive))
-    if any(naive_counts.values()):
-        raise AssertionError(f"NaiveEiNet launched kernels: {naive_counts}")
+    # both share the leaf layer, as the reference's do; only the einsum
+    # layers differ, and the naive ones launch no kernel
+    if any(naive_counts[k] != (2 if k == "leaf_rows" else 0)
+           for k in naive_counts):
+        raise AssertionError(f"NaiveEiNet launched einsum kernels, or not "
+                             f"the leaf kernel twice: {naive_counts}")
     (ll_e, st_e), einet_counts, einet_s = part(lambda: ll_and_stats(net))
     kinds = collections.Counter(seg.kind for seg in net.exec_plan)
     want = {"grouped_log_einsum_exp": 2 * kinds["fused"],
             "grouped_log_einsum_exp_bwd": kinds["fused"],
             "log_einsum_exp": 2 * kinds["layer"],
-            "log_einsum_exp_bwd": kinds["layer"]}
+            "log_einsum_exp_bwd": kinds["layer"], "leaf_rows": 2}
     if any(einet_counts[k] != want.get(k, 0) for k in einet_counts):
         raise AssertionError(f"EiNet LL and E-step launched {einet_counts}, "
                              f"its plan {dict(kinds)} wants {want}")
@@ -2112,7 +2131,7 @@ def paper_phase(card: str, dev, compare_stats) -> dict:
           f"{len(net.pair_specs)} pairs) B={PAPER_ROWS}: LL max |diff| "
           f"{ll_d:.3e}, statistics within rtol 1e-4, atol 1e-6 B, naive LL "
           f"card vs CPU max |diff| {cpu_d:.3e}; launches naive "
-          f"{naive_counts} (none), EiNet {einet_counts} (plan "
+          f"{naive_counts} (the leaf kernel only), EiNet {einet_counts} (plan "
           f"{dict(kinds)}); LL + E-step naive {naive_s * 1e3:.1f} ms, EiNet "
           f"{einet_s * 1e3:.1f} ms [{card}]")
     del net, naive, naive_cpu, x, ll_n, st_n, ll_e, st_e, ll_cpu
@@ -3475,7 +3494,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     x_full = torch.randn(b_full, model.num_vars, generator=gen).to(dev)
     with torch.inference_mode():
-        leaf = model._leaf_rows(model.leaf_log_prob(x_full, None))
+        leaf = model.leaf_rows(x_full, None)
         # the per-pair inputs the main path hands the kernels: the chain of
         # plain-version outputs from the leaf rows up
         inputs, cur = [], leaf
@@ -3801,7 +3820,7 @@ def main() -> int:
     pd_data_dev = pd_data.to(dev)
     pd_xb = pd_data_dev[:b_pd]
     with torch.no_grad():
-        pd_leaf = pd._leaf_rows(pd.leaf_log_prob(pd_xb, None))
+        pd_leaf = pd.leaf_rows(pd_xb, None)
         pd_ws = [pd.einsum[t].detach() for t in range(2)]
         pd_vs = [pd.mixing[1].detach()]
 
@@ -4084,12 +4103,10 @@ def main() -> int:
         if not bool(torch.isfinite(model.log_likelihood(x_full)).all()):
             raise AssertionError("joint_ll on the 2048-row batch not finite")
         # where a joint_ll batch spends its time, stage by stage
-        e = model.leaf_log_prob(x_full, None)
         root = model.forward_from_e(None, leaf_rows=leaf)
         stages = {
-            "leaf EF log_prob": time_ms(
-                lambda: model.leaf_log_prob(x_full, None), iters=10),
-            "leaf rows": time_ms(lambda: model._leaf_rows(e), iters=10),
+            "leaf rows": time_ms(lambda: model.leaf_rows(x_full, None),
+                                 iters=10),
             "plan walk (K3 + root mixing)": time_ms(
                 lambda: model.forward_from_e(None, leaf_rows=leaf), iters=10),
             "class logsumexp": time_ms(lambda: torch.logsumexp(
@@ -4112,7 +4129,8 @@ def main() -> int:
                         "grouped_log_einsum_exp": 1,
                         "grouped_log_einsum_exp_bwd": 1,
                         "gather_grouped_log_einsum_exp": 0,
-                        "gather_grouped_log_einsum_exp_bwd": 0}:
+                        "gather_grouped_log_einsum_exp_bwd": 0,
+                        "leaf_rows": 2}:
         raise AssertionError(f"E-step launches {estep_counts}")
     t0 = time.perf_counter()
     stats_cpu = em.em_statistics(cpu_model, data[:b_full])
@@ -4167,8 +4185,10 @@ def main() -> int:
         return {"lls": lls, "median_ms": sorted(times)[len(times) // 2] * 1e3,
                 "counts": got, "shapes": shapes}
 
-    fused_want = {"grouped_log_einsum_exp": 1, "grouped_log_einsum_exp_bwd": 1}
-    layer_want = {"log_einsum_exp": 4, "log_einsum_exp_bwd": 4}
+    fused_want = {"grouped_log_einsum_exp": 1, "grouped_log_einsum_exp_bwd": 1,
+                  "leaf_rows": 1}
+    layer_want = {"log_einsum_exp": 4, "log_einsum_exp_bwd": 4,
+                  "leaf_rows": 1}
     full_model = build_einet(cfg, device=dev, seed=0)
     full = train_run(full_model, "full", 3, lambda i: xb, fused_want)
     with torch.inference_mode():
@@ -4195,9 +4215,8 @@ def main() -> int:
     with torch.no_grad():
         stats = em.em_statistics(model, xb)
         step_stages = {
-            "leaf EF log_prob + leaf rows": time_ms(
-                lambda: model._leaf_rows(model.leaf_log_prob(xb, None)),
-                iters=5, warmup=1),
+            "leaf rows": time_ms(lambda: model.leaf_rows(xb, None), iters=5,
+                                 warmup=1),
             "em_statistics (leaf layer, forward, backward, leaf statistics)":
                 time_ms(lambda: em.em_statistics(model, xb), iters=5,
                         warmup=1),
@@ -4283,12 +4302,10 @@ def main() -> int:
                 f"einet_pd joint_ll planned vs per layer: max |diff| "
                 f"{(pd_ll_plan - pd_ll_layer).abs().max().item():.3e}")
         pd_ll_ms = time_ms(lambda: pd.log_likelihood(pd_xb), iters=10)
-        pd_e = pd.leaf_log_prob(pd_xb, None)
         pd_root = pd.forward_from_e(None, leaf_rows=pd_leaf)
         pd_stages = {
-            "leaf EF log_prob": time_ms(
-                lambda: pd.leaf_log_prob(pd_xb, None), iters=10),
-            "leaf rows": time_ms(lambda: pd._leaf_rows(pd_e), iters=10),
+            "leaf rows": time_ms(lambda: pd.leaf_rows(pd_xb, None),
+                                 iters=10),
             "plan walk (K5 + K1 + root mixing)": time_ms(
                 lambda: pd.forward_from_e(None, leaf_rows=pd_leaf), iters=10),
             "per-layer walk (3 K1 + 2 mixing)": time_ms(
@@ -4297,7 +4314,6 @@ def main() -> int:
             "class logsumexp": time_ms(lambda: torch.logsumexp(
                 pd_root + torch.log(pd.class_prior)[None], -1), iters=10),
         }
-        del pd_e
     pd_qps = len(pd_reqs) / min(pd_steady)
     print(f"einet_pd joint_ll B={b_pd}: planned (K5 1, K1 1 launches) "
           f"against per layer (K1 3) max |diff| "
@@ -4317,8 +4333,9 @@ def main() -> int:
     pd_estep_pl_counts = counts_of(ops)
     planned_want = {"log_einsum_exp": 1, "log_einsum_exp_bwd": 1,
                     "gather_grouped_log_einsum_exp": 1,
-                    "gather_grouped_log_einsum_exp_bwd": 1}
-    layer_want_pd = {"log_einsum_exp": 3, "log_einsum_exp_bwd": 3}
+                    "gather_grouped_log_einsum_exp_bwd": 1, "leaf_rows": 1}
+    layer_want_pd = {"log_einsum_exp": 3, "log_einsum_exp_bwd": 3,
+                     "leaf_rows": 1}
     for got, want in ((pd_estep_counts, planned_want),
                       (pd_estep_pl_counts, layer_want_pd)):
         if any(got[k] != want.get(k, 0) for k in got):
@@ -4383,9 +4400,8 @@ def main() -> int:
     with torch.no_grad():
         stats = em.em_statistics(pd, pd_xb)
         pd_step_stages = {
-            "leaf EF log_prob + leaf rows": time_ms(
-                lambda: pd._leaf_rows(pd.leaf_log_prob(pd_xb, None)),
-                iters=5, warmup=1),
+            "leaf rows": time_ms(lambda: pd.leaf_rows(pd_xb, None), iters=5,
+                                 warmup=1),
             "em_statistics (leaf layer, forward, backward, leaf statistics)":
                 time_ms(lambda: em.em_statistics(pd, pd_xb), iters=5,
                         warmup=1),
@@ -4410,7 +4426,7 @@ def main() -> int:
         raise AssertionError(f"einet_rat_large plan is {kinds}")
     big_data = torch.from_numpy(synthetic_rat_data(big.num_vars)).to(dev)
     with torch.no_grad():
-        big_leaf = big._leaf_rows(big.leaf_log_prob(big_data[:64], None))
+        big_leaf = big.leaf_rows(big_data[:64], None)
         big_ws = [big.einsum[t].detach() for t in range(2)]
         big_geo = (2, big.K, (big.K, big.K), big_leaf.shape[0],
                    big_ws[-1].shape[0])
@@ -4621,7 +4637,7 @@ def main() -> int:
 
     mix_want = {k: n_mix for k in (
         "gather_grouped_log_einsum_exp", "gather_grouped_log_einsum_exp_bwd",
-        "log_einsum_exp", "log_einsum_exp_bwd")}
+        "log_einsum_exp", "log_einsum_exp_bwd", "leaf_rows")}
     # hard EM's first step, bit for bit, against 8 single-model steps of a
     # separate einet_celeba on the same batches
     x_hard0 = torch.from_numpy(mix_loader.batch_at(0)["x"]).to(dev)
@@ -4676,7 +4692,7 @@ def main() -> int:
     with torch.no_grad():
         for c in range(n_mix):
             with mix.bound(c) as net:
-                lr = net._leaf_rows(net.leaf_log_prob(x_hard0[c], None))
+                lr = net.leaf_rows(x_hard0[c], None)
                 ws_ = [net.einsum[t].detach() for t in range(2)]
                 vs_ = [net.mixing[t].detach() for t in range(2)
                        if net.pair_specs[t].mix_global is not None]
@@ -4708,7 +4724,7 @@ def main() -> int:
                 with mix.bound(c) as net:
                     if stage == "leaf":
                         with torch.no_grad():
-                            net._leaf_rows(net.leaf_log_prob(x_hard0[c], None))
+                            net.leaf_rows(x_hard0[c], None)
                     elif stage == "estep":
                         em.em_statistics(net, x_hard0[c])
                     else:
@@ -4772,7 +4788,7 @@ def main() -> int:
         with torch.no_grad():
             for c in range(n_mix):
                 with mix.bound(c) as net:
-                    net._leaf_rows(net.leaf_log_prob(x_soft, None))
+                    net.leaf_rows(x_soft, None)
 
     stats_now = mixture_em_statistics(mix, x_soft)
     mix_stages = {
@@ -5016,13 +5032,14 @@ def main() -> int:
     graph_s = time.perf_counter() - t_graph
     pd_joint = graphs["einet_pd"]["launch_rows"]
     # (d) at einet_pd joint_ll: a replay runs the kernels of an eager call
-    # whose ops launch K5 once and K1 once
+    # whose ops launch the leaf rows, K5 and K1 once each
     for key, got in pd_joint.items():
         if "joint_ll" in key[:2] and got != {
-                "gather_grouped_log_einsum_exp": 1, "log_einsum_exp": 1}:
+                "gather_grouped_log_einsum_exp": 1, "log_einsum_exp": 1,
+                "leaf_rows": 1}:
             raise AssertionError(f"einet_pd joint_ll {key}: a replay runs "
                                  f"the kernels of an eager call launching "
-                                 f"{got}, expected K5 1, K1 1")
+                                 f"{got}, expected leaf rows 1, K5 1, K1 1")
     bucket_rows = serve_bucket_times(card, dev, pd)
     print(f"graph-serving phase: {graph_s:.3f} s; profiled windows taken "
           f"again (a side's markers lost): {sum(FENCE_RETRIES.values())} "
@@ -5074,6 +5091,11 @@ def main() -> int:
         "bench": BENCH_DIR, "health": os.path.join(BENCH_DIR, "health"),
         "history": os.path.join("artifacts", "bench_history_torch"),
         "eval": [run["record"] for run in evals.values()]})
+
+    # ---------------------------------------------------- leaf-rows phase
+    t_leaf = time.perf_counter()
+    leaf_out = leaf_phase(card, dev)
+    print(f"leaf-rows phase: {time.perf_counter() - t_leaf:.3f} s [{card}]")
 
     # ------------------------------------------------------------- report
     # the main paths: serving, and training in both plans (full EM
@@ -5330,10 +5352,229 @@ def main() -> int:
                   f"{v:.3f}" for v in run["latency_ms"].values())
               + f" ms; wall {rec['wall_seconds']:.3f} s [{card}]")
     print(json.dumps({"kernels": kernel_json}))
+    print(json.dumps({"leaf": leaf_out}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# the leaf-rows phase: a row alone against its row in these batches, and
+# the graph steps held against as many eager steps
+LEAF_BATCHES = (16, 64, 512, 2000)
+LEAF_GRAPH_STEPS = 5
+# (model, rows) of the timed calls: the training batches and a serve bucket
+LEAF_TIMED = (("einet_pd", 512), ("einet_rat", 2000), ("einet_rat", 16))
+
+
+def leaf_phase(card: str, dev) -> dict:
+    """The leaf-rows kernel (``csrc/leaf_rows.cu``, ``ops.leaf_rows``):
+
+    (a) ``model.leaf_rows`` against the plain version on the card,
+    ``kernels.leaf_rows.leaf_rows_plain`` (the EF tensor, then its scope
+    sums) of the same operands, bit for bit, at 2,000 rows, on einet_pd,
+    einet_rat, a RAT whose scopes are padded (13 variables, depth 2), a
+    K = 64 RAT, a Binomial, a Categorical(4) and a Categorical(256) leaf
+    model at K = 64 (K tiles of 16), each without and with a
+    marginalisation mask (60% kept);
+    (b) the rows of the first b rows, for b in LEAF_BATCHES, equal the same
+    rows of the 2,000, and the first and last of them computed alone too,
+    bit for bit;
+    (c) einet_pd's (B = 512) and einet_rat's (B = 2,000) step programs
+    (``make_em_step``, stochastic EM) over LEAF_GRAPH_STEPS graph steps
+    against as many eager steps of a second model, LL and parameters bit
+    for bit, the eager steps launching the kernel once a step;
+    (d) the device time of one call at the training shapes (and einet_rat's
+    serve bucket of 16 rows): the op's CUDA path (the EF's small ops, the
+    packing and the kernel) and the old layer (the plain path on the card)
+    by CUDA events, the kernel alone by torch.profiler, its bound
+    (``launch_cost``) and the ptxas line.  Returns the figures."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import EiNet, random_binary_trees
+    from repro_torch.core.exponential_family import Binomial, Categorical
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.leaf_rows import leaf_rows_plain
+    from repro_torch.launch.cells import build_einet
+    from repro_torch.launch.train import (
+        batch_at, synthetic_pd_data, synthetic_rat_data)
+    from repro_torch.train import TrainConfig, make_em_step
+
+    gen = torch.Generator().manual_seed(0)
+    n = LEAF_BATCHES[-1]
+
+    def rat(nv, depth, reps, k, **kw):
+        return lambda: EiNet(random_binary_trees(nv, depth, reps, seed=0),
+                             num_sums=k, device=dev, seed=1, **kw)
+
+    models = {
+        "einet_pd": lambda: build_einet(get_config("einet_pd"), device=dev,
+                                        seed=0),
+        "einet_rat": lambda: build_einet(get_config("einet_rat"), device=dev,
+                                         seed=0),
+        "rat13 padded K=5": rat(13, 2, 3, 5),
+        "rat64 K=64": rat(64, 3, 4, 64),
+        "binomial(5) K=7": rat(12, 2, 2, 7, exponential_family=Binomial(5)),
+        "categorical(4) K=6": rat(12, 2, 2, 6,
+                                  exponential_family=Categorical(4)),
+        # 256 statistics: one position of K = 64 does not fit, K tiles of 16
+        "categorical(256) K=64": rat(64, 2, 2, 64,
+                                     exponential_family=Categorical(256)),
+    }
+
+    def data(model, b):
+        shape = (b, model.num_vars)
+        if isinstance(model.ef, Binomial):
+            x = torch.randint(0, model.ef.n_trials + 1, shape, generator=gen)
+        elif isinstance(model.ef, Categorical):
+            x = torch.randint(0, model.ef.num_categories, shape,
+                              generator=gen)
+        else:
+            x = torch.randn(shape, generator=gen)
+        keep = torch.rand(shape, generator=gen) > 0.4
+        return x.float().to(dev), keep.to(dev)
+
+    def operands(model, x, mask):
+        theta = model.ef.expectation_to_natural(model.phi)
+        return (theta, model.ef.log_normalizer(theta),
+                model.ef.sufficient_statistics(x), model.ef.log_h(x), mask,
+                model.leaf_gather)
+
+    def differ(a, b):
+        d = (a - b).abs()
+        return f"max |diff| {d.max().item():.3e} at {d.argmax().item()}"
+
+    out = {"checks": 0, "times": {}, "graph": {}}
+    kept = {}
+    # ---- (a) + (b)
+    with torch.no_grad():
+        for name, make in models.items():
+            model = make()
+            x, keep = data(model, n)
+            for mask in (None, keep):
+                tag = f"leaf rows {name} {'masked' if mask is not None else 'unmasked'}"
+
+                def cut(lo, hi):
+                    return None if mask is None else mask[lo:hi]
+
+                ops.reset_counts()
+                full = model.leaf_rows(x, mask)
+                if ops.leaf_rows.launches != 1:
+                    raise AssertionError(f"{tag}: {ops.leaf_rows.launches} "
+                                         "kernel launches, expected 1")
+                plain = leaf_rows_plain(*operands(model, x, mask))
+                if not bits_equal(full, plain):
+                    raise AssertionError(f"{tag} B={n}: the kernel differs "
+                                         f"from the plain path, "
+                                         f"{differ(full, plain)}")
+                for b in LEAF_BATCHES:
+                    part = model.leaf_rows(x[:b], cut(0, b))
+                    if not bits_equal(part, full[:b]):
+                        raise AssertionError(f"{tag}: B={b} differs from the "
+                                             f"same rows of B={n}")
+                    for r in (0, b - 1):
+                        alone = model.leaf_rows(x[r:r + 1], cut(r, r + 1))
+                        if not bits_equal(alone[0], full[r]):
+                            raise AssertionError(
+                                f"{tag}: row {r} alone differs from row {r} "
+                                f"in B={b}")
+                out["checks"] += 1
+            if name in ("einet_pd", "einet_rat"):
+                kept[name] = model
+            else:
+                del model
+    print(f"leaf rows: kernel bit for bit the plain path on the card on "
+          f"{len(models)} models x (unmasked, masked) at B={n}; rows of "
+          f"B in {LEAF_BATCHES} and rows alone equal their rows in B={n} "
+          f"[{card}]")
+
+    # ---- (d)
+    with torch.no_grad():
+        for name, b in LEAF_TIMED:
+            model = kept[name]
+            x, _ = data(model, b)
+            args = operands(model, x, None)
+            new_ms = time_ms(lambda: model.leaf_rows(x, None), iters=50)
+            old_ms = time_ms(
+                lambda: leaf_rows_plain(*operands(model, x, None)), iters=20)
+            parts = kernel_parts(lambda: model.leaf_rows(x, None))
+            kern_ms = sum(us for nm, _, us in parts
+                          if "leaf_rows_kernel" in nm) / 1e3
+            old_parts = kernel_parts(
+                lambda: leaf_rows_plain(*operands(model, x, None)))
+            old_kern_ms = sum(us for _, _, us in old_parts) / 1e3
+            old_launches = sum(c for _, c, _ in old_parts)
+            n_bytes, flops = cost("leaf_rows", *args)
+            bound_ms, by = bound(n_bytes, flops)
+            key = f"{name} B={b}"
+            out["times"][key] = {
+                "kernel_ms": kern_ms, "op_ms": new_ms,
+                "op_launches": sum(c for _, c, _ in parts),
+                "op_kernels_us": [(nm[:60], c, us) for nm, c, us in parts],
+                "old_layer_ms": old_ms, "old_device_ms": old_kern_ms,
+                "old_launches": old_launches, "bound_ms": bound_ms,
+                "bound_by": by, "bytes": n_bytes, "flops": flops}
+            print(f"leaf rows {key}: kernel {kern_ms:.4f} ms (bound "
+                  f"{bound_ms:.4f} ms by {by}, "
+                  f"{100 * bound_ms / kern_ms:.1f}%); the op "
+                  f"{new_ms:.4f} ms a call, "
+                  f"{out['times'][key]['op_launches']:.0f} kernels; the old "
+                  f"layer {old_ms:.4f} ms a call, {old_kern_ms:.4f} ms of "
+                  f"device time in {old_launches:.0f} kernels [{card}]")
+    # ---- (c)
+    steps = (("einet_pd", synthetic_pd_data, LEAF_TIMED[0][1]),
+             ("einet_rat", synthetic_rat_data, LEAF_TIMED[1][1]))
+    for name, make_data, b in steps:
+        cfg = get_config(name)
+        g = build_einet(cfg, device=dev, seed=0)
+        e = build_einet(cfg, device=dev, seed=0)
+        d = torch.from_numpy(make_data(g.num_vars)).to(dev)
+        xs = [batch_at(d, i, b) for i in range(LEAF_GRAPH_STEPS)]
+        g_step = make_em_step(g, TrainConfig())
+        e_step = eager_em_step(e, TrainConfig())
+        lls_g = [g_step(x) for x in xs]
+        ops.reset_counts()
+        lls_e = [e_step(x) for x in xs]
+        torch.cuda.synchronize()
+        if ops.leaf_rows.launches != LEAF_GRAPH_STEPS:
+            raise AssertionError(f"{name}: {ops.leaf_rows.launches} leaf "
+                                 f"launches in {LEAF_GRAPH_STEPS} eager steps")
+        if lls_g != lls_e or not all(
+                bits_equal(p.detach(), q.detach())
+                for p, q in zip(g.parameters(), e.parameters())):
+            raise AssertionError(
+                f"{name}: {LEAF_GRAPH_STEPS} graph steps differ from eager "
+                f"steps (LLs {lls_g} vs {lls_e})")
+        out["graph"][name] = {"lls": lls_g}
+        print(f"leaf rows {name} B={b}: {LEAF_GRAPH_STEPS} graph steps bit "
+              f"for bit {LEAF_GRAPH_STEPS} eager steps (LL "
+              f"{lls_g[0]:.4f} -> {lls_g[-1]:.4f}) [{card}]")
+        del g, e, g_step, d
+    return out
+
+
+def leaf_only() -> int:
+    """``--leaf``: builds the kernels and runs only the leaf-rows phase."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+
+    reports = build.build(force=True)
+    card = smi_line()
+    for line in reports["leaf_rows"].strip().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  leaf_rows: {line.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = leaf_phase(card, torch.device("cuda"))
+    print(f"leaf-rows phase: {time.perf_counter() - t0:.3f} s [{card}]")
+    print(json.dumps({"leaf": out}))
+    print(card)
     return 0
 
 
@@ -5433,5 +5674,5 @@ def dist_only() -> int:
 if __name__ == "__main__":
     sys.exit({"--compare": compare, "--pool": pool_probe,
               "--dist": dist_only, "--bench": bench_only,
-              "--dryrun": dryrun_only}.get(
+              "--dryrun": dryrun_only, "--leaf": leaf_only}.get(
                   " ".join(sys.argv[1:]), main)())

@@ -27,8 +27,8 @@ The port's counterpart of ``repro/analysis/lint.py``.  Six rules:
     ``scatter_reduce(_)`` or ``index_put(_)(..., accumulate=True)`` on the
     row paths (``core/``, ``serve/``, ``mixture/``, ``eval/``): on CUDA
     they accumulate with atomics in no fixed order, which breaks row
-    independence and the bitwise EM statistics (``core/einet.py``
-    ``_leaf_rows``).
+    independence and the bitwise EM statistics (``core/layers.py``
+    ``scope_sums``).
   * ``cpu-default``         -- no parameter default of ``"cpu"`` or
     ``torch.device("cpu")``, nor a module-level constant holding one used
     as a default, anywhere in the package: every entry point runs on the

@@ -6,13 +6,14 @@ numpy), plans how the pairs execute (``core.plan``), and holds the learnable
 state as ``nn.Parameter``s: ``phi`` (leaf EF parameters), ``einsum`` and
 ``mixing`` (one entry per pair) and ``class_prior``.  The forward pass is
 
-    leaf EF tensor -> sum into leaf rows -> per plan segment: one grouped
-    log-einsum-exp launch (fused runs) or one per-layer launch, then the
-    pair's mixing -> root log-densities.
+    leaf rows (the EF log-densities summed over each leaf's scope) -> per
+    plan segment: one grouped log-einsum-exp launch (fused runs) or one
+    per-layer launch, then the pair's mixing -> root log-densities.
 
-On a CUDA device the log-einsum-exp ops (per pair, canonical run, gather
-run) launch hand-written kernels (``repro_torch.kernels``), forward and,
-under autograd, backward; on the CPU they run their plain PyTorch versions.
+On a CUDA device the leaf rows are one hand-written kernel and the
+log-einsum-exp ops (per pair, canonical run, gather run) launch
+hand-written kernels (``repro_torch.kernels``), forward and, under
+autograd, backward; on the CPU they run their plain PyTorch versions.
 So the bottom-up pass serves under ``torch.inference_mode()`` and trains by
 autodiff EM (``repro_torch.core.em``) on the card, for every plan.
 
@@ -46,6 +47,7 @@ from repro_torch.core.layers import (
     log_mix_exp,
     normalize_einsum_weights,
     normalize_mixing_weights,
+    scope_sums,
 )
 from repro_torch.kernels import ops
 from repro_torch.obs import health as health_lib
@@ -473,33 +475,22 @@ class EiNet(nn.Module):
         self.class_prior.copy_(prior / torch.sum(prior))
 
     # ---------------------------------------------------------------- forward
-    def leaf_log_prob(self, x: torch.Tensor,
-                      marg_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """EF tensor E (B, D, K, R), with marginalized variables set to log 1 = 0.
-        A ``layer.leaf`` span, as :meth:`_leaf_rows` is."""
+    def leaf_rows(self, x: torch.Tensor,
+                  marg_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """The leaf layer: leaf-region rows (B, num_leaves, K), each the sum
+        of its scope's EF log-densities, marginalized variables adding 0.
+        One ``layer.leaf`` span: the family's statistics and parameters in
+        plain PyTorch, then the leaf-rows op (``kernels.ops.leaf_rows``),
+        which on CUDA is one kernel that never builds the EF tensor and on
+        the CPU builds it and sums its scopes, the same bits.  Under
+        autograd the rows raise on backward: the E-step builds them under
+        ``no_grad``."""
         with obs.span("layer.leaf"):
-            e = self.ef.log_prob(x, self.phi)
-            if marg_mask is not None:
-                e = torch.where(marg_mask[:, :, None, None], e,
-                                torch.zeros_like(e))
-        return e
-
-    def _leaf_rows(self, e: torch.Tensor) -> torch.Tensor:
-        """Factorize E into leaf-region rows: (B, num_leaves, K).
-
-        The reference's ``segment_sum`` becomes a gather of each leaf's
-        scope rows plus elementwise adds in scope order, not ``index_add_``:
-        on CUDA ``index_add_`` accumulates with atomics in no fixed order,
-        and a row's leaf sums must not depend on its neighbours."""
-        with obs.span("layer.leaf"):
-            b, d, k, r = e.shape
-            e_flat = e.permute(1, 3, 0, 2).reshape(d * r, b, k)
-            e_flat = torch.cat([e_flat, e_flat.new_zeros(1, b, k)])
-            g = e_flat[self.leaf_gather]  # (num_leaves, S, B, K)
-            summed = g[:, 0]
-            for s in range(1, g.shape[1]):
-                summed = summed + g[:, s]
-            return summed.permute(1, 0, 2).contiguous()
+            theta = self.ef.expectation_to_natural(self.phi)
+            return ops.leaf_rows(
+                theta, self.ef.log_normalizer(theta),
+                self.ef.sufficient_statistics(x), self.ef.log_h(x),
+                marg_mask, self.leaf_gather)
 
     def forward_from_e(
         self,
@@ -520,7 +511,8 @@ class EiNet(nn.Module):
         of its backward (``obs.grad_boundary``) for a capture observer.
         """
         if leaf_rows is None:
-            leaf_rows = self._leaf_rows(e)
+            with obs.span("layer.leaf"):
+                leaf_rows = scope_sums(e, self.leaf_gather)
         if self.grouped_active and not return_cache:
             if self.needs_buffer:
                 return self._forward_planned_buffer(leaf_rows)
@@ -686,8 +678,8 @@ class EiNet(nn.Module):
         marg_mask: Optional[torch.Tensor] = None,
         return_cache: bool = False,
     ):
-        e = self.leaf_log_prob(x, marg_mask)
-        return self.forward_from_e(e, return_cache=return_cache)
+        return self.forward_from_e(None, return_cache=return_cache,
+                                   leaf_rows=self.leaf_rows(x, marg_mask))
 
     def log_likelihood(
         self, x: torch.Tensor, marg_mask: Optional[torch.Tensor] = None

@@ -120,9 +120,9 @@ def em_statistics(model: EiNet, x: torch.Tensor) -> Dict[str, Any]:
     """
     with torch.no_grad():
         # the leaf rows are an input of the differentiated pass, not a
-        # function of phi: their gather's backward would accumulate with
-        # atomics on CUDA
-        leaf_rows = model._leaf_rows(model.leaf_log_prob(x, None))
+        # function of phi: the leaf-rows op has no backward, and the plain
+        # path's gather backward would accumulate with atomics on CUDA
+        leaf_rows = model.leaf_rows(x, None)
     einsum_w = list(model.einsum)
     mixing_v = list(model.mixing)
     with torch.enable_grad():

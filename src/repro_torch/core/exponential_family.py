@@ -85,15 +85,23 @@ class ExponentialFamily:
           (B, D, K, R) log-densities.
         """
         theta = self.expectation_to_natural(phi)  # (D, K, R, T)
-        t = self.sufficient_statistics(x)  # (B, D, T)
-        # T(x)^T theta as elementwise products summed in a fixed order: a
-        # contraction routed through a GEMM could round a row differently
-        # depending on how many rows share the call
-        dot = t[:, :, None, None, 0] * theta[None, ..., 0]
-        for i in range(1, theta.shape[-1]):
-            dot = dot + t[:, :, None, None, i] * theta[None, ..., i]
-        a = self.log_normalizer(theta)  # (D, K, R)
-        return self.log_h(x)[:, :, None, None] + dot - a[None]
+        return log_density(self.sufficient_statistics(x), self.log_h(x),
+                            theta, self.log_normalizer(theta))
+
+
+def log_density(t: torch.Tensor, log_h: torch.Tensor, theta: torch.Tensor,
+                a: torch.Tensor) -> torch.Tensor:
+    """The EF tensor (B, D, K, R) from its parts: log h(x) + T(x)^T theta -
+    A(theta), with t (B, D, |T|) and log_h (B, D) of the data, theta (D, K,
+    R, |T|) and a (D, K, R).  The leaf-rows kernel
+    (``kernels/csrc/leaf_rows.cu``) rounds each term as this does."""
+    # T(x)^T theta as elementwise products summed in a fixed order: a
+    # contraction routed through a GEMM could round a row differently
+    # depending on how many rows share the call
+    dot = t[:, :, None, None, 0] * theta[None, ..., 0]
+    for i in range(1, theta.shape[-1]):
+        dot = dot + t[:, :, None, None, i] * theta[None, ..., i]
+    return log_h[:, :, None, None] + dot - a[None]
 
 
 class Normal(ExponentialFamily):

@@ -9,9 +9,10 @@ einsum contracts numbers in (0, 1], then add the maxes back after the ``log``.
 ``log_einsum_exp`` and ``grouped_log_einsum_exp`` here are the plain
 versions of the port's two forward kernels (``repro_torch.kernels``): the
 kernel wrappers run them for CPU tensors, and the tests and ``chip_smoke.py``
-hold the kernels against them.  ``log_mix_exp`` has no kernel (the
-reference runs it as an XLA op with a custom VJP), so this is its only
-implementation, forward and backward.
+hold the kernels against them; ``scope_sums`` is the second half of the
+leaf-rows kernel's plain version (``kernels/leaf_rows.py``).
+``log_mix_exp`` has no kernel (the reference runs it as an XLA op with a
+custom VJP), so this is its only implementation, forward and backward.
 """
 
 from __future__ import annotations
@@ -155,6 +156,26 @@ def log_mix_exp(v: torch.Tensor, ln: torch.Tensor,
         return _LogMixExp.apply(v, ln, mask)
     a, _, s = mix_frame(v, ln, mask)
     return a[:, :, 0, :] + torch.log(s)
+
+
+def scope_sums(e: torch.Tensor, gather: torch.Tensor) -> torch.Tensor:
+    """The leaf layer's factorisation: the EF tensor E (B, D, K, R) summed
+    over each leaf's scope into leaf rows (B, num_leaves, K).  ``gather``
+    (num_leaves, S) lists each leaf's (variable R + replica) rows in scope
+    order, padded with D R, an all-zero row.
+
+    The reference's ``segment_sum`` becomes a gather of each leaf's scope
+    rows plus elementwise adds in scope order, not ``index_add_``: on CUDA
+    ``index_add_`` accumulates with atomics in no fixed order, and a row's
+    leaf sums must not depend on its neighbours."""
+    b, d, k, r = e.shape
+    e_flat = e.permute(1, 3, 0, 2).reshape(d * r, b, k)
+    e_flat = torch.cat([e_flat, e_flat.new_zeros(1, b, k)])
+    g = e_flat[gather]  # (num_leaves, S, B, K)
+    summed = g[:, 0]
+    for s in range(1, g.shape[1]):
+        summed = summed + g[:, s]
+    return summed.permute(1, 0, 2).contiguous()
 
 
 def gumbel(u: torch.Tensor) -> torch.Tensor:

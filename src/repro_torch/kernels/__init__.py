@@ -10,11 +10,15 @@ Hopper (sm_90a), each beside its plain PyTorch version.
   * ``ops.gather_grouped_log_einsum_exp`` -- a gather run of pairs
     (Poon-Domingos, mixing included) in one launch (``grouped.py``,
     ``csrc/gather_fwd.cu``, backward ``csrc/gather_bwd.cu``).
+  * ``ops.leaf_rows`` -- the leaf layer (EF log-densities summed over each
+    leaf's scope) in one launch (``leaf_rows.py``, ``csrc/leaf_rows.cu``).
 
 Kernels are built with ``nvcc`` on first use (``build.py``); importing this
 package builds nothing and needs no CUDA.
 """
 
-from repro_torch.kernels import build, dispatch, grouped, log_einsum_exp, ops
+from repro_torch.kernels import (build, dispatch, grouped, leaf_rows,
+                                 log_einsum_exp, ops)
 
-__all__ = ["build", "dispatch", "grouped", "log_einsum_exp", "ops"]
+__all__ = ["build", "dispatch", "grouped", "leaf_rows", "log_einsum_exp",
+           "ops"]

@@ -1,9 +1,10 @@
 """The work of one kernel launch, from its shapes: bytes it must move and
 floating-point operations it must do.
 
-:func:`launch_cost` is the one count of a K1-K6 launch that the step cost
-counter (``repro_torch.launch.cost``) and ``chip_smoke.py``'s bounds read.
-It counts what a launch cannot avoid, whatever kernel implements it:
+:func:`launch_cost` is the one count of a K1-K6 or leaf-rows launch that
+the step cost counter (``repro_torch.launch.cost``) and ``chip_smoke.py``'s
+bounds read.  It counts what a launch cannot avoid, whatever kernel
+implements it:
 
   * bytes: each input read once and each output written once, float32
     (the weights included; a backward's weight gradients as one write the
@@ -15,8 +16,11 @@ It counts what a launch cannot avoid, whatever kernel implements it:
 
 A gather run's mixing and the max-shift's exponentials and logarithms are
 not counted: they are O(K) a cell and row against the contraction's
-O(K^2 K_out).  The arguments are a launch's own (tensors, or anything with
-``shape`` and ``numel()``, such as meta tensors):
+O(K^2 K_out).  The leaf rows count the EF contraction T(x)^T theta over
+every (row, variable, component, replica), 2 |T| flops each, as the
+reference's leaf dot counts; their adds of log h and A and the scope sums
+are not counted.  The arguments are a launch's own (tensors, or anything
+with ``shape`` and ``numel()``, such as meta tensors):
 
   ``log_einsum_exp``                     (w, ln_left, ln_right)
   ``log_einsum_exp_bwd``                 (w, ln_left, ln_right, g)
@@ -24,6 +28,8 @@ O(K^2 K_out).  The arguments are a launch's own (tensors, or anything with
   ``grouped_log_einsum_exp_bwd``         (ws, x, g_out)
   ``gather_grouped_log_einsum_exp``      (tables, ws, vs, x)
   ``gather_grouped_log_einsum_exp_bwd``  (tables, ws, vs, x, g_out)
+  ``leaf_rows``                          (theta, a, t, log_h, marg_mask,
+                                          gather)
 """
 
 from __future__ import annotations
@@ -83,4 +89,13 @@ def launch_cost(op_name: str, *args) -> Tuple[int, int]:
                     for left, w in zip(tables.left, ws))
         return F32 * (2 * int(x.numel()) + int(g_out.numel())
                       + 2 * (_numel(ws) + _numel(vs))), flops
+    if op_name == "leaf_rows":
+        theta, a, t, log_h, marg_mask, gather = args[:6]
+        d, k, r, n_t = (int(s) for s in theta.shape)
+        b = int(t.shape[0])
+        # theta, A, t and log h read, the rows written; the mask a byte
+        mask = 0 if marg_mask is None else int(marg_mask.numel())
+        return (F32 * (int(theta.numel()) + int(a.numel()) + int(t.numel())
+                       + int(log_h.numel()) + b * int(gather.shape[0]) * k)
+                + mask, 2 * b * d * k * r * n_t)
     raise KeyError(f"no cost model for kernel op {op_name!r}")

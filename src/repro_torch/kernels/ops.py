@@ -11,13 +11,19 @@ kernels, CPU tensors run their plain PyTorch versions.
   * ``gather_grouped_log_einsum_exp(tables, ws, vs, x)`` -- a gather run of
     depths (Poon-Domingos, mixing included) in one launch: forward
     ``csrc/gather_fwd.cu`` (K5), backward ``csrc/gather_bwd.cu`` (K6).
+  * ``leaf_rows(theta, a, t, log_h, marg_mask, gather)`` -- the leaf layer,
+    EF log-densities and scope sums, in one launch (``csrc/leaf_rows.cu``);
+    no backward.
 
-All three work under autograd: each is a ``torch.autograd.Function`` that
-saves the unpadded primals and calls its backward op
-(``log_einsum_exp_bwd``, ``grouped_log_einsum_exp_bwd``,
+The three einsum ops work under autograd: each is a
+``torch.autograd.Function`` that saves the unpadded primals and calls its
+backward op (``log_einsum_exp_bwd``, ``grouped_log_einsum_exp_bwd``,
 ``gather_grouped_log_einsum_exp_bwd``), which recomputes the forward's
 frame from them.  Without autograd (serving, under
-``torch.inference_mode()``) the forward op runs directly.
+``torch.inference_mode()``) the forward op runs directly.  ``leaf_rows``
+under autograd gives rows whose backward raises: the E-step differentiates
+from leaf rows built under ``no_grad``, so nothing takes a gradient into
+the leaf parameters through them.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from repro_torch.kernels.log_einsum_exp import (
     log_einsum_exp_cuda,
     log_einsum_exp_plain,
 )
+from repro_torch.kernels.leaf_rows import leaf_rows_cuda, leaf_rows_plain
 
 
 def _needs_grad(tensors) -> bool:
@@ -90,6 +97,21 @@ class _GatherGroupedLogEinsumExp(torch.autograd.Function):
         return (None, None, gx, *gws, *gvs)
 
 
+class _LeafRows(torch.autograd.Function):
+    # the mask and the table are not differentiable; no backward kernel
+    @staticmethod
+    def forward(ctx, theta, a, t, log_h, marg_mask, gather):
+        return leaf_rows.launch(theta, a, t, log_h, marg_mask, gather)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError(
+            "leaf_rows has no backward: the leaf rows are not differentiable "
+            "in the leaf parameters.  The E-step (core.em.em_statistics) "
+            "builds them under torch.no_grad() and differentiates from the "
+            "rows themselves; build them so, or detach phi")
+
+
 class LogEinsumExpOp(KernelOp):
     """K1 forward, differentiable through K2."""
 
@@ -118,6 +140,15 @@ class GatherGroupedLogEinsumExpOp(KernelOp):
         return self.launch(tables, ws, vs, x)
 
 
+class LeafRowsOp(KernelOp):
+    """The leaf-rows kernel; under autograd its rows raise on backward."""
+
+    def __call__(self, theta, a, t, log_h, marg_mask, gather):
+        if _needs_grad((theta, a, t, log_h)):
+            return _LeafRows.apply(theta, a, t, log_h, marg_mask, gather)
+        return self.launch(theta, a, t, log_h, marg_mask, gather)
+
+
 log_einsum_exp = LogEinsumExpOp(
     "log_einsum_exp", log_einsum_exp_cuda, log_einsum_exp_plain)
 log_einsum_exp_bwd = KernelOp(
@@ -136,9 +167,11 @@ gather_grouped_log_einsum_exp_bwd = KernelOp(
     "gather_grouped_log_einsum_exp_bwd", gather_grouped_log_einsum_exp_bwd_cuda,
     gather_grouped_log_einsum_exp_bwd_plain)
 
+leaf_rows = LeafRowsOp("leaf_rows", leaf_rows_cuda, leaf_rows_plain)
+
 KERNEL_OPS = (log_einsum_exp, log_einsum_exp_bwd, grouped_log_einsum_exp,
               grouped_log_einsum_exp_bwd, gather_grouped_log_einsum_exp,
-              gather_grouped_log_einsum_exp_bwd)
+              gather_grouped_log_einsum_exp_bwd, leaf_rows)
 
 
 def reset_counts() -> None:

@@ -117,15 +117,15 @@ def mixture_em_statistics(mix: EiNetMixture,
 
     Returns the single-model statistics dict with a leading component axis on
     every tensor, plus ``n_weight`` (C,) = sum_b r[b, c].  Each component's
-    leaf rows are built under ``no_grad``, one component at a time (its EF
-    tensor is (B, D, K, R)), as ``em.em_statistics`` builds them.
+    leaf rows are built under ``no_grad``, one component at a time, as
+    ``em.em_statistics`` builds them.
     """
     c_n = mix.num_components
     with torch.no_grad():
         leaf_rows = []
         for c in range(c_n):
             with mix.bound(c) as net:
-                leaf_rows.append(net._leaf_rows(net.leaf_log_prob(x, None)))
+                leaf_rows.append(net.leaf_rows(x, None))
     einsum_w = list(mix.einsum)
     mixing_v = list(mix.mixing)
     with torch.enable_grad():

@@ -197,7 +197,7 @@ def health_vector(model, probe_x: torch.Tensor, stats: Dict[str, Any],
     (full batch, exact); ``new_params`` the post-update parameters whose
     entropy and clamp state are monitored."""
     spec = model.health_spec
-    leaf_rows = model._leaf_rows(model.leaf_log_prob(probe_x, None))
+    leaf_rows = model.leaf_rows(probe_x, None)
     with collect() as taps:
         root = model.forward_from_e(None, leaf_rows=leaf_rows)
     if len(taps) != spec.num_segments:

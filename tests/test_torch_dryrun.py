@@ -119,14 +119,14 @@ def test_model_dim_shards_the_buffer_and_gathers_the_parameters():
 
 def test_forward_contraction_flops_against_the_reference_hlo():
     """A small einet_rat forward: the counter's flops are the contraction's
-    2 B L K_out K^2 over the pairs (launch_cost of the K3 launch; the
-    port's leaf layer is elementwise, no matmul).  The reference's HLO
-    dot flops of the same forward at its XLA impl hold two more things:
-    its leaf layer is one dot of the sufficient statistics with the
-    natural parameters (2 B D K R T flops, T = 2 statistics of a Normal),
-    counted here and taken off; and XLA contracts a pair with K_out = 1 in
-    two dots, over i and then j, which adds 2 B L K for that pair (1% of
-    this circuit's contraction).  So the rest agrees within 2%."""
+    2 B L K_out K^2 over the pairs (launch_cost of the K3 launch) and the
+    leaf layer's dot of the sufficient statistics with the natural
+    parameters (launch_cost of the leaf-rows launch: 2 B D K R T flops,
+    T = 2 statistics of a Normal).  The reference's HLO dot flops of the
+    same forward at its XLA impl hold the same leaf dot, and one more
+    thing: XLA contracts a pair with K_out = 1 in two dots, over i and then
+    j, which adds 2 B L K for that pair (1% of this circuit's
+    contraction).  So the rest agrees within 2%."""
     b = 16
     port = _rat()
     x = torch.from_numpy(np.random.RandomState(0).randn(b, NV)
@@ -135,14 +135,15 @@ def test_forward_contraction_flops_against_the_reference_hlo():
         cost = cost_lib.count_call(port.log_likelihood, x)
     want = sum(2 * b * s.num_partitions * s.k_out * s.k_in ** 2
                for s in port.pair_specs)
-    assert cost.flops == want
-    assert set(cost.kernels) == {"grouped_log_einsum_exp"}
+    leaf_dot = 2 * b * NV * K * REPS * 2
+    assert cost.flops == want + leaf_dot
+    assert set(cost.kernels) == {"grouped_log_einsum_exp", "leaf_rows"}
+    assert cost.kernels["leaf_rows"]["flops"] == leaf_dot
     ref = RefEiNet(ref_rbt(NV, DEPTH, REPS, seed=0), num_sums=K)
     params = ref.init(jax.random.PRNGKey(0))
     compiled = jax.jit(ref.log_likelihood).lower(
         params, jax.ShapeDtypeStruct((b, NV), jnp.float32)).compile()
     ref_flops = analyze_hlo(compiled.as_text())["flops"]
-    leaf_dot = 2 * b * NV * K * REPS * 2
     assert ref_flops - leaf_dot == pytest.approx(want, rel=0.02)
     assert ref_flops - leaf_dot >= want
 
@@ -222,7 +223,7 @@ def test_run_cell_writes_the_reference_record(cell_record):
     assert seam.captures == 1  # the step captured once, never replayed
     assert rec["flops_per_device"] > 0 and rec["bytes_written_per_device"] > 0
     assert set(rec["kernels"]) == {"grouped_log_einsum_exp",
-                                   "grouped_log_einsum_exp_bwd"}
+                                   "grouped_log_einsum_exp_bwd", "leaf_rows"}
     assert rec["memory"]["output_bytes"] == 4  # the step's mean LL
 
 

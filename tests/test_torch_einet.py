@@ -159,7 +159,7 @@ def test_pd_planned_forward_equals_per_layer_loop(shape):
     x = torch.from_numpy(_data(h * w, 6, 6)[0])
     with torch.inference_mode():
         assert torch.equal(m_g.log_likelihood(x), m_p.log_likelihood(x))
-        rows = m_g._leaf_rows(m_g.leaf_log_prob(x, None))
+        rows = m_g.leaf_rows(x, None)
         rows[:, 0] = NEG_INF  # one leaf region fully marginalized
         a = m_g.forward_from_e(None, leaf_rows=rows)
         assert torch.isfinite(a).all()

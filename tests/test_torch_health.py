@@ -166,7 +166,7 @@ def test_pd_gather_taps(grouped):
                 grouped=grouped, device="cpu")
     x = _x(net.num_vars, b=8)
     with torch.no_grad():
-        rows = net._leaf_rows(net.leaf_log_prob(x, None))
+        rows = net.leaf_rows(x, None)
         with health_lib.collect() as taps:
             net.forward_from_e(None, leaf_rows=rows)
     assert len(taps) == net.health_spec.num_segments
