@@ -29,6 +29,10 @@ first (by Gumbel-max from that row's own noise, or argmax for MPE), then
 runs every component over all rows and keeps each row's chosen one: static
 shapes, so every kind captures into a CUDA graph; the kernels' row
 independence makes a row's answer independent of its batch.
+
+Spans for a capture observer (``repro_torch.obs``): ``mixture.component
+{c}`` around everything run on a bound component (``bound``), and
+``mixture.top`` around the top-level ``log_mix_exp``.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.core.einet import EiNet, seed_tensor
 from repro_torch.core.em import params_of
 from repro_torch.core.layers import NEG_INF, gumbel, log_mix_exp
@@ -139,7 +144,8 @@ class EiNetMixture(nn.Module):
         """The shared structure with component ``c``'s parameters: each of
         its parameters is, for the duration, the view ``stacked[c]``.
         Reads, gradients and in-place writes all go to the stacked
-        tensors.  The structure's own parameters come back on exit."""
+        tensors.  The structure's own parameters come back on exit.  A
+        ``mixture.component{c}`` span."""
         c = int(c)
         if not 0 <= c < self.num_components:
             raise ValueError(
@@ -149,7 +155,8 @@ class EiNetMixture(nn.Module):
         try:
             for owner, key, stacked in slots:
                 owner._parameters[key] = stacked[c]
-            yield self.component
+            with obs.span("mixture.component", c=c):
+                yield self.component
         finally:
             for (owner, key, _), p in zip(slots, saved):
                 owner._parameters[key] = p
@@ -198,12 +205,14 @@ class EiNetMixture(nn.Module):
                             comp_ll: torch.Tensor) -> torch.Tensor:
         """(C,) linear weights + (B, C) component LLs -> (B,) mixture LL,
         through ``log_mix_exp`` as one (M=1, C, K=1) mixing cell, so its EM
-        gradient ``w * dL/dw`` is the summed responsibilities."""
+        gradient ``w * dL/dw`` is the summed responsibilities.  A
+        ``mixture.top`` span."""
         b, c = comp_ll.shape
-        v = weights.reshape(1, c, 1)
-        ln = comp_ll.reshape(b, 1, c, 1)
-        mask = torch.ones((1, c), device=comp_ll.device)
-        return log_mix_exp(v, ln, mask)[:, 0, 0]
+        with obs.span("mixture.top"):
+            v = weights.reshape(1, c, 1)
+            ln = comp_ll.reshape(b, 1, c, 1)
+            mask = torch.ones((1, c), device=comp_ll.device)
+            return log_mix_exp(v, ln, mask)[:, 0, 0]
 
     def log_likelihood(
         self, x: torch.Tensor, marg_mask: Optional[torch.Tensor] = None

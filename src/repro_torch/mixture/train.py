@@ -93,9 +93,11 @@ def mixture_params_of(mix: EiNetMixture) -> Dict[str, Any]:
 @torch.no_grad()
 def load_mixture_params(mix: EiNetMixture, params: Dict[str, Any]) -> None:
     """Copy a parameter dict (the reference's layout) into the mixture's
-    stacked parameters, in place."""
+    stacked parameters, in place (the weights' copy a ``mixture.weights``
+    span)."""
     load_params(mix, params["components"])
-    mix.mixture_weights.copy_(params["mixture_weights"])
+    with obs.span("mixture.weights"):
+        mix.mixture_weights.copy_(params["mixture_weights"])
 
 
 def _stack(per_comp: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -119,6 +121,12 @@ def mixture_em_statistics(mix: EiNetMixture,
     every tensor, plus ``n_weight`` (C,) = sum_b r[b, c].  Each component's
     leaf rows are built under ``no_grad``, one component at a time, as
     ``em.em_statistics`` builds them.
+
+    Under a capture observer each component's passes are its
+    ``mixture.component{c}`` span (its layers' spans inside); the class
+    prior's logsumexp and the top-level ``log_mix_exp`` are ``mixture.top``
+    and their backward ``mixture.top.bwd``; ``n_weight`` is
+    ``mixture.weights``.
     """
     c_n = mix.num_components
     with torch.no_grad():
@@ -138,9 +146,13 @@ def mixture_em_statistics(mix: EiNetMixture,
         for c in range(c_n):
             with mix.bound(c) as net:
                 root = net.forward_from_e(None, leaf_rows=lrs[c])
-            comp_ll.append(torch.logsumexp(root + logprior[c][None, :], -1))
-        val = mix.mix_log_likelihoods(weights,
-                                      torch.stack(comp_ll, dim=1)).sum()
+            with obs.span("mixture.top"):
+                comp_ll.append(torch.logsumexp(root + logprior[c][None, :],
+                                               -1))
+            obs.grad_boundary(comp_ll[-1], "mixture.top.bwd")
+        ll = mix.mix_log_likelihoods(weights, torch.stack(comp_ll, dim=1))
+        obs.grad_boundary(ll, "mixture.top.bwd")
+        val = ll.sum()
         grads = torch.autograd.grad(
             val, einsum_w + mixing_v + lrs + [logprior, weights],
             allow_unused=True)
@@ -158,13 +170,15 @@ def mixture_em_statistics(mix: EiNetMixture,
         n_einsum = [w.detach() * g for w, g in zip(einsum_w, g_einsum)]
         n_mixing = [v.detach() * (torch.zeros_like(v) if g is None else g)
                     for v, g in zip(mixing_v, g_mixing)]
+        with obs.span("mixture.weights"):
+            n_weight = weights.detach() * g_w  # (C,) = sum_b r[b, c]
     return {
         "n_einsum": n_einsum,
         "n_mixing": n_mixing,
         "s_phi": torch.stack([s for s, _ in leaf]),  # (C, D, K, R, |T|)
         "s_den": torch.stack([d for _, d in leaf]),  # (C, D, K, R)
         "n_class": g_prior,  # (C, num_classes)
-        "n_weight": weights.detach() * g_w,  # (C,) = sum_b r[b, c]
+        "n_weight": n_weight,
         "ll": val.detach(),
         # a fill on the device, not a host-to-device copy: a CUDA graph
         # capture refuses the copy
@@ -212,8 +226,9 @@ def mixture_m_step(
     per_comp = {key: stats[key] for key in _COMPONENT_KEYS}
     comps = _stack([m_step(mix.component, component_slice(per_comp, c), cfg)
                     for c in range(mix.num_components)])
-    nw = stats["n_weight"] + weight_alpha
-    return {"components": comps, "mixture_weights": nw / torch.sum(nw)}
+    with obs.span("mixture.weights"):
+        nw = stats["n_weight"] + weight_alpha
+        return {"components": comps, "mixture_weights": nw / torch.sum(nw)}
 
 
 def mixture_em_update(
@@ -249,7 +264,9 @@ def blend_mixture_params(mix: EiNetMixture, mini: Dict[str, Any],
     # stacked components is the per-component blend
     comps = blend_params(mix.component, old["components"],
                          mini["components"], lam)
-    w = (1.0 - lam) * old["mixture_weights"] + lam * mini["mixture_weights"]
+    with obs.span("mixture.weights"):
+        w = ((1.0 - lam) * old["mixture_weights"]
+             + lam * mini["mixture_weights"])
     return {"components": comps, "mixture_weights": w}
 
 

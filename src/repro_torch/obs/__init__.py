@@ -20,9 +20,12 @@ plan segment: einsum layers and mixing), ``layer.einsum{pair}`` (one pair
 of the per-layer pass), ``layer.leaf`` (``EiNet.leaf_rows``, and
 ``forward_from_e``'s scope sums of an EF tensor), ``query.noise`` (Philox
 row noise), ``query.topdown`` (the sampling and MPE pass), ``em.mstep``,
-``em.blend``, and in a captured E-step ``plan.segment.bwd``,
-``layer.einsum.bwd`` and ``layer.leaf.bwd`` (the backward after each
-layer's output gradient is complete).
+``em.blend``, a mixture's ``mixture.component{c}`` (a bound component),
+``mixture.top`` (its class-prior logsumexp and top-level ``log_mix_exp``)
+and ``mixture.weights`` (the mixture weights' statistics, renormalisation,
+blend and copy), and in a captured E-step ``plan.segment.bwd``,
+``layer.einsum.bwd``, ``layer.leaf.bwd`` and ``mixture.top.bwd`` (the
+backward after each layer's output gradient is complete).
 
 Always-on metrics, ``subsystem.verb.unit{labels}``:
 

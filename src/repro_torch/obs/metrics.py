@@ -122,7 +122,11 @@ class Gauge:
         return self._max if self._max != -math.inf else 0.0
 
     def snapshot(self) -> Dict[str, float]:
-        return {"value": self._value, "max": self.max}
+        """``value`` and ``max``, each left out where it is not finite
+        (JSON has no NaN: a diverged step's health gauges still export a
+        valid document, and their ``nonfinite`` slots count the fault)."""
+        return {k: v for k, v in (("value", self._value), ("max", self.max))
+                if math.isfinite(v)}
 
 
 class Histogram:
@@ -268,8 +272,10 @@ class MetricsRegistry:
         ``name{label=value,...}`` (the ``--metrics out.json`` file)."""
         with self._lock:
             items = list(self._metrics.items())
-        return {_fullname(k): m.snapshot() for k, m in sorted(
+        snap = {_fullname(k): m.snapshot() for k, m in sorted(
             items, key=lambda kv: _fullname(kv[0]))}
+        # a gauge with no finite field has nothing to export
+        return {k: v for k, v in snap.items() if v != {}}
 
     def reset(self) -> None:
         with self._lock:

@@ -20,6 +20,8 @@ from repro_torch import obs
 from repro_torch.core import poon_domingos, random_binary_trees
 from repro_torch.core.em import EMConfig, leaf_statistics
 from repro_torch.core.einet import EiNet
+from repro_torch.mixture import (EiNetMixture, MixtureTrainConfig,
+                                 make_mixture_em_step)
 from repro_torch.obs import trace as trace_mod
 from repro_torch.serve import ServeEngine, mixed_requests
 from repro_torch.serve.engine import STEP_PHASES, assemble_batch, query_fn
@@ -184,6 +186,9 @@ def test_step_capture_splits_leaf_from_einsum_layers_fwd_and_bwd():
     kinds = {s.kind for s in net.exec_plan}
     assert kinds == {"gather", "layer"}
     step = make_em_step(net, TrainConfig(em=EMConfig(), health=False), reg)
+    # the replay counter is the process's: other files' steps of this
+    # label may have replayed before
+    replays0 = _replays("em_step")
     step(x)
     step(x)
     got = obs.layer_maps()["em_step"]
@@ -214,7 +219,7 @@ def test_step_capture_splits_leaf_from_einsum_layers_fwd_and_bwd():
         i for i, n in enumerate(order) if n == "plan.segment.bwd")
     assert order.index("em.mstep") < order.index("em.blend")
     # one capture, two replays
-    assert _replays("em_step") == 2
+    assert _replays("em_step") - replays0 == 2
     assert len(seam.totals) == 1
 
 
@@ -241,6 +246,37 @@ def test_staged_step_labels_body_and_finish():
     maps = obs.layer_maps()
     assert "layer.leaf.bwd" in maps["em_step.body"]["spans"]
     assert set(maps["em_step"]["spans"]) >= {"em.mstep", "em.blend"}
+
+
+def test_soft_mixture_step_marks_the_mixture_and_its_components():
+    reg, seam = _registry()
+    c_n = 3
+    mix = EiNetMixture(_pd(), c_n, seed=0)
+    step = make_mixture_em_step(mix, MixtureTrainConfig(assign="soft"), reg)
+    x = _x(mix.component)
+    step(x)
+    got = obs.layer_maps()["mixture_em_step"]
+    spans = got["spans"]
+    assert got["nodes"] == seam.totals[-1]
+    assert sum(spans.values()) == got["nodes"]
+    assert _nodes("mixture_em_step") == spans
+    assert {"mixture.top", "mixture.top.bwd", "mixture.weights",
+            "mixture.component", "layer.leaf", "plan.segment",
+            "plan.segment.bwd", "layer.leaf.bwd", "em.mstep",
+            "em.blend"} <= set(spans)
+    assert all(spans[n] > 0 for n in ("mixture.top", "mixture.top.bwd",
+                                      "mixture.weights"))
+    # each component's backward starts from the mixture's top, last
+    # component first, and the components' forwards are spans of their own
+    layers = got["layers"]
+    order = [name for name, *_ in layers]
+    comps = [a["c"] for name, a, *_ in layers if name == "mixture.component"]
+    assert sorted(set(comps)) == list(range(c_n))
+    first_bwd = order.index("plan.segment.bwd")
+    assert order[first_bwd - 1] == "mixture.top.bwd"
+    tops = [i for i, n in enumerate(order) if n == "mixture.top.bwd"]
+    assert len(tops) == c_n
+    assert all(order[i + 1] == "plan.segment.bwd" for i in tops)
 
 
 # --------------------------------------------------------- serving programs

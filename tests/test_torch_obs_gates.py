@@ -256,6 +256,21 @@ def test_validate_metrics_matches_reference(case):
         ref_check.validate_metrics(snap)
 
 
+def test_nonfinite_gauges_export_a_valid_snapshot():
+    """A diverged step's gauges (NaN, inf) leave their non-finite fields
+    out of the snapshot, which then validates by both checkers."""
+    reg = obs.MetricsRegistry()
+    reg.gauge("train.health.ll.mean").set(-3.5)
+    reg.gauge("train.health.ll.mean").set(float("nan"))
+    reg.gauge("train.health.stat.norm.max").set(float("inf"))
+    reg.gauge("train.ll.last").set(-2.0)
+    snap = json.loads(json.dumps(reg.snapshot()))
+    assert snap == {"train.health.ll.mean": {"max": -3.5},
+                    "train.ll.last": {"value": -2.0, "max": -2.0}}
+    assert port_check.validate_metrics(snap) == []
+    assert ref_check.validate_metrics(snap) == []
+
+
 def test_port_exports_validate_clean(tmp_path, capsys):
     """A trace and a metrics snapshot exported by the port's obs (a
     traced forward and a counter) validate clean by both checkers, and
