@@ -263,7 +263,12 @@
    masked; rows of batches of 16, 64, 512 and 2,000 and rows alone equal
    their rows in the 2,000; einet_pd's and einet_rat's step graphs bit for
    bit eager steps; the kernel's device time at the training shapes beside
-   the old layer's and its bound.
+   the old layer's and its bound.  Then the leaf-statistics kernel
+   (leaf_stats.cu) within rtol 1e-4 and atol 1e-6 B of its plain version
+   on the same models at B = 1, 7, 513 and 2,000, two calls bit for bit,
+   an E-step launching it once, and its device time at einet_pd B = 512,
+   einet_rat B = 2,000 and one CelebA component at B = 4,096 beside its
+   bound and the plain version's.
 
 The yardsticks, which the port never calls: K1 one torch.einsum on the
 stabilised frame; K2, K4 and K6 torch.autograd.grad through a forward whose
@@ -299,7 +304,8 @@ check held to the verify, dry-run and roofline sections.
 
   python3 chip_smoke.py --leaf
 
-builds the kernels and runs only the leaf-rows phase (19).
+builds the kernels and runs only the leaf-rows phase (19), the leaf
+statistics included.
 
   python3 chip_smoke.py --bench
 
@@ -644,10 +650,12 @@ def eval_phase(card: str, dev) -> dict:
             if steps != cfg.steps or len(parts["train"]) != 1:
                 raise AssertionError(f"{what}: {steps} EM steps")
             # the training steps are a step program's replays: the wrappers
-            # run in its warm-up and its capture only (K5, K6, K1, K2 and
-            # the leaf rows once each a component in each)
+            # run in its warm-up and its capture only (K5, K6, K1, K2, the
+            # leaf rows and the leaf statistics once each a component in
+            # each)
             exactly(parts["train"][0][0], {k: 2 * n_c for k in
-                                           (k5, k6, k1, k2, leaf)},
+                                           (k5, k6, k1, k2, leaf,
+                                            "leaf_stats")},
                     f"{what}: {steps} EM steps (a graph step's warm-up and "
                     f"capture)")
             # an engine joint_ll batch replays its program's graph: no
@@ -2101,18 +2109,20 @@ def paper_phase(card: str, dev, compare_stats) -> dict:
         return ll, em.em_statistics(m, x)
 
     (ll_n, st_n), naive_counts, naive_s = part(lambda: ll_and_stats(naive))
-    # both share the leaf layer, as the reference's do; only the einsum
-    # layers differ, and the naive ones launch no kernel
-    if any(naive_counts[k] != (2 if k == "leaf_rows" else 0)
-           for k in naive_counts):
+    # both share the leaf layer and its statistics, as the reference's
+    # do; only the einsum layers differ, and the naive ones launch no
+    # kernel
+    leaf_want = {"leaf_rows": 2, "leaf_stats": 1}
+    if any(naive_counts[k] != leaf_want.get(k, 0) for k in naive_counts):
         raise AssertionError(f"NaiveEiNet launched einsum kernels, or not "
-                             f"the leaf kernel twice: {naive_counts}")
+                             f"the leaf kernels {leaf_want}: {naive_counts}")
     (ll_e, st_e), einet_counts, einet_s = part(lambda: ll_and_stats(net))
     kinds = collections.Counter(seg.kind for seg in net.exec_plan)
     want = {"grouped_log_einsum_exp": 2 * kinds["fused"],
             "grouped_log_einsum_exp_bwd": kinds["fused"],
             "log_einsum_exp": 2 * kinds["layer"],
-            "log_einsum_exp_bwd": kinds["layer"], "leaf_rows": 2}
+            "log_einsum_exp_bwd": kinds["layer"], "leaf_rows": 2,
+            "leaf_stats": 1}
     if any(einet_counts[k] != want.get(k, 0) for k in einet_counts):
         raise AssertionError(f"EiNet LL and E-step launched {einet_counts}, "
                              f"its plan {dict(kinds)} wants {want}")
@@ -2767,10 +2777,9 @@ def bench_phase(card: str, dev, out_dir: str = BENCH_DIR,
                       for k, v in sorted(row["segment_breakdown"].items()))
                   + f" [{card}]")
         ls = rep["leaf_scatter"]
-        print(f"bench train leaf scatter ({ls['arch']}, B={ls['batch']}): "
-              f"{ls['leaf_scatter_ms']:.3f} ms of {ls['em_statistics_ms']:.3f}"
-              f" ms em_statistics ({100 * ls['scatter_fraction']:.2f}%) "
-              f"[{card}]")
+        print(f"bench train: the plain path's leaf scatter ({ls['arch']}, "
+              f"B={ls['batch']}) {ls['leaf_scatter_ms']:.3f} ms alone; an "
+              f"E-step {ls['em_statistics_ms']:.3f} ms [{card}]")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4130,7 +4139,7 @@ def main() -> int:
                         "grouped_log_einsum_exp_bwd": 1,
                         "gather_grouped_log_einsum_exp": 0,
                         "gather_grouped_log_einsum_exp_bwd": 0,
-                        "leaf_rows": 2}:
+                        "leaf_rows": 2, "leaf_stats": 2}:
         raise AssertionError(f"E-step launches {estep_counts}")
     t0 = time.perf_counter()
     stats_cpu = em.em_statistics(cpu_model, data[:b_full])
@@ -4186,9 +4195,9 @@ def main() -> int:
                 "counts": got, "shapes": shapes}
 
     fused_want = {"grouped_log_einsum_exp": 1, "grouped_log_einsum_exp_bwd": 1,
-                  "leaf_rows": 1}
+                  "leaf_rows": 1, "leaf_stats": 1}
     layer_want = {"log_einsum_exp": 4, "log_einsum_exp_bwd": 4,
-                  "leaf_rows": 1}
+                  "leaf_rows": 1, "leaf_stats": 1}
     full_model = build_einet(cfg, device=dev, seed=0)
     full = train_run(full_model, "full", 3, lambda i: xb, fused_want)
     with torch.inference_mode():
@@ -4333,9 +4342,10 @@ def main() -> int:
     pd_estep_pl_counts = counts_of(ops)
     planned_want = {"log_einsum_exp": 1, "log_einsum_exp_bwd": 1,
                     "gather_grouped_log_einsum_exp": 1,
-                    "gather_grouped_log_einsum_exp_bwd": 1, "leaf_rows": 1}
+                    "gather_grouped_log_einsum_exp_bwd": 1, "leaf_rows": 1,
+                    "leaf_stats": 1}
     layer_want_pd = {"log_einsum_exp": 3, "log_einsum_exp_bwd": 3,
-                     "leaf_rows": 1}
+                     "leaf_rows": 1, "leaf_stats": 1}
     for got, want in ((pd_estep_counts, planned_want),
                       (pd_estep_pl_counts, layer_want_pd)):
         if any(got[k] != want.get(k, 0) for k in got):
@@ -4637,7 +4647,7 @@ def main() -> int:
 
     mix_want = {k: n_mix for k in (
         "gather_grouped_log_einsum_exp", "gather_grouped_log_einsum_exp_bwd",
-        "log_einsum_exp", "log_einsum_exp_bwd", "leaf_rows")}
+        "log_einsum_exp", "log_einsum_exp_bwd", "leaf_rows", "leaf_stats")}
     # hard EM's first step, bit for bit, against 8 single-model steps of a
     # separate einet_celeba on the same batches
     x_hard0 = torch.from_numpy(mix_loader.batch_at(0)["x"]).to(dev)
@@ -5362,6 +5372,54 @@ def main() -> int:
 
 # the leaf-rows phase: a row alone against its row in these batches, and
 # the graph steps held against as many eager steps
+def leaf_models(dev) -> dict:
+    """The leaf kernels' models, name -> constructor: the two training
+    architectures, a RAT whose scopes are padded (13 variables, depth 2),
+    a K = 64 RAT, a Binomial, a Categorical(4) and a Categorical(256) leaf
+    model at K = 64."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import EiNet, random_binary_trees
+    from repro_torch.core.exponential_family import Binomial, Categorical
+    from repro_torch.launch.cells import build_einet
+
+    def rat(nv, depth, reps, k, **kw):
+        return lambda: EiNet(random_binary_trees(nv, depth, reps, seed=0),
+                             num_sums=k, device=dev, seed=1, **kw)
+
+    return {
+        "einet_pd": lambda: build_einet(get_config("einet_pd"), device=dev,
+                                        seed=0),
+        "einet_rat": lambda: build_einet(get_config("einet_rat"), device=dev,
+                                         seed=0),
+        "rat13 padded K=5": rat(13, 2, 3, 5),
+        "rat64 K=64": rat(64, 3, 4, 64),
+        "binomial(5) K=7": rat(12, 2, 2, 7, exponential_family=Binomial(5)),
+        "categorical(4) K=6": rat(12, 2, 2, 6,
+                                  exponential_family=Categorical(4)),
+        # 256 statistics: one position of K = 64 does not fit, K tiles of 16
+        "categorical(256) K=64": rat(64, 2, 2, 64,
+                                     exponential_family=Categorical(256)),
+    }
+
+
+def leaf_data(model, b, gen, dev):
+    """``b`` rows in the model's leaf domain and a marginalisation mask
+    (60% kept), drawn from ``gen`` on the CPU."""
+    import torch
+
+    from repro_torch.core.exponential_family import Binomial, Categorical
+
+    shape = (b, model.num_vars)
+    if isinstance(model.ef, Binomial):
+        x = torch.randint(0, model.ef.n_trials + 1, shape, generator=gen)
+    elif isinstance(model.ef, Categorical):
+        x = torch.randint(0, model.ef.num_categories, shape, generator=gen)
+    else:
+        x = torch.randn(shape, generator=gen)
+    keep = torch.rand(shape, generator=gen) > 0.4
+    return x.float().to(dev), keep.to(dev)
+
+
 LEAF_BATCHES = (16, 64, 512, 2000)
 LEAF_GRAPH_STEPS = 5
 # (model, rows) of the timed calls: the training batches and a serve bucket
@@ -5393,8 +5451,6 @@ def leaf_phase(card: str, dev) -> dict:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.core import EiNet, random_binary_trees
-    from repro_torch.core.exponential_family import Binomial, Categorical
     from repro_torch.kernels import ops
     from repro_torch.kernels.leaf_rows import leaf_rows_plain
     from repro_torch.launch.cells import build_einet
@@ -5405,36 +5461,10 @@ def leaf_phase(card: str, dev) -> dict:
     gen = torch.Generator().manual_seed(0)
     n = LEAF_BATCHES[-1]
 
-    def rat(nv, depth, reps, k, **kw):
-        return lambda: EiNet(random_binary_trees(nv, depth, reps, seed=0),
-                             num_sums=k, device=dev, seed=1, **kw)
-
-    models = {
-        "einet_pd": lambda: build_einet(get_config("einet_pd"), device=dev,
-                                        seed=0),
-        "einet_rat": lambda: build_einet(get_config("einet_rat"), device=dev,
-                                         seed=0),
-        "rat13 padded K=5": rat(13, 2, 3, 5),
-        "rat64 K=64": rat(64, 3, 4, 64),
-        "binomial(5) K=7": rat(12, 2, 2, 7, exponential_family=Binomial(5)),
-        "categorical(4) K=6": rat(12, 2, 2, 6,
-                                  exponential_family=Categorical(4)),
-        # 256 statistics: one position of K = 64 does not fit, K tiles of 16
-        "categorical(256) K=64": rat(64, 2, 2, 64,
-                                     exponential_family=Categorical(256)),
-    }
+    models = leaf_models(dev)
 
     def data(model, b):
-        shape = (b, model.num_vars)
-        if isinstance(model.ef, Binomial):
-            x = torch.randint(0, model.ef.n_trials + 1, shape, generator=gen)
-        elif isinstance(model.ef, Categorical):
-            x = torch.randint(0, model.ef.num_categories, shape,
-                              generator=gen)
-        else:
-            x = torch.randn(shape, generator=gen)
-        keep = torch.rand(shape, generator=gen) > 0.4
-        return x.float().to(dev), keep.to(dev)
+        return leaf_data(model, b, gen, dev)
 
     def operands(model, x, mask):
         theta = model.ef.expectation_to_natural(model.phi)
@@ -5552,6 +5582,198 @@ def leaf_phase(card: str, dev) -> dict:
               f"for bit {LEAF_GRAPH_STEPS} eager steps (LL "
               f"{lls_g[0]:.4f} -> {lls_g[-1]:.4f}) [{card}]")
         del g, e, g_step, d
+    out["stats"] = leaf_stats_phase(card, dev)
+    return out
+
+
+# rows of the statistics' checks, and (model, rows) of their timed calls:
+# einet_pd's and einet_rat's training batches and one component of the
+# CelebA mixture at its 4,096 rows
+LEAF_STATS_BATCHES = (1, 7, 513, 2000)
+LEAF_STATS_TIMED = (("einet_pd", 512), ("einet_rat", 2000),
+                    ("einet_celeba", 4096))
+
+
+def leaf_stats_bmm(g_leaf, t, gather, num_replica):
+    """The leaf statistics as one fp32 batched GEMM over the leaves, the
+    plain alternative that the kernel is timed beside: each leaf's scope
+    statistics gathered to (L, B, S |T|) (the table's padding reads a zero
+    row), multiplied by the leaf's posteriors (L, K, B), s_den the batch
+    sum of the posteriors, and the pairs' rows copied into the parameter
+    layout.  Builds no (B, P, K) copy, but reads t R times through the
+    table."""
+    import torch
+
+    b, n_leaves, k = g_leaf.shape
+    d, n_t = t.shape[1:]
+    width = gather.shape[1]
+    pad = d * num_replica
+    var = torch.where(gather < pad, gather // num_replica, d).reshape(-1)
+    t_pad = torch.cat([t, t.new_zeros(b, 1, n_t)], 1)
+    tg = t_pad[:, var].reshape(b, n_leaves, width * n_t).transpose(0, 1)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        s = torch.bmm(g_leaf.permute(1, 2, 0), tg)  # (L, K, S |T|)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    s = s.reshape(n_leaves, k, width, n_t).transpose(1, 2)
+    den = g_leaf.sum(0)[:, None].expand(n_leaves, width, k)
+    rows = gather.reshape(-1)  # the padding all lands on row D R, dropped
+    s_phi = t.new_zeros((pad + 1, k, n_t)).index_copy_(
+        0, rows, s.reshape(-1, k, n_t))[:pad]
+    s_den = t.new_zeros((pad + 1, k)).index_copy_(
+        0, rows, den.reshape(-1, k))[:pad]
+    return (s_phi.reshape(d, num_replica, k, n_t).transpose(1, 2),
+            s_den.reshape(d, num_replica, k).transpose(1, 2))
+
+
+def leaf_stats_phase(card: str, dev) -> dict:
+    """The leaf-statistics kernel (``csrc/leaf_stats.cu``,
+    ``ops.leaf_stats``):
+
+    (a) against its plain version on the card
+    (``kernels.leaf_stats.leaf_stats_plain``: the (B, P, K) gather, the
+    einsum, the sum and the scatter) within rtol 1e-4 and atol 1e-6 B, on
+    the leaf-rows phase's models at B in LEAF_STATS_BATCHES, posteriors
+    uniform in [0, 1); a second call equal to the first bit for bit;
+    (b) an E-step (``em_statistics``) of einet_pd and of einet_rat
+    launches it once;
+    (c) at LEAF_STATS_TIMED, the shapes the cells launch: the kernel held
+    to the plain version as in (a), then the device time of the op (its
+    zeroed outputs, scratch and kernels) by CUDA events, each kernel by
+    torch.profiler, the plain version's time on the card, the time of
+    ``leaf_stats_bmm`` (a batched GEMM over the leaves, held to the plain
+    version too) and the bound (``launch_cost``).
+    Returns the figures."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.em import em_statistics, variable_major_statistics
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.leaf_stats import (launch_geometry,
+                                                leaf_stats_plain)
+    from repro_torch.launch.cells import build_einet
+
+    gen = torch.Generator().manual_seed(1)
+    models = leaf_models(dev)
+    models["einet_celeba"] = lambda: build_einet(
+        get_config("einet_celeba"), device=dev, seed=0)
+
+    def operands(model, b):
+        x, _ = leaf_data(model, b, gen, dev)
+        g = torch.rand(b, model.leaf_spec.num_leaves, model.K,
+                       generator=gen).to(dev)
+        return (g, variable_major_statistics(model, x), model.leaf_gather,
+                model.leaf_spec.num_replica)
+
+    out = {"checks": 0, "worst_rel": 0.0, "times": {}}
+
+    def hold(tag, args, b):
+        """One launch; the kernel within rtol 1e-4, atol 1e-6 B of the plain
+        version and a second call equal to the first bit for bit."""
+        ops.reset_counts()
+        got = ops.leaf_stats(*args)
+        if ops.leaf_stats.launches != 1:
+            raise AssertionError(f"{tag}: {ops.leaf_stats.launches} "
+                                 "launches, expected 1")
+        again = ops.leaf_stats(*args)
+        want = leaf_stats_plain(*args)
+        for what, a, a2, w in zip(("s_phi", "s_den"), got, again, want):
+            if not bits_equal(a, a2):
+                raise AssertionError(f"{tag}: two calls differ in {what}")
+            if not torch.allclose(a, w, rtol=1e-4, atol=1e-6 * b):
+                d = (a - w).abs()
+                raise AssertionError(
+                    f"{tag}: {what} max |diff| {d.max().item():.3e} beyond "
+                    f"rtol 1e-4, atol {1e-6 * b:.1e}")
+            rel = ((a - w).abs() / (w.abs() + 1e-6 * b)).max().item()
+            out["worst_rel"] = max(out["worst_rel"], rel)
+        out["checks"] += 1
+        return want
+
+    with torch.no_grad():
+        for name, make in models.items():
+            if name == "einet_celeba":
+                continue
+            model = make()
+            for b in LEAF_STATS_BATCHES:
+                hold(f"leaf stats {name} B={b}", operands(model, b), b)
+            del model
+    print(f"leaf stats: kernel within rtol 1e-4, atol 1e-6 B of the plain "
+          f"version on {len(models) - 1} models x B in {LEAF_STATS_BATCHES} "
+          f"(worst |diff| / (|plain| + 1e-6 B) {out['worst_rel']:.3e}); two "
+          f"calls bit for bit [{card}]")
+    for name in ("einet_pd", "einet_rat"):
+        model = models[name]()
+        x, _ = leaf_data(model, 64, gen, dev)
+        ops.reset_counts()
+        em_statistics(model, x)
+        torch.cuda.synchronize()
+        if (ops.leaf_stats.launches, ops.leaf_stats.plain_calls) != (1, 0):
+            raise AssertionError(f"{name} E-step: leaf_stats launches "
+                                 f"{ops.leaf_stats.launches}, expected 1")
+        del model
+    print(f"leaf stats: an E-step of einet_pd and of einet_rat launches the "
+          f"kernel once [{card}]")
+    with torch.no_grad():
+        for name, b in LEAF_STATS_TIMED:
+            model = models[name]()
+            args = operands(model, b)
+            g, t, gather, _ = args
+            key = f"{name} B={b}"
+            # the shapes the cells launch, held to the plain version before
+            # they are timed; the batched-GEMM alternative held to it too
+            want = hold(f"leaf stats {key}", args, b)
+            for what, a, w in zip(("s_phi", "s_den"), leaf_stats_bmm(*args),
+                                  want):
+                if not torch.allclose(a, w, rtol=1e-4, atol=1e-6 * b):
+                    raise AssertionError(f"leaf stats {key}: the batched GEMM's"
+                                         f" {what} differs from the plain one")
+            del want
+            geo = launch_geometry(b, gather.shape[1], gather.shape[0],
+                                  model.K, t.shape[2])
+            op_ms = time_ms(lambda: ops.leaf_stats(*args), iters=50)
+            # the profiler has been seen to return no device time for a
+            # window: take it again, up to three times
+            for _ in range(3):
+                parts = kernel_parts(lambda: ops.leaf_stats(*args))
+                kern_ms = sum(us for nm, _, us in parts
+                              if "leaf_stats" in nm) / 1e3
+                if kern_ms > 0:
+                    break
+            else:
+                raise AssertionError(f"leaf stats {name} B={b}: the profiler "
+                                     "saw no kernel of the op")
+            plain_ms = time_ms(lambda: leaf_stats_plain(*args), iters=10)
+            plain_parts = kernel_parts(lambda: leaf_stats_plain(*args),
+                                       calls=5)
+            bmm_ms = time_ms(lambda: leaf_stats_bmm(*args), iters=10)
+            bmm_parts = kernel_parts(lambda: leaf_stats_bmm(*args), calls=5)
+            n_bytes, flops = cost("leaf_stats", *args)
+            bound_ms, by = bound(n_bytes, flops)
+            out["times"][key] = {
+                "kernel_ms": kern_ms, "op_ms": op_ms,
+                "op_kernels_us": [(nm[:60], c, us) for nm, c, us in parts],
+                "plain_ms": plain_ms,
+                "plain_device_ms": sum(us for _, _, us in plain_parts) / 1e3,
+                "plain_launches": sum(c for _, c, _ in plain_parts),
+                "bmm_ms": bmm_ms,
+                "bmm_device_ms": sum(us for _, _, us in bmm_parts) / 1e3,
+                "bmm_kernels_us": [(nm[:60], c, us) for nm, c, us in bmm_parts],
+                "bound_ms": bound_ms, "bound_by": by, "bytes": n_bytes,
+                "flops": flops, "geometry": {k: v for k, v in geo.items()}}
+            print(f"leaf stats {key}: kernels {kern_ms:.4f} ms (bound "
+                  f"{bound_ms:.4f} ms by {by}, {100 * bound_ms / kern_ms:.1f}"
+                  f"%; slices {geo['slices']}, grid {geo['grid']}, "
+                  f"{geo['threads']} threads); the op {op_ms:.4f} ms a call; "
+                  f"the plain version {plain_ms:.4f} ms a call, "
+                  f"{out['times'][key]['plain_device_ms']:.4f} ms of device "
+                  f"time in {out['times'][key]['plain_launches']:.0f} "
+                  f"kernels; the batched GEMM {bmm_ms:.4f} ms a call, "
+                  f"{out['times'][key]['bmm_device_ms']:.4f} ms of device "
+                  f"time [{card}]")
+            del model, args, g, t
     return out
 
 
@@ -5566,9 +5788,10 @@ def leaf_only() -> int:
 
     reports = build.build(force=True)
     card = smi_line()
-    for line in reports["leaf_rows"].strip().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  leaf_rows: {line.strip()}")
+    for src in ("leaf_rows", "leaf_stats"):
+        for line in reports[src].strip().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {src}: {line.strip()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     out = leaf_phase(card, torch.device("cuda"))

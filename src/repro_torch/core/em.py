@@ -36,6 +36,8 @@ from repro_torch.core.layers import (
     normalize_einsum_weights,
     normalize_mixing_weights,
 )
+from repro_torch.kernels import ops
+from repro_torch.kernels.leaf_stats import pair_scatter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,19 +73,21 @@ def load_params(model: EiNet, params: Dict[str, Any]) -> None:
 
 def leaf_scatter(model: EiNet, s_phi_pairs: torch.Tensor,
                  s_den_pairs: torch.Tensor):
-    """Fan per-pair leaf statistics out to parameter layout: (P, K, |T|) ->
-    (D, K, R, |T|) and (P, K) -> (D, K, R).
-
-    Every (variable, replica) pair belongs to exactly one leaf, so this is a
-    scatter to unique rows (``index_copy_``, no accumulation)."""
-    d, k, r = model.num_vars, model.K, model.leaf_spec.num_replica
-    tdim = model.ef.num_stats
+    """Fan per-pair leaf statistics (in the model's pair order) out to
+    parameter layout: (P, K, |T|) -> (D, K, R, |T|) and (P, K) -> (D, K, R),
+    the plain path's scatter (``kernels.leaf_stats.pair_scatter``)."""
+    r = model.leaf_spec.num_replica
     flat = model.leaf_pair_var * r + model.leaf_pair_rep  # unique per pair
-    s_phi = s_phi_pairs.new_zeros((d * r, k, tdim)).index_copy_(
-        0, flat, s_phi_pairs).reshape(d, r, k, tdim).transpose(1, 2)
-    s_den = s_den_pairs.new_zeros((d * r, k)).index_copy_(
-        0, flat, s_den_pairs).reshape(d, r, k).transpose(1, 2)
-    return s_phi, s_den
+    return pair_scatter(flat, s_phi_pairs, s_den_pairs, model.num_vars, r)
+
+
+def variable_major_statistics(model: EiNet, x: torch.Tensor) -> torch.Tensor:
+    """The batch's sufficient statistics t (B, D, |T|) laid out
+    variable-major, as the leaf-statistics kernel reads them: a transposed
+    view of a contiguous (D, B, |T|) tensor, so that a variable's rows are
+    adjacent in memory.  The same values as ``ef.sufficient_statistics(x)``,
+    which the family computes from x's transpose."""
+    return model.ef.sufficient_statistics(x.t()).contiguous().transpose(0, 1)
 
 
 @torch.no_grad()
@@ -91,11 +95,13 @@ def leaf_statistics(model: EiNet, t: torch.Tensor, g_leaf: torch.Tensor):
     """Leaf statistics from the leaf-row posteriors ``g_leaf`` (B,
     num_leaves, K) and the sufficient statistics ``t`` (B, D, |T|) of the
     batch: s_phi (D, K, R, |T|) = sum_x p_L(x) T(x) and s_den (D, K, R) =
-    sum_x p_L(x), each leaf's posterior fanned out to its scope."""
-    g_pairs = g_leaf[:, model.leaf_pair_leaf, :]  # (B, P, K)
-    t_pairs = t[:, model.leaf_pair_var, :]  # (B, P, |T|)
-    s_phi_pairs = torch.einsum("bpk,bpt->pkt", g_pairs, t_pairs)
-    return leaf_scatter(model, s_phi_pairs, g_pairs.sum(0))
+    sum_x p_L(x), each leaf's sums written to every pair of its scope.  One
+    ``ops.leaf_stats`` call through the leaf table: on CUDA one kernel that
+    builds no per-pair copy and reads t laid out variable-major, as
+    :func:`variable_major_statistics` gives it (the kernel refuses another
+    layout), on the CPU the plain gather, einsum and scatter."""
+    return ops.leaf_stats(g_leaf.contiguous(), t, model.leaf_gather,
+                          model.leaf_spec.num_replica)
 
 
 def em_statistics(model: EiNet, x: torch.Tensor) -> Dict[str, Any]:
@@ -139,7 +145,7 @@ def em_statistics(model: EiNet, x: torch.Tensor) -> Dict[str, Any]:
     with torch.no_grad():
         with obs.span("layer.leaf.bwd"):
             s_phi, s_den = leaf_statistics(
-                model, model.ef.sufficient_statistics(x), g_leaf)
+                model, variable_major_statistics(model, x), g_leaf)
         # sum-node statistics: n = W * dlogP/dW (summed over the batch by AD)
         n_einsum = [w.detach() * g for w, g in zip(einsum_w, g_einsum)]
         n_mixing = [v.detach() * (torch.zeros_like(v) if g is None else g)

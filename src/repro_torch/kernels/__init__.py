@@ -12,13 +12,15 @@ Hopper (sm_90a), each beside its plain PyTorch version.
     ``csrc/gather_fwd.cu``, backward ``csrc/gather_bwd.cu``).
   * ``ops.leaf_rows`` -- the leaf layer (EF log-densities summed over each
     leaf's scope) in one launch (``leaf_rows.py``, ``csrc/leaf_rows.cu``).
+  * ``ops.leaf_stats`` -- the E-step's leaf statistics from the leaf rows'
+    posteriors (``leaf_stats.py``, ``csrc/leaf_stats.cu``).
 
 Kernels are built with ``nvcc`` on first use (``build.py``); importing this
 package builds nothing and needs no CUDA.
 """
 
 from repro_torch.kernels import (build, dispatch, grouped, leaf_rows,
-                                 log_einsum_exp, ops)
+                                 leaf_stats, log_einsum_exp, ops)
 
-__all__ = ["build", "dispatch", "grouped", "leaf_rows", "log_einsum_exp",
-           "ops"]
+__all__ = ["build", "dispatch", "grouped", "leaf_rows", "leaf_stats",
+           "log_einsum_exp", "ops"]

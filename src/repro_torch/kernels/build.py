@@ -26,7 +26,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("log_einsum_exp_fwd", "log_einsum_exp_bwd", "grouped_fwd",
-           "grouped_bwd", "gather_fwd", "gather_bwd", "leaf_rows")
+           "grouped_bwd", "gather_fwd", "gather_bwd", "leaf_rows",
+           "leaf_stats")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -19,7 +19,11 @@ not counted: they are O(K) a cell and row against the contraction's
 O(K^2 K_out).  The leaf rows count the EF contraction T(x)^T theta over
 every (row, variable, component, replica), 2 |T| flops each, as the
 reference's leaf dot counts; their adds of log h and A and the scope sums
-are not counted.  The arguments are a launch's own (tensors, or anything
+are not counted.  The leaf statistics count their contraction, 2 |T|
+flops for each (row, variable, replica, component) (the pairs of a
+model whose leaves cover every (variable, replica) row once), and read
+g_leaf and t and write s_phi and s_den; s_den's sums are not counted.
+The arguments are a launch's own (tensors, or anything
 with ``shape`` and ``numel()``, such as meta tensors):
 
   ``log_einsum_exp``                     (w, ln_left, ln_right)
@@ -30,6 +34,7 @@ with ``shape`` and ``numel()``, such as meta tensors):
   ``gather_grouped_log_einsum_exp_bwd``  (tables, ws, vs, x, g_out)
   ``leaf_rows``                          (theta, a, t, log_h, marg_mask,
                                           gather)
+  ``leaf_stats``                         (g_leaf, t, gather, num_replica)
 """
 
 from __future__ import annotations
@@ -98,4 +103,11 @@ def launch_cost(op_name: str, *args) -> Tuple[int, int]:
         return (F32 * (int(theta.numel()) + int(a.numel()) + int(t.numel())
                        + int(log_h.numel()) + b * int(gather.shape[0]) * k)
                 + mask, 2 * b * d * k * r * n_t)
+    if op_name == "leaf_stats":
+        g_leaf, t, _, r = args[:4]
+        b, _, k = (int(s) for s in g_leaf.shape)
+        d, n_t = int(t.shape[1]), int(t.shape[2])
+        return (F32 * (int(g_leaf.numel()) + int(t.numel())
+                       + d * k * int(r) * (n_t + 1)),
+                2 * b * d * int(r) * k * n_t)
     raise KeyError(f"no cost model for kernel op {op_name!r}")

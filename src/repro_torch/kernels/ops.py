@@ -14,6 +14,10 @@ kernels, CPU tensors run their plain PyTorch versions.
   * ``leaf_rows(theta, a, t, log_h, marg_mask, gather)`` -- the leaf layer,
     EF log-densities and scope sums, in one launch (``csrc/leaf_rows.cu``);
     no backward.
+  * ``leaf_stats(g_leaf, t, gather, num_replica)`` -- the E-step's leaf
+    statistics, s_phi and s_den from the leaf rows' posteriors and the
+    batch's sufficient statistics, in one launch (``csrc/leaf_stats.cu``;
+    a second, the slices' sum, where the batch is split); no autograd.
 
 The three einsum ops work under autograd: each is a
 ``torch.autograd.Function`` that saves the unpadded primals and calls its
@@ -48,6 +52,7 @@ from repro_torch.kernels.log_einsum_exp import (
     log_einsum_exp_plain,
 )
 from repro_torch.kernels.leaf_rows import leaf_rows_cuda, leaf_rows_plain
+from repro_torch.kernels.leaf_stats import leaf_stats_cuda, leaf_stats_plain
 
 
 def _needs_grad(tensors) -> bool:
@@ -149,6 +154,19 @@ class LeafRowsOp(KernelOp):
         return self.launch(theta, a, t, log_h, marg_mask, gather)
 
 
+class LeafStatsOp(KernelOp):
+    """The leaf-statistics kernel.  It has no backward, so it refuses
+    operands that require a gradient rather than return statistics that
+    autograd cannot follow."""
+
+    def __call__(self, g_leaf, t, gather, num_replica):
+        if _needs_grad((g_leaf, t)):
+            raise RuntimeError(
+                "leaf_stats has no backward: call it under torch.no_grad() "
+                "(core.em.leaf_statistics does), or detach its operands")
+        return self.launch(g_leaf, t, gather, num_replica)
+
+
 log_einsum_exp = LogEinsumExpOp(
     "log_einsum_exp", log_einsum_exp_cuda, log_einsum_exp_plain)
 log_einsum_exp_bwd = KernelOp(
@@ -168,10 +186,11 @@ gather_grouped_log_einsum_exp_bwd = KernelOp(
     gather_grouped_log_einsum_exp_bwd_plain)
 
 leaf_rows = LeafRowsOp("leaf_rows", leaf_rows_cuda, leaf_rows_plain)
+leaf_stats = LeafStatsOp("leaf_stats", leaf_stats_cuda, leaf_stats_plain)
 
 KERNEL_OPS = (log_einsum_exp, log_einsum_exp_bwd, grouped_log_einsum_exp,
               grouped_log_einsum_exp_bwd, gather_grouped_log_einsum_exp,
-              gather_grouped_log_einsum_exp_bwd, leaf_rows)
+              gather_grouped_log_einsum_exp_bwd, leaf_rows, leaf_stats)
 
 
 def reset_counts() -> None:

@@ -50,6 +50,7 @@ from repro_torch.core.em import (
     load_params,
     m_step,
     params_of,
+    variable_major_statistics,
 )
 from repro_torch.data.pipeline import ShardedLoader
 from repro_torch.mixture.cluster import cluster_order, kmeans
@@ -163,7 +164,7 @@ def mixture_em_statistics(mix: EiNetMixture,
     with torch.no_grad():
         net = mix.component
         with obs.span("layer.leaf.bwd"):
-            t = net.ef.sufficient_statistics(x)  # shared across components
+            t = variable_major_statistics(net, x)  # shared by the components
             leaf = [leaf_statistics(net, t, g) for g in g_leaf]
         # dL/dW of the routed mixture LL carries the r[b, c] factor that the
         # top-level log_mix_exp backward hands each component's cotangent

@@ -103,15 +103,18 @@ def test_naive_net_is_per_layer_and_launches_no_grouped_op(nets):
     from repro_torch.core.em import em_statistics
     em_statistics(naive, torch.from_numpy(x))
     # the leaf layer is EiNet's (as the reference's naive net shares it):
-    # once for the LL, once for the E-step; no einsum op runs
+    # once for the LL, once for the E-step, and its statistics once for
+    # the E-step; no einsum op runs
+    leaf_ops = (ops.leaf_rows, ops.leaf_stats)
     assert (ops.leaf_rows.launches, ops.leaf_rows.plain_calls) == (0, 2)
+    assert (ops.leaf_stats.launches, ops.leaf_stats.plain_calls) == (0, 1)
     assert all(op.launches == 0 and op.plain_calls == 0
-               for op in ops.KERNEL_OPS if op is not ops.leaf_rows)
+               for op in ops.KERNEL_OPS if op not in leaf_ops)
     # the EiNet of the same structure goes through the einsum ops
     with torch.inference_mode():
         einet.log_likelihood(torch.from_numpy(x))
     assert sum(op.plain_calls for op in ops.KERNEL_OPS
-               if op is not ops.leaf_rows) > 0
+               if op not in leaf_ops) > 0
 
 
 def test_naive_ll_matches_reference_naive(nets):

@@ -223,7 +223,8 @@ def test_run_cell_writes_the_reference_record(cell_record):
     assert seam.captures == 1  # the step captured once, never replayed
     assert rec["flops_per_device"] > 0 and rec["bytes_written_per_device"] > 0
     assert set(rec["kernels"]) == {"grouped_log_einsum_exp",
-                                   "grouped_log_einsum_exp_bwd", "leaf_rows"}
+                                   "grouped_log_einsum_exp_bwd", "leaf_rows",
+                                   "leaf_stats"}
     assert rec["memory"]["output_bytes"] == 4  # the step's mean LL
 
 

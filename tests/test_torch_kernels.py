@@ -434,7 +434,7 @@ def test_build_sources_exist_and_library_names_track_sources():
         text = src.read_text()
         assert "sm_90a" in text and "Replaces the TPU kernel" in text
         assert build._library_path(name).name.startswith(name + "-")
-    assert len({build._library_path(n) for n in build.SOURCES}) == 7
+    assert len({build._library_path(n) for n in build.SOURCES}) == 8
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
 
@@ -532,7 +532,7 @@ def test_autograd_ops_run_the_plain_backward_on_the_cpu():
                       "grouped_log_einsum_exp_bwd": (0, 1),
                       "gather_grouped_log_einsum_exp": (0, 0),
                       "gather_grouped_log_einsum_exp_bwd": (0, 0),
-                      "leaf_rows": (0, 0)}
+                      "leaf_rows": (0, 0), "leaf_stats": (0, 0)}
 
 
 @pytest.mark.parametrize("b,m,c,k", [(5, 2, 3, 4), (4, 1, 10, 1)])

@@ -18,7 +18,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch import compile as compile_lib
 from repro_torch import obs
 from repro_torch.core import poon_domingos, random_binary_trees
-from repro_torch.core.em import EMConfig, leaf_statistics
+from repro_torch.core.em import (EMConfig, leaf_statistics,
+                                 variable_major_statistics)
 from repro_torch.core.einet import EiNet
 from repro_torch.mixture import (EiNetMixture, MixtureTrainConfig,
                                  make_mixture_em_step)
@@ -204,7 +205,7 @@ def test_step_capture_splits_leaf_from_einsum_layers_fwd_and_bwd():
     g = torch.rand(x.shape[0], net.leaf_spec.num_leaves, net.K)
     ops = _Ops()
     with ops, torch.no_grad():
-        leaf_statistics(net, net.ef.sufficient_statistics(x), g)
+        leaf_statistics(net, variable_major_statistics(net, x), g)
     assert spans["layer.leaf.bwd"] == ops.n
     # in capture order: forward, then the einsum layers' backward (one
     # region a segment, last segment first), then the leaf layer's
