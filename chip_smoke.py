@@ -4112,12 +4112,12 @@ def main() -> int:
         if not bool(torch.isfinite(model.log_likelihood(x_full)).all()):
             raise AssertionError("joint_ll on the 2048-row batch not finite")
         # where a joint_ll batch spends its time, stage by stage
-        root = model.forward_from_e(None, leaf_rows=leaf)
+        root = model.forward_rows(leaf)
         stages = {
             "leaf rows": time_ms(lambda: model.leaf_rows(x_full, None),
                                  iters=10),
             "plan walk (K3 + root mixing)": time_ms(
-                lambda: model.forward_from_e(None, leaf_rows=leaf), iters=10),
+                lambda: model.forward_rows(leaf), iters=10),
             "class logsumexp": time_ms(lambda: torch.logsumexp(
                 root + torch.log(model.class_prior)[None], -1), iters=10),
         }
@@ -4311,14 +4311,14 @@ def main() -> int:
                 f"einet_pd joint_ll planned vs per layer: max |diff| "
                 f"{(pd_ll_plan - pd_ll_layer).abs().max().item():.3e}")
         pd_ll_ms = time_ms(lambda: pd.log_likelihood(pd_xb), iters=10)
-        pd_root = pd.forward_from_e(None, leaf_rows=pd_leaf)
+        pd_root = pd.forward_rows(pd_leaf)
         pd_stages = {
             "leaf rows": time_ms(lambda: pd.leaf_rows(pd_xb, None),
                                  iters=10),
             "plan walk (K5 + K1 + root mixing)": time_ms(
-                lambda: pd.forward_from_e(None, leaf_rows=pd_leaf), iters=10),
+                lambda: pd.forward_rows(pd_leaf), iters=10),
             "per-layer walk (3 K1 + 2 mixing)": time_ms(
-                lambda: pd_pl.forward_from_e(None, leaf_rows=pd_leaf),
+                lambda: pd_pl.forward_rows(pd_leaf),
                 iters=10),
             "class logsumexp": time_ms(lambda: torch.logsumexp(
                 pd_root + torch.log(pd.class_prior)[None], -1), iters=10),

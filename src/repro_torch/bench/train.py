@@ -215,7 +215,7 @@ def _block(value: torch.Tensor) -> None:
 def segment_breakdown(model, x: torch.Tensor) -> dict:
     """Per-segment time breakdown of one forward pass, measured eagerly.
 
-    The ``plan.segment`` spans in ``EiNet._forward_planned*`` are host
+    The ``plan.segment`` spans of ``EiNet.forward_rows`` are host
     time; to charge device time to each segment this enables obs tracing,
     installs a device synchronise as the obs sync hook (each span then
     waits for its own segment's output before closing) and runs one
@@ -224,7 +224,7 @@ def segment_breakdown(model, x: torch.Tensor) -> dict:
     synchronisations inflate the absolute numbers against the step's
     graphs, but the relative per-kind split is what the breakdown is for.
     """
-    if not model.grouped_active:
+    if not model.walks_plan():
         return {}
     with torch.inference_mode():
         model.log_likelihood(x)

@@ -7,8 +7,9 @@ state as ``nn.Parameter``s: ``phi`` (leaf EF parameters), ``einsum`` and
 ``mixing`` (one entry per pair) and ``class_prior``.  The forward pass is
 
     leaf rows (the EF log-densities summed over each leaf's scope) -> per
-    plan segment: one grouped log-einsum-exp launch (fused runs) or one
-    per-layer launch, then the pair's mixing -> root log-densities.
+    segment of one walk (``EiNet.forward_rows``): one grouped
+    log-einsum-exp launch (a fused or gather run) or one per-pair launch,
+    then the pair's mixing -> root log-densities.
 
 On a CUDA device the leaf rows are one hand-written kernel and the
 log-einsum-exp ops (per pair, canonical run, gather run) launch
@@ -47,7 +48,6 @@ from repro_torch.core.layers import (
     log_mix_exp,
     normalize_einsum_weights,
     normalize_mixing_weights,
-    scope_sums,
 )
 from repro_torch.kernels import ops
 from repro_torch.obs import health as health_lib
@@ -163,7 +163,6 @@ class EiNet(nn.Module):
         num_classes: int = 1,
         exponential_family: Optional[ExponentialFamily] = None,
         grouped: bool = True,
-        plan_budget: Optional[int] = None,
         device=None,
         seed: int = 0,
         health: Optional[bool] = None,
@@ -178,14 +177,16 @@ class EiNet(nn.Module):
         self.num_vars = graph.num_vars
         self.grouped = bool(grouped)
         self._build()
-        self.plan = plan_lib.plan_circuit(
-            self.pair_specs, grouped=self.grouped, plan_budget=plan_budget)
+        self.plan = plan_lib.plan_circuit(self.pair_specs,
+                                          grouped=self.grouped)
         self.exec_plan = self.plan.segments
+        self.pair_segments = plan_lib.plan_circuit(
+            self.pair_specs, grouped=False).segments
         # numerical-health telemetry (repro_torch.obs.health): the ctor knob
-        # wins, else the REPRO_HEALTH environment variable; the spec is fixed
-        # by the execution plan
+        # wins, else the REPRO_HEALTH environment variable; the spec has one
+        # slot a segment of the cacheless walk
         self.health = health_lib.resolve_health(health)
-        self.health_spec = health_lib.spec_for(self)
+        self.health_spec = health_lib.spec_for(len(self.walk_segments()))
         self._register_tables()
         self._noise_layout()
 
@@ -492,73 +493,112 @@ class EiNet(nn.Module):
                 self.ef.sufficient_statistics(x), self.ef.log_h(x),
                 marg_mask, self.leaf_gather)
 
-    def forward_from_e(
-        self,
-        e: Optional[torch.Tensor],
-        return_cache: bool = False,
-        leaf_rows: Optional[torch.Tensor] = None,
-    ):
-        """Bottom-up pass from the leaf EF tensor (or precomputed leaf rows).
-        Returns (B, num_classes) root log-densities (and the per-pair cache
-        when ``return_cache``).
+    def walks_plan(self, return_cache: bool = False) -> bool:
+        """Whether a forward walks the plan: when the plan groups pairs and
+        no cache is asked for.  The sampling path (``return_cache``) needs
+        every pair's activations, so it walks one segment a pair."""
+        return self.grouped_active and not return_cache
 
-        With grouped segments in the plan and no cache requested, the pass
-        walks the plan: each fused or gather segment is one grouped
-        log-einsum-exp launch.  The sampling path (``return_cache``) needs
-        every depth's activations, so it runs per layer, one launch per
-        pair, each pair a ``layer.einsum`` span (no plan walk: no
-        ``plan.segment``).  A segment's or pair's output marks the start
-        of its backward (``obs.grad_boundary``) for a capture observer.
+    def walk_segments(self, return_cache: bool = False
+                      ) -> Tuple[plan_lib.ExecSegment, ...]:
+        """The segments a forward walks, one health tap each: the plan's
+        (:meth:`walks_plan`), else one ``"layer"`` segment a pair."""
+        if self.walks_plan(return_cache):
+            return self.exec_plan
+        return self.pair_segments
+
+    def forward_rows(self, leaf_rows: torch.Tensor,
+                     return_cache: bool = False):
+        """The bottom-up pass from the leaf rows (B, num_leaves, K): one
+        walk over :meth:`walk_segments`.  Returns (B, num_classes) root
+        log-densities (and the per-pair cache when ``return_cache``).
+
+        A segment makes its new rows with one op: a ``"fused"`` run is one
+        grouped launch on the previous segment's rows, a ``"gather"`` run
+        one gather-grouped launch on the row buffer (mixing inside the
+        kernel), a ``"layer"`` segment the pair's own op on two static
+        slices of the previous segment's rows (a canonical pair) or on the
+        buffer's rows through the pair's tables, then its mixing.  The
+        buffer (leaves first, then each pair's einsum rows followed by its
+        mixing rows, the allocation order of ``_build``) is kept when the
+        structure gathers or the cache asks for it.
+
+        A plan walk counts one ``plan.segment.traces`` (kind label) and
+        opens one ``plan.segment`` span (kind, start, stop) a segment, as
+        in the reference; the counter counts walks (a CUDA-graph replay
+        adds nothing), and an ``obs.set_sync`` hook makes each span wait
+        for its segment's rows (:func:`_sync_segment`).  The per-pair walk
+        opens one ``layer.einsum`` span a pair, with no count and no sync.
+        A segment's output marks the start of its backward
+        (``<span>.bwd``, ``obs.grad_boundary``) for a capture observer.
         """
-        if leaf_rows is None:
-            with obs.span("layer.leaf"):
-                leaf_rows = scope_sums(e, self.leaf_gather)
-        if self.grouped_active and not return_cache:
-            if self.needs_buffer:
-                return self._forward_planned_buffer(leaf_rows)
-            return self._forward_planned(leaf_rows)
-        buffer = leaf_rows
-        build_buffer = self.needs_buffer or return_cache
+        planned = self.walks_plan(return_cache)
+        keep_buffer = self.needs_buffer or return_cache
+        buffer = prev_out = leaf_rows
         cache: Dict[str, Any] = {"S": []}
-        prev_out = leaf_rows
         root_out = None
-        for i, spec in enumerate(self.pair_specs):
-            with obs.span("layer.einsum", pair=i):
-                if spec.canonical:
-                    half = spec.num_partitions
-                    n_l = prev_out[:, :half, :]
-                    n_r = prev_out[:, half: 2 * half, :]
-                else:
-                    n_l = buffer[:, self._table(i, "left"), :]
-                    n_r = buffer[:, self._table(i, "right"), :]
-                s = self.pair_log_einsum_exp(self.einsum[i], n_l, n_r)
+        for seg in self.walk_segments(return_cache):
+            if planned:
+                obs.METRICS.counter("plan.segment.traces", kind=seg.kind).inc()
+                name, where = "plan.segment", dict(
+                    kind=seg.kind, start=seg.start, stop=seg.stop)
+            else:
+                name, where = "layer.einsum", dict(pair=seg.start)
+            i = seg.stop - 1
+            last = self.pair_specs[i]
+            with obs.span(name, **where):
+                s = self._segment_rows(seg, prev_out, buffer)
                 health_lib.tap_segment(s)
-                new_rows = [s]
                 mix_out = None
-                if spec.mix_global is not None:
-                    # (B, M, C, k_out)
+                if seg.kind != "gather" and last.mix_global is not None:
                     ln = s[:, self._table(i, "mix_child"), :]
                     mix_out = log_mix_exp(self.mixing[i], ln,
                                           self._table(i, "mix_mask"))
-                    new_rows.append(mix_out)
-                obs.grad_boundary(s if mix_out is None else mix_out,
-                                  "layer.einsum.bwd", pair=i)
+                out = s if mix_out is None else mix_out
+                obs.grad_boundary(out, name + ".bwd", **where)
                 if return_cache:
                     cache["S"].append(s)
-                if spec.is_final:
-                    root_out = (mix_out if spec.mix_global is not None
-                                else s[:, 0, :])
+                if last.is_final:
+                    root_out = out if mix_out is not None else s[:, 0, :]
                 else:
-                    prev_out = (s if mix_out is None
-                                else torch.cat([s, mix_out], 1))
-                    if build_buffer:
-                        buffer = torch.cat([buffer] + new_rows, dim=1)
+                    new = s if mix_out is None else torch.cat([s, mix_out], 1)
+                    # a gather run's rows span its depths: no pair slices them
+                    prev_out = None if seg.kind == "gather" else new
+                    if keep_buffer:
+                        buffer = torch.cat([buffer, new], dim=1)
+                if planned:
+                    _sync_segment(out)
         if root_out.dim() == 3:  # root was a mixing row: (B, 1, num_classes)
             root_out = root_out[:, 0, :]
         if return_cache:
             cache["buffer"] = buffer
             return root_out, cache
         return root_out
+
+    def _segment_rows(self, seg: plan_lib.ExecSegment,
+                      prev_out: Optional[torch.Tensor],
+                      buffer: torch.Tensor) -> torch.Tensor:
+        """One segment's einsum rows: its kind's log-einsum-exp op (a
+        gather run's rows include its in-kernel mixing)."""
+        span = range(seg.start, seg.stop)
+        if seg.kind == "fused":
+            return ops.grouped_log_einsum_exp(
+                [self.einsum[t] for t in span], prev_out)
+        if seg.kind == "gather":
+            return ops.gather_grouped_log_einsum_exp(
+                seg.tables, [self.einsum[t] for t in span],
+                [self.mixing[t] for t in span
+                 if self.pair_specs[t].mix_global is not None], buffer)
+        i = seg.start
+        spec = self.pair_specs[i]
+        if spec.canonical and prev_out is not None:
+            half = spec.num_partitions
+            n_l = prev_out[:, :half, :]
+            n_r = prev_out[:, half: 2 * half, :]
+        else:
+            n_l = buffer[:, self._table(i, "left"), :]
+            n_r = buffer[:, self._table(i, "right"), :]
+        return self.pair_log_einsum_exp(self.einsum[i], n_l, n_r)
 
     def pair_log_einsum_exp(self, w: torch.Tensor, ln_left: torch.Tensor,
                             ln_right: torch.Tensor) -> torch.Tensor:
@@ -567,119 +607,14 @@ class EiNet(nn.Module):
         (``core.baseline.NaiveEiNet``) overrides it."""
         return ops.log_einsum_exp(w, ln_left, ln_right)
 
-    def _forward_planned(self, leaf_rows: torch.Tensor) -> torch.Tensor:
-        """The depth-grouped bottom-up pass over an all-canonical plan:
-        "fused" segments are one grouped launch, "layer" segments the
-        per-layer op on the previous layer's two static slices.
-
-        Each segment counts one ``plan.segment.traces`` (kind label) and is
-        one ``plan.segment`` span (kind, start, stop), as in the reference.
-        The walk runs once an eager call and once a CUDA-graph capture, so
-        the counter counts walks and a replay adds nothing; the span is
-        host time unless an ``obs.set_sync`` hook makes each segment wait
-        for its output (:func:`_sync_segment`)."""
-        prev_out = leaf_rows
-        root_out = None
-        for seg in self.exec_plan:
-            last = self.pair_specs[seg.stop - 1]
-            obs.METRICS.counter("plan.segment.traces", kind=seg.kind).inc()
-            with obs.span("plan.segment", kind=seg.kind, start=seg.start,
-                          stop=seg.stop):
-                if seg.fused:
-                    ws = [self.einsum[t] for t in range(seg.start, seg.stop)]
-                    s = ops.grouped_log_einsum_exp(ws, prev_out)
-                else:
-                    half = last.num_partitions
-                    s = self.pair_log_einsum_exp(
-                        self.einsum[seg.start],
-                        prev_out[:, :half, :],
-                        prev_out[:, half: 2 * half, :],
-                    )
-                health_lib.tap_segment(s)
-                mix_out = None
-                if last.mix_global is not None:
-                    i = seg.stop - 1
-                    ln = s[:, self._table(i, "mix_child"), :]
-                    mix_out = log_mix_exp(self.mixing[i], ln,
-                                          self._table(i, "mix_mask"))
-                _sync_segment(s if mix_out is None else mix_out)
-                obs.grad_boundary(s if mix_out is None else mix_out,
-                                  "plan.segment.bwd", kind=seg.kind,
-                                  start=seg.start, stop=seg.stop)
-                if last.is_final:
-                    root_out = (mix_out if last.mix_global is not None
-                                else s[:, 0, :])
-                else:
-                    prev_out = (s if mix_out is None
-                                else torch.cat([s, mix_out], 1))
-        if root_out.dim() == 3:
-            root_out = root_out[:, 0, :]
-        return root_out
-
-    def _forward_planned_buffer(self, leaf_rows: torch.Tensor) -> torch.Tensor:
-        """The plan walk for gather-topology (Poon-Domingos) structures,
-        over the global row buffer: leaves first, then each pair's einsum
-        rows followed by its mixing rows, the allocation order of
-        ``_build``.  A "gather" segment is one gather-grouped launch (mixing
-        inside the kernel) whose new rows append in global order; a "layer"
-        segment is the per-pair op on the buffer's gathered children, then
-        its mixing.  The planner emits no "fused" segment here: it would
-        skip interior rows and leave holes in the buffer.  Segments are
-        counted and spanned as in :meth:`_forward_planned`."""
-        buffer = leaf_rows
-        root_out = None
-        for seg in self.exec_plan:
-            obs.METRICS.counter("plan.segment.traces", kind=seg.kind).inc()
-            if seg.kind == "gather":
-                with obs.span("plan.segment", kind=seg.kind,
-                              start=seg.start, stop=seg.stop):
-                    span = range(seg.start, seg.stop)
-                    ws = [self.einsum[t] for t in span]
-                    vs = [self.mixing[t] for t in span
-                          if self.pair_specs[t].mix_global is not None]
-                    new = ops.gather_grouped_log_einsum_exp(seg.tables, ws,
-                                                            vs, buffer)
-                    health_lib.tap_segment(new)
-                    obs.grad_boundary(new, "plan.segment.bwd", kind=seg.kind,
-                                      start=seg.start, stop=seg.stop)
-                    buffer = torch.cat([buffer, new], dim=1)
-                    _sync_segment(buffer)
-                continue
-            with obs.span("plan.segment", kind=seg.kind, start=seg.start,
-                          stop=seg.stop):
-                i = seg.start
-                spec = self.pair_specs[i]
-                s = self.pair_log_einsum_exp(
-                    self.einsum[i], buffer[:, self._table(i, "left"), :],
-                    buffer[:, self._table(i, "right"), :])
-                health_lib.tap_segment(s)
-                mix_out = None
-                if spec.mix_global is not None:
-                    ln = s[:, self._table(i, "mix_child"), :]
-                    mix_out = log_mix_exp(self.mixing[i], ln,
-                                          self._table(i, "mix_mask"))
-                _sync_segment(s if mix_out is None else mix_out)
-                obs.grad_boundary(s if mix_out is None else mix_out,
-                                  "plan.segment.bwd", kind=seg.kind,
-                                  start=seg.start, stop=seg.stop)
-                if spec.is_final:
-                    root_out = (mix_out if spec.mix_global is not None
-                                else s[:, 0, :])
-                else:
-                    new = s if mix_out is None else torch.cat([s, mix_out], 1)
-                    buffer = torch.cat([buffer, new], dim=1)
-        if root_out.dim() == 3:
-            root_out = root_out[:, 0, :]
-        return root_out
-
     def forward(
         self,
         x: torch.Tensor,
         marg_mask: Optional[torch.Tensor] = None,
         return_cache: bool = False,
     ):
-        return self.forward_from_e(None, return_cache=return_cache,
-                                   leaf_rows=self.leaf_rows(x, marg_mask))
+        return self.forward_rows(self.leaf_rows(x, marg_mask),
+                                 return_cache=return_cache)
 
     def log_likelihood(
         self, x: torch.Tensor, marg_mask: Optional[torch.Tensor] = None

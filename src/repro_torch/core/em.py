@@ -135,7 +135,7 @@ def em_statistics(model: EiNet, x: torch.Tensor) -> Dict[str, Any]:
         lr = leaf_rows.requires_grad_(True)
         obs.grad_boundary(lr, "layer.leaf.bwd")
         logprior = torch.log(model.class_prior.detach()).requires_grad_(True)
-        root = model.forward_from_e(None, leaf_rows=lr)
+        root = model.forward_rows(lr)
         val = torch.logsumexp(root + logprior[None, :], dim=-1).sum()
         grads = torch.autograd.grad(
             val, einsum_w + mixing_v + [lr, logprior], allow_unused=True)

@@ -25,16 +25,13 @@ model's tile sizes and are recorded, not used as CUDA launch geometry (each
 CUDA kernel sizes its own tiles against the card's shared memory).  One
 check is the port's own: a canonical run joins a fused segment only where
 the fused kernels have a launch geometry for it (:func:`kernels_hold`), on
-every device, so the CPU plans what the card runs.
-
-The budget resolves in priority order: the ``plan_budget=`` ctor knob, the
-``REPRO_TORCH_PLAN_BUDGET`` env var (bytes), then :data:`PLAN_BUDGET_BYTES`.
+every device, so the CPU plans what the card runs.  A model plans at
+:data:`PLAN_BUDGET_BYTES`; nothing in the environment moves it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.kernels import grouped as grouped_kernels
@@ -43,18 +40,6 @@ from repro_torch.kernels import grouped as grouped_kernels
 # reference's 12 MiB VMEM slice, kept so plans match the reference)
 PLAN_BUDGET_BYTES = 12 * 2 ** 20
 _GROUP_BLOCK_B = (128, 64, 32)  # planner's batch-tile candidates, best first
-
-PLAN_BUDGET_ENV = "REPRO_TORCH_PLAN_BUDGET"
-
-
-def resolve_plan_budget(ctor_value: Optional[int] = None) -> int:
-    """Effective plan budget in bytes: ctor knob > env var > default."""
-    if ctor_value is not None:
-        return int(ctor_value)
-    env = os.environ.get(PLAN_BUDGET_ENV, "").strip()
-    if env:
-        return int(env)
-    return PLAN_BUDGET_BYTES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -359,7 +344,7 @@ def _why_not_gather(specs: Sequence, i: int, plan_budget: int) -> str:
 def plan_circuit(
     specs: Sequence,
     grouped: bool = True,
-    plan_budget: Optional[int] = None,
+    plan_budget: int = PLAN_BUDGET_BYTES,
 ) -> CircuitPlan:
     """Compile the pair list into the execution plan.
 
@@ -373,7 +358,6 @@ def plan_circuit(
     their place.  Pairs joining no run become layer segments with the
     reason recorded.
     """
-    budget = resolve_plan_budget(plan_budget)
     n = len(specs)
     mix_flags = tuple(sp.mix_global is not None for sp in specs)
 
@@ -383,7 +367,7 @@ def plan_circuit(
             num_pairs=n,
             mix_flags=mix_flags,
             fallback_reasons=tuple(reasons),
-            plan_budget=budget,
+            plan_budget=plan_budget,
         )
 
     if not grouped or n < 2:
@@ -404,7 +388,7 @@ def plan_circuit(
             best = None
             j = i + 2
             while j <= n:
-                tiling = pick_tiling(specs, i, j, budget)
+                tiling = pick_tiling(specs, i, j, plan_budget)
                 if tiling is None:
                     break
                 best = (j, tiling)
@@ -417,7 +401,8 @@ def plan_circuit(
                 i = j
             else:
                 segments.append(ExecSegment(i, i + 1, "layer"))
-                reasons.append((i, _why_not_canonical(specs, i, budget)))
+                reasons.append(
+                    (i, _why_not_canonical(specs, i, plan_budget)))
                 i += 1
         return _finish(segments, reasons)
 
@@ -425,7 +410,7 @@ def plan_circuit(
         best = None
         j = i + 2
         while j <= n:
-            bb = pick_gather_batch(specs, i, j, budget)
+            bb = pick_gather_batch(specs, i, j, plan_budget)
             if bb is None:
                 break
             best = (j, bb)
@@ -441,6 +426,6 @@ def plan_circuit(
             i = j
         else:
             segments.append(ExecSegment(i, i + 1, "layer"))
-            reasons.append((i, _why_not_gather(specs, i, budget)))
+            reasons.append((i, _why_not_gather(specs, i, plan_budget)))
             i += 1
     return _finish(segments, reasons)

@@ -213,11 +213,8 @@ def probe_model(model, x: np.ndarray) -> Dict[str, Any]:
     batch ``x``: the batch LL (mean, min, non-finite count), the leaf rows'
     saturation fraction and each plan segment's (the health taps)."""
     xt = torch.from_numpy(np.asarray(x, np.float32)).to(model.device)
-    leaf_rows = model.leaf_rows(xt, None)
-    with health_lib.collect() as taps:
-        root = model.forward_from_e(None, leaf_rows=leaf_rows)
-    ll = torch.logsumexp(root + torch.log(model.class_prior)[None, :],
-                         dim=-1).cpu().numpy()
+    leaf_rows, ll, taps = health_lib.probe_forward(model, xt)
+    ll = ll.cpu().numpy()
     return {
         "probe_batch": int(xt.shape[0]),
         "ll_mean": float(np.mean(ll)),

@@ -146,7 +146,7 @@ def mixture_em_statistics(mix: EiNetMixture,
         comp_ll = []
         for c in range(c_n):
             with mix.bound(c) as net:
-                root = net.forward_from_e(None, leaf_rows=lrs[c])
+                root = net.forward_rows(lrs[c])
             with obs.span("mixture.top"):
                 comp_ll.append(torch.logsumexp(root + logprior[c][None, :],
                                                -1))

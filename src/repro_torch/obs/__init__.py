@@ -17,12 +17,12 @@ Spans (emitted when tracing is on; while a graph is captured they also
 mark its layers, on or off): ``serve.step``, ``serve.warmup``,
 ``compile.graph``, ``train.step``, ``plan.segment{kind,start,stop}`` (a
 plan segment: einsum layers and mixing), ``layer.einsum{pair}`` (one pair
-of the per-layer pass), ``layer.leaf`` (``EiNet.leaf_rows``, and
-``forward_from_e``'s scope sums of an EF tensor), ``query.noise`` (Philox
-row noise), ``query.topdown`` (the sampling and MPE pass), ``em.mstep``,
-``em.blend``, a mixture's ``mixture.component{c}`` (a bound component),
-``mixture.top`` (its class-prior logsumexp and top-level ``log_mix_exp``)
-and ``mixture.weights`` (the mixture weights' statistics, renormalisation,
+of the per-pair walk), ``layer.leaf`` (``EiNet.leaf_rows``),
+``query.noise`` (Philox row noise), ``query.topdown`` (the sampling and
+MPE pass), ``em.mstep``, ``em.blend``, a mixture's
+``mixture.component{c}`` (a bound component), ``mixture.top`` (its
+class-prior logsumexp and top-level ``log_mix_exp``) and
+``mixture.weights`` (the mixture weights' statistics, renormalisation,
 blend and copy), and in a captured E-step ``plan.segment.bwd``,
 ``layer.einsum.bwd``, ``layer.leaf.bwd`` and ``mixture.top.bwd`` (the
 backward after each layer's output gradient is complete).

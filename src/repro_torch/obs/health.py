@@ -24,13 +24,13 @@ Layout (:class:`HealthSpec`), the reference's slots in its order:
   * ``seg{i}.sat_frac``  -- per execution-plan segment, the saturated-row
     fraction of that segment's log-einsum-exp output.
 
-The per-segment slots come from **taps**: ``core/einet.py``'s plan walks
-call :func:`tap_segment` after each segment.  With no collector active a
-tap is one thread-local attribute read and adds no tensor op, so a step
-with health off launches exactly what it launched before the taps
-existed.  Under :func:`collect` -- active only around the dedicated health
-forward of ``train/pipeline.py`` -- each tap appends its segment's
-saturation fraction to the vector under construction.  The E-step's own
+The per-segment slots come from **taps**: the walk of
+``EiNet.forward_rows`` calls :func:`tap_segment` after each segment.  With
+no collector active a tap is one thread-local attribute read and adds no
+tensor op, so a step with health off launches exactly what it launched
+before the taps existed.  Under :func:`collect` -- active only around the
+dedicated health forward of ``train/pipeline.py`` -- each tap appends its
+segment's saturation fraction to the vector under construction.  The E-step's own
 forward never runs under a collector.
 
 Gating: the ``EiNet(health=...)`` ctor knob (``None`` defers to the
@@ -107,17 +107,11 @@ class HealthSpec:
         return {n: float(v) for n, v in zip(self.names, vec)}
 
 
-def num_segments(model) -> int:
-    """Tap count of one forward pass: plan segments when the grouped walk is
-    active, else one per (einsum, mixing) pair of the per-layer loop."""
-    if model.grouped_active:
-        return len(model.exec_plan)
-    return len(model.pair_specs)
-
-
-def spec_for(model) -> HealthSpec:
+def spec_for(num_segments: int) -> HealthSpec:
+    """The layout of a model whose forward walks ``num_segments`` segments
+    (``EiNet.walk_segments``)."""
     return HealthSpec(BASE_SLOTS + tuple(
-        f"seg{i}.sat_frac" for i in range(num_segments(model))))
+        f"seg{i}.sat_frac" for i in range(num_segments)))
 
 
 # ------------------------------------------------------------------- taps
@@ -149,7 +143,7 @@ def collect() -> _Collector:
 
 
 def tap_segment(value: torch.Tensor) -> None:
-    """Per-segment tap site (called by the ``core/einet.py`` plan walks).
+    """Per-segment tap site (called by ``EiNet.forward_rows``).
 
     No collector active: one thread-local attribute read, no tensor op.
     Collector active: appends this segment's saturated-entry fraction to
@@ -185,6 +179,23 @@ def _weight_entropy(einsum_w: List[torch.Tensor]) -> torch.Tensor:
     return torch.mean(torch.stack(ents))
 
 
+def probe_forward(model, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
+    """One forward of ``model`` on the batch ``x`` through the tap sites:
+    (leaf rows, per-row log-likelihood, one saturation fraction a
+    segment).  The taps must match the model's health spec."""
+    leaf_rows = model.leaf_rows(x, None)
+    with collect() as taps:
+        root = model.forward_rows(leaf_rows)
+    if len(taps) != model.health_spec.num_segments:
+        raise AssertionError(
+            f"health taps out of sync with the plan: got {len(taps)} "
+            f"segments, spec has {model.health_spec.num_segments}")
+    ll_rows = torch.logsumexp(
+        root + torch.log(model.class_prior)[None, :], dim=-1)
+    return leaf_rows, ll_rows, taps
+
+
 @torch.no_grad()
 def health_vector(model, probe_x: torch.Tensor, stats: Dict[str, Any],
                   new_params: Dict[str, Any]) -> torch.Tensor:
@@ -196,16 +207,7 @@ def health_vector(model, probe_x: torch.Tensor, stats: Dict[str, Any],
     the first microbatch otherwise; ``stats`` are the E-step statistics
     (full batch, exact); ``new_params`` the post-update parameters whose
     entropy and clamp state are monitored."""
-    spec = model.health_spec
-    leaf_rows = model.leaf_rows(probe_x, None)
-    with collect() as taps:
-        root = model.forward_from_e(None, leaf_rows=leaf_rows)
-    if len(taps) != spec.num_segments:
-        raise AssertionError(
-            f"health taps out of sync with the plan: got {len(taps)} "
-            f"segments, spec has {spec.num_segments}")
-    ll_rows = torch.logsumexp(
-        root + torch.log(model.class_prior)[None, :], dim=-1)
+    leaf_rows, ll_rows, taps = probe_forward(model, probe_x)
     norms = torch.stack(
         [torch.sqrt(torch.sum(torch.square(n))) for n in stats["n_einsum"]]
         + [torch.sqrt(torch.sum(torch.square(stats["s_phi"])))])

@@ -119,16 +119,6 @@ def test_canonical_shapes_match_reference(shape):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_grouped_plan_equals_per_layer_loop():
-    g = random_binary_trees(64, 3, 3, seed=0)
-    m_g = EiNet(g, num_sums=5, device="cpu", seed=1)
-    m_p = EiNet(g, num_sums=5, grouped=False, device="cpu", seed=1)
-    assert m_g.grouped_active and not m_p.grouped_active
-    x = torch.from_numpy(_data(64, 6, 3)[0])
-    with torch.inference_mode():
-        assert torch.equal(m_g.log_likelihood(x), m_p.log_likelihood(x))
-
-
 def test_pd_structure_on_cpu_matches_reference():
     """A gather-planned (Poon-Domingos) structure walks its plan on the CPU
     with the gather run's plain version, as it walks it on the card with
@@ -146,24 +136,34 @@ def test_pd_structure_on_cpu_matches_reference():
 PD_SMOKE_SHAPES = [(4, 8, 2, 4), (2, 8, 2, 6), (4, 4, 1, 3)]
 
 
-@pytest.mark.parametrize("shape", PD_SMOKE_SHAPES, ids=str)
-def test_pd_planned_forward_equals_per_layer_loop(shape):
-    """The gather plan (one gather launch, the root pair per layer) is the
-    per-layer loop's arithmetic, bit for bit, saturated leaf rows too."""
-    h, w, delta, k = shape
-    g = poon_domingos(h, w, delta)
+@pytest.mark.parametrize("structure", [("rat", 64, 3, 3, 5)] + [
+    ("pd",) + shape for shape in PD_SMOKE_SHAPES], ids=str)
+def test_pd_planned_forward_equals_per_layer_loop(structure):
+    """The plan walk (a fused RAT run; a PD gather run and the root pair)
+    is the per-pair walk's arithmetic, bit for bit, with a saturated leaf
+    row too, and so is the per-pair walk a cache asks for."""
+    kind, a, b, c, k = structure
+    if kind == "rat":
+        g, plan = random_binary_trees(a, b, c, seed=0), ["fused"]
+    else:
+        g, plan = poon_domingos(a, b, c), ["gather", "layer"]
     m_g = EiNet(g, num_sums=k, device="cpu", seed=2)
     m_p = EiNet(g, num_sums=k, grouped=False, device="cpu", seed=2)
-    kinds = [s.kind for s in m_g.exec_plan]
-    assert kinds == ["gather", "layer"] and not m_p.grouped_active
-    x = torch.from_numpy(_data(h * w, 6, 6)[0])
+    assert [s.kind for s in m_g.exec_plan] == plan
+    assert m_g.walk_segments() == m_g.exec_plan
+    assert not m_p.grouped_active
+    assert m_p.walk_segments() == m_g.walk_segments(return_cache=True)
+    x = torch.from_numpy(_data(g.num_vars, 6, 6)[0])
     with torch.inference_mode():
         assert torch.equal(m_g.log_likelihood(x), m_p.log_likelihood(x))
         rows = m_g.leaf_rows(x, None)
         rows[:, 0] = NEG_INF  # one leaf region fully marginalized
-        a = m_g.forward_from_e(None, leaf_rows=rows)
-        assert torch.isfinite(a).all()
-        assert torch.equal(a, m_p.forward_from_e(None, leaf_rows=rows))
+        planned = m_g.forward_rows(rows)
+        assert torch.isfinite(planned).all()
+        assert torch.equal(planned, m_p.forward_rows(rows))
+        cached, _ = m_g.forward_rows(rows, return_cache=True)
+        assert torch.equal(planned, cached)
+        assert torch.equal(m_g(x), m_g(x, return_cache=True)[0])
 
 
 @pytest.mark.parametrize("shape", [(4, 8, 2, 4), (4, 4, 1, 3)], ids=str)

@@ -96,8 +96,7 @@ def test_spec_matches_plan(structure):
         ref = RefEiNet(ref_rbt(8, 2, 2, seed=0), num_sums=3,
                        grouped=grouped)
     spec = net.health_spec
-    want = len(net.exec_plan) if net.grouped_active else len(net.pair_specs)
-    assert spec.num_segments == want
+    assert spec.num_segments == len(net.walk_segments())
     assert spec.names == ref.health_spec.names
     assert spec.names[: len(health_lib.BASE_SLOTS)] == health_lib.BASE_SLOTS
     assert spec.index("ll.mean") == 0
@@ -168,7 +167,7 @@ def test_pd_gather_taps(grouped):
     with torch.no_grad():
         rows = net.leaf_rows(x, None)
         with health_lib.collect() as taps:
-            net.forward_from_e(None, leaf_rows=rows)
+            net.forward_rows(rows)
     assert len(taps) == net.health_spec.num_segments
     assert all(np.isfinite(float(t)) for t in taps)
     if grouped:

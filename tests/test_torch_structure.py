@@ -110,11 +110,14 @@ def test_plan_segments_match_bench_train(arch):
 
 
 def test_plan_budget_env_is_its_own(monkeypatch):
-    specs = build_einet(get_config("einet_rat"), device="meta").pair_specs
+    """No environment variable moves the port's plan: neither the
+    reference's budget variable nor one of the port's name."""
     monkeypatch.setenv("REPRO_VMEM_BUDGET", "1")
-    assert plan_lib.plan_circuit(specs).segments[0].kind == "fused"
-    monkeypatch.setenv(plan_lib.PLAN_BUDGET_ENV, "1")
-    assert all(s.kind == "layer" for s in plan_lib.plan_circuit(specs).segments)
+    monkeypatch.setenv("REPRO_TORCH_PLAN_BUDGET", "1")
+    port = build_einet(get_config("einet_rat"), device="meta")
+    assert [s.kind for s in port.exec_plan] == ["fused"]
+    assert port.plan.plan_budget == plan_lib.PLAN_BUDGET_BYTES
+    assert plan_lib.plan_circuit(port.pair_specs).segments[0].kind == "fused"
 
 
 def test_hopper_sized_budget_refuses_the_fused_run():
